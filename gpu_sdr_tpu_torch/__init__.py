@@ -1,0 +1,21 @@
+"""gpu_sdr_tpu_torch — the PyTorch / CUDA port of gpu_sdr_tpu.
+
+The same readout framework for frequency-multiplexed superconducting
+resonators, written for an NVIDIA Hopper card: plain tensor code is
+PyTorch on ``torch.complex64`` tensors, and every TPU kernel on the
+ported path is a hand-written CUDA kernel (``csrc/*.cu``) built with
+``nvcc`` at first use and bound with ``ctypes`` (``kernels/build.py``).
+
+The layout mirrors the JAX package (``ops/``, ``engine/``,
+``measure.py``, ``config.py``) so each module's counterpart is easy to
+find.  The JAX package stays the reference; this package never imports
+jax.  It shares the JAX-free ``gpu_sdr_tpu.params`` and
+``gpu_sdr_tpu.golden`` modules.
+
+Ported slice: the single-front-end TONES / NOISE PFB readout of
+``measure.run_measurement`` (fused loopback and host-fed pipeline).
+Every other branch raises ``NotImplementedError`` naming the ROADMAP
+item that will port it.
+"""
+
+__version__ = "0.1.0"

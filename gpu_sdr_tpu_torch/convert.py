@@ -1,0 +1,59 @@
+"""Carry state from the JAX package into the port.
+
+The JAX package keeps complex state as float32 (re, im) pairs (its
+``ops.cplx.C``, a NamedTuple, or any (re, im) pair of arrays) and the
+fused channelizer's spare in the transposed (n1, avg-1, n2) kernel
+layout.  These functions take such state as array-likes (numpy, or
+anything numpy can read) and return the port's tensors, so a stream
+started by the JAX package continues in the port where it stopped.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def complex_from_pair(pair, device) -> torch.Tensor:
+    """A (re, im) float pair -> complex64 tensor of the same shape."""
+    re, im = pair
+    re = np.asarray(re, dtype=np.float32)
+    im = np.asarray(im, dtype=np.float32)
+    if re.shape != im.shape:
+        raise ValueError(f"pair shapes differ: {re.shape} vs {im.shape}")
+    out = np.empty(re.shape, dtype=np.complex64)
+    out.real, out.imag = re, im
+    return torch.from_numpy(out).to(device)
+
+
+def host_spare(pair, avg: int, nfft: int, device) -> torch.Tensor:
+    """The host-fed PFB demodulator's flat ((avg-1)*nfft,) spare
+    (gpu_sdr_tpu/ops/pfb.pfb_spare_init) -> the port's, same layout."""
+    s = complex_from_pair(pair, device)
+    if tuple(s.shape) != ((avg - 1) * nfft,):
+        raise ValueError(f"host spare shape {tuple(s.shape)}, expected "
+                         f"({(avg - 1) * nfft},)")
+    return s
+
+
+def channelizer_spare(pair_t, device) -> torch.Tensor:
+    """The fused chain's transposed (n1, avg-1, n2) spare_t (the layout
+    of gpu_sdr_tpu/ops/pallas_channelizer.transpose_block) -> the port's
+    (avg-1, nfft) spare frames, the inverse of transpose_block."""
+    s = complex_from_pair(pair_t, device)
+    if s.ndim != 3:
+        raise ValueError(f"spare_t must be (n1, avg-1, n2), got "
+                         f"{tuple(s.shape)}")
+    n1, lead, n2 = s.shape
+    return s.permute(1, 0, 2).reshape(lead, n1 * n2).contiguous()
+
+
+def window(w, device) -> torch.Tensor:
+    """A PFB prototype window (float, (nfft*avg,)) -> float32 tensor."""
+    return torch.from_numpy(np.asarray(w, dtype=np.float32).copy()).to(
+        device)
+
+
+def tone_phase(phase, device) -> torch.Tensor:
+    """ToneCombConfig's int32 per-channel phase -> the port's int64."""
+    return torch.from_numpy(np.asarray(phase).astype(np.int64)).to(device)

@@ -1,0 +1,151 @@
+"""Fused on-device loopback measurements (port of gpu_sdr_tpu/engine/fused.py).
+
+When the measurement's source is the synthetic loopback (TX generator
+feeding RX directly, the reference's --sw_loop), the whole chain stays
+on the device and nothing touches the host until each block's
+demodulated output is fetched.
+
+Ported mode pairs: TONES->TONES (PFB) and TONES->NOISE.  A
+bin-quantized comb takes ``channelizer_wavetable``: one comb frame and
+the channelizer kernel in const-frame mode, so the block never exists
+in device memory.  Any other comb takes ``generic_scan``: the generator
+and the demodulator of the host-fed path, run back to back on the
+device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from gpu_sdr_tpu.params import AntennaParams, WaveType
+
+from ..config import resolve_device
+from ..ops import cplx
+from ..ops import pfb as pfb_ops
+from ..ops.channelizer import (can_fuse_channelizer, channelizer_consts,
+                               channelizer_frames)
+from ..ops.tonegen import comb_period, tone_comb_wavetable_block
+from .demodulator import make_demodulator
+from .generator import make_generator
+from .pipeline import PipelineResult, run_chunked
+
+
+@dataclasses.dataclass
+class FusedLoopback:
+    """A TX -> RX loopback chain run block by block on one device."""
+
+    tx: AntennaParams
+    rx: AntennaParams
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.demod = make_demodulator(self.rx, self.device)
+        chain = self._try_channelizer_chain()
+        # which chain this loopback runs: measure.LAST_DISPATCH subpath
+        self.path = (chain.path_name if chain is not None
+                     else "generic_scan")
+        if chain is not None:
+            self._init_state = chain.init_state
+            self._step = chain.step
+        else:
+            gen = make_generator(self.tx, self.demod.plan.block_len,
+                                 self.device)
+            demod = self.demod
+
+            def step(st):
+                g, d = st
+                g, x = gen.step(g)
+                d, y = demod.step(d, x)
+                return (g, d), y
+
+            self._init_state = lambda: (gen.init_state(),
+                                        demod.init_state())
+            self._step = step
+
+    def _try_channelizer_chain(self):
+        """TONES->TONES / TONES->NOISE through the channelizer kernel
+        with a bin-quantized comb as one wavetable frame."""
+        tx, rx = self.tx, self.rx
+        if not (tx.wave_type and tx.wave_type[0] == WaveType.TONES
+                and rx.wave_type
+                and rx.wave_type[0] in (WaveType.TONES, WaveType.NOISE)):
+            return None
+        if tx.burst_on > 0 or int(rx.fft_tones) <= 0:
+            return None
+        nfft, avg = int(rx.fft_tones), int(rx.pf_average)
+        full_spectrum = rx.wave_type[0] == WaveType.NOISE
+        L = self.demod.plan.block_len
+        freqs = tuple(int(f) for f in tx.freq)
+        if not freqs or nfft % comb_period(freqs, int(tx.rate)) != 0:
+            return None        # comb not one-frame-periodic: generic path
+        bins = None if full_spectrum else tuple(
+            int(b) for b in pfb_ops.tone_bins(rx.freq, rx.rate, nfft))
+        cfg = pfb_ops.PFBConfig(nfft=nfft, avg=avg, rate=int(rx.rate),
+                                bins=bins, decim=int(rx.decim))
+        if not can_fuse_channelizer(cfg, L):
+            return None
+        decim = int(rx.decim)
+        if decim > 0 and (L // nfft) % decim != 0:
+            return None
+        ampls = tuple(float(a) for a in (tx.ampl or [1.0] * len(freqs)))
+        return _ChannelizerWavetableChain(cfg, freqs, ampls, L, decim,
+                                          self.device)
+
+    def run(self, sinks=(), usrp_number: int = 0,
+            front_end: str = "A") -> PipelineResult:
+        """Stream the full acquisition through the chain."""
+        plan = self.demod.plan
+        return run_chunked(self._step, self._init_state, plan.n_blocks,
+                           plan.block_len, self.demod.n_channels,
+                           plan.total_out_rows, self.device, sinks,
+                           usrp_number=usrp_number, front_end=front_end)
+
+
+class _ChannelizerWavetableChain:
+    """One comb wavetable frame + the channelizer kernel in const-frame
+    mode (ops/channelizer.channelizer_frames).  Streaming state: the
+    (avg-1, nfft) spare frames."""
+
+    path_name = "channelizer_wavetable"
+
+    def __init__(self, cfg, freqs, ampls, L: int, decim: int, device):
+        nfft = cfg.nfft
+        self.T = L // nfft
+        self.decim = decim
+        self._frame = cplx.from_np(tone_comb_wavetable_block(
+            freqs, ampls, cfg.rate, nfft), device).reshape(1, nfft)
+        self._consts = channelizer_consts(cfg, device)
+        self._bins = cfg.bins_tensor(device)
+        self._spare0 = torch.zeros((cfg.avg - 1, nfft),
+                                   dtype=torch.complex64, device=device)
+
+    def init_state(self):
+        return self._spare0
+
+    def step(self, spare):
+        spare, y = channelizer_frames(self._consts, spare, self._frame,
+                                      nframes=self.T)
+        if self._bins is not None:
+            y = pfb_ops.select_tones(y, self._bins)
+        if self.decim > 0:
+            y = pfb_ops.average_frames(y, self.decim)
+        return spare, y
+
+
+_FUSABLE = {
+    (WaveType.TONES, WaveType.TONES),
+    (WaveType.TONES, WaveType.NOISE),
+}
+
+
+def can_fuse(tx: Optional[AntennaParams], rx: AntennaParams) -> bool:
+    """Whether FusedLoopback takes this mode pair.  The JAX package also
+    fuses TONES->DIRECT and CHIRP->CHIRP; those wait for the DIRECT and
+    CHIRP ports (ROADMAP Queue 1 items 4 and 5)."""
+    if tx is None or not tx.wave_type or not rx.wave_type:
+        return False
+    return (tx.wave_type[0], rx.wave_type[0]) in _FUSABLE

@@ -1,0 +1,114 @@
+"""Build ``csrc/*.cu`` with nvcc into one shared library and load it
+with ctypes.
+
+The sources are compiled at first use, for ``sm_90a`` (Hopper), into
+``gpu_sdr_tpu_torch/_build/``.  The library's file name carries a hash
+of the sources and the flags, so an unchanged checkout reuses its build
+and an edited source rebuilds.  Each C entry point takes device
+pointers and PyTorch's current stream as ``void*``, launches, and
+returns ``cudaGetLastError()``; ``check`` turns a non-zero code into an
+exception.  Nothing here synchronizes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("presum.cu", "channelizer.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib = None
+# what the last build in this process took and printed (None: the
+# library came from an earlier build of the same sources)
+build_seconds = None
+build_log = ""
+
+
+def nvcc_path() -> str:
+    """The nvcc binary: $CUDA_HOME/bin, /usr/local/cuda/bin, or PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            p = Path(root) / "bin" / "nvcc"
+            if p.is_file():
+                return str(p)
+    p = shutil.which("nvcc")
+    if p is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return p
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libsdr_kernels_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library of the same hash exists."""
+    global build_seconds, build_log
+    out = library_path()
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(CSRC_DIR / s) for s in SOURCES]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def _bind(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.sdr_presum.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.sdr_presum.restype = ci
+    lib.sdr_channelizer.argtypes = [vp, vp, vp, vp, vp, vp,
+                                    ci, ci, ci, ci, ci, vp]
+    lib.sdr_channelizer.restype = ci
+    lib.sdr_channelizer_frame_tile.argtypes = []
+    lib.sdr_channelizer_frame_tile.restype = ci
+    lib.sdr_error_string.argtypes = [ci]
+    lib.sdr_error_string.restype = ctypes.c_char_p
+
+
+def load():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _bind(lib)
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if rc != 0:
+        msg = _lib.sdr_error_string(rc).decode() if _lib else "?"
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
