@@ -9,7 +9,7 @@ and exits non-zero at the first phase that fails:
 
 1. the card: ``nvidia-smi`` name and power limit, torch / CUDA versions,
    compute capability 9.0;
-2. the nvcc build of both kernels, with ptxas' resource report;
+2. the nvcc build of the kernels, with ptxas' resource report;
 3. each kernel against its plain PyTorch version on the card at the main
    path's shape (nfft 1000, avg 4, 6000 frames): the channelizer in both
    modes at >= 90 dB SNR and its first 16 frames against a float64
@@ -19,14 +19,29 @@ and exits non-zero at the first phase that fails:
    1000 bin-quantized tones at 100 Msps into a 1000-bin TONES receiver,
    6,000,000-sample blocks, 100 blocks, fused on the card;
 5. the same measurement host-fed through an ideal channel for 20 blocks,
-   held against phase 4's first 20 blocks at >= 90 dB SNR.
+   held against phase 4's first 20 blocks at >= 90 dB SNR;
+6. each DIRECT kernel against its plain version on the card at the full
+   width of BASELINE configs 1 and 3 (100 Msps, 4,000,000-sample blocks,
+   decim 100, pf_average 4): the DDC at 100 channels, the replay DDC on
+   a 100-tone comb quantized to a 100 kHz grid (period 1000), the
+   few-channel replay DDC at config 1 (one tone at 10 MHz), the fold at
+   config 3 (100 tones at linspace(-45, 45) MHz); each at >= 90 dB SNR
+   against plain and, on the stream's first 400 rows, against a float64
+   numpy oracle of a 40,000-sample prefix; times as in phase 3;
+7. the DIRECT readout through ``run_measurement``: config 3 fused (fold
+   kernel), config 1 fused (few-channel replay), the quantized comb
+   fused (replay), config 3 host-fed through an ideal channel (DDC
+   kernel), the last held against the first blocks of the config-3
+   fused run at >= 90 dB SNR; the two share no kernel.
 
-Phases 4 and 5 are the main path.  Their CallbackSink checks rows ::97
-of every packet (finite, tone amplitudes within 1%) and drops the
-packet, and their rates are host-clock Msamples/s from the sink's start
-to its end, after a 3-block warm-up of each branch.  Every kernel launch
-counter is set to 0 after the warm-up, before phase 4, and read after
-phase 5.
+Phases 4, 5 and 7 are the main path.  Their CallbackSink checks rows
+::97 of every packet (finite; PFB tones within 1% of their amplitude;
+DIRECT rows within 2.5% of the TX amplitude, the sum of the other tones'
+leakage through the 400-tap FIR's stopband at config 3, and each
+channel's mean over the rows within 1%) and drops the packet, and their
+rates are host-clock Msamples/s from the sink's start to its end, after
+a warm-up of each branch.  Every kernel launch counter is set to 0 just
+before each run and read just after it.
 The line before the last is a JSON object with one entry per kernel
 (the channelizer's times are const-frame mode, the main path's; its
 ``stream_*`` fields are stream mode); the last line is
@@ -44,16 +59,27 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+try:    # the main path's configurations (gpu_sdr_tpu_torch/probe.py)
+    from gpu_sdr_tpu_torch.probe import (
+        AVG, BLOCK, CONFIG1, CONFIG3, D_AVG, D_BLOCK, D_DECIM, D_RATE,
+        FRAMES, NFFT, QCOMB, RATE, direct_params, loopback_params)
+except ImportError as e:
+    print(f"chip_smoke: the port is not beside this script: {e}",
+          file=sys.stderr)
+    sys.exit(1)
 
-NFFT, AVG, RATE = 1000, 4, 100_000_000
-FRAMES = 6000                       # frames of one 6,000,000-sample block
-BLOCK = NFFT * FRAMES
 FUSED_BLOCKS, HOST_BLOCKS = 100, 20
 WARMUP_BLOCKS = 3
 ROWS = slice(0, None, 97)   # the rows of each packet that are checked
 SNR_BAR_DB = 90.0
 PRESUM_REL_ERR = 1e-6
 TIMED_RUNS = 20
+
+D_ROWS = D_BLOCK // D_DECIM                     # 40,000 rows per block
+ORACLE_ROWS = 400                   # rows of a 40,000-sample prefix
+D_FUSED_BLOCKS, D_HOST_BLOCKS, D_WARMUP_BLOCKS = 50, 10, 2
+D_ROW_TOL, D_MEAN_TOL = 2.5e-2, 1e-2
 
 
 class SmokeFailure(Exception):
@@ -187,23 +213,6 @@ def phase_kernels(dev):
     return rows
 
 
-def loopback_params(n_blocks: int):
-    """The reference's network-stress configuration: a 1000-channel PFB
-    readout of 1000 bin-quantized tones (bench.py:83-105)."""
-    from gpu_sdr_tpu_torch.params import (AntMode, AntennaParams,
-                                          UsrpParams, WaveType)
-    freqs = [k * (RATE // NFFT) for k in range(-NFFT // 2, NFFT // 2)]
-    p = UsrpParams()
-    p.A_TXRX = AntennaParams(mode=AntMode.TX, rate=RATE, buffer_len=BLOCK,
-                             freq=freqs, ampl=[1.0 / NFFT] * NFFT,
-                             wave_type=[WaveType.TONES] * NFFT)
-    p.A_RX2 = AntennaParams(mode=AntMode.RX, rate=RATE, fft_tones=NFFT,
-                            pf_average=AVG, buffer_len=BLOCK,
-                            samples=n_blocks * BLOCK, freq=freqs,
-                            wave_type=[WaveType.TONES] * NFFT)
-    return p
-
-
 class PacketCheck:
     """The callback of the main path's CallbackSink: checks rows ::97 of
     every packet as it arrives (finite, tone amplitudes within 1%) and
@@ -227,56 +236,57 @@ class PacketCheck:
         self.n += 1
 
 
-def run_path(dev, n_blocks, channel, keep=0):
-    """One run_measurement: (packet check, dispatch, Msps from the sink's
-    start to its end, seconds with set-up)."""
+def run_path(dev, params, channel, pkt, n_blocks, block, channels):
+    """One run_measurement with `pkt` as the CallbackSink's check:
+    (pkt, dispatch, Msps from the sink's start to its end, seconds with
+    set-up)."""
     from gpu_sdr_tpu_torch import measure
     from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
     stamps = []
 
     class TimedSink(CallbackSink):
         def on_start(self, n_channels, expected_rows):
-            check(n_channels == NFFT, f"{n_channels} channels")
+            check(n_channels == channels, f"{n_channels} channels")
             stamps.append(time.perf_counter())
 
         def on_end(self):
             stamps.append(time.perf_counter())
 
-    pkt = PacketCheck(FRAMES, keep=keep)
     t0 = time.perf_counter()
-    measure.run_measurement(loopback_params(n_blocks),
-                            channel=channel, extra_sinks=[TimedSink(pkt)],
-                            device=dev)
+    measure.run_measurement(params, channel=channel,
+                            extra_sinks=[TimedSink(pkt)], device=dev)
     wall = time.perf_counter() - t0
     check(pkt.n == n_blocks, f"{pkt.n} of {n_blocks} packets")
-    msps = n_blocks * BLOCK / (stamps[1] - stamps[0]) / 1e6
+    msps = n_blocks * block / (stamps[1] - stamps[0]) / 1e6
     return pkt, measure.last_dispatch(), msps, wall
+
+
+def run_pfb(dev, n_blocks, channel, keep=0):
+    return run_path(dev, loopback_params(n_blocks), channel,
+                    PacketCheck(FRAMES, keep=keep), n_blocks, BLOCK, NFFT)
 
 
 def phase_main_path(dev):
     from gpu_sdr_tpu_torch.engine.channel import IdealChannel
-    from gpu_sdr_tpu_torch.ops.channelizer import channelizer
-    from gpu_sdr_tpu_torch.ops.presum import presum
     # a few blocks of each branch first: pinned host pools, cuFFT plan
-    run_path(dev, WARMUP_BLOCKS, None)
-    run_path(dev, WARMUP_BLOCKS, IdealChannel())
-    channelizer.launches = presum.launches = 0
+    run_pfb(dev, WARMUP_BLOCKS, None)
+    run_pfb(dev, WARMUP_BLOCKS, IdealChannel())
 
-    fused, disp, msps, wall = run_path(dev, FUSED_BLOCKS, None,
-                                       keep=HOST_BLOCKS)
-    n_chan = channelizer.launches
+    (fused, disp, msps, wall), counts = counted(
+        lambda: run_pfb(dev, FUSED_BLOCKS, None, keep=HOST_BLOCKS))
+    n_chan = counts["channelizer"]
     print(f"fused loopback: {disp}, {FUSED_BLOCKS} blocks of {BLOCK} "
           f"samples, {n_chan} channelizer launches; {msps:.1f} Msps "
           f"streaming, {wall:.3f} s with set-up")
     check(disp == (("A_RX2", "fused_loopback", "channelizer_wavetable"),),
           f"fused dispatch {disp}")
-    check(n_chan >= FUSED_BLOCKS and presum.launches == 0,
-          f"fused launches: channelizer {n_chan}, presum "
-          f"{presum.launches}")
+    check(n_chan >= FUSED_BLOCKS and
+          all(v == 0 for k, v in counts.items() if k != "channelizer"),
+          f"fused launches {counts}")
 
-    host, disp, msps, wall = run_path(dev, HOST_BLOCKS, IdealChannel(),
-                                      keep=HOST_BLOCKS)
-    n_pre = presum.launches
+    (host, disp, msps, wall), counts = counted(
+        lambda: run_pfb(dev, HOST_BLOCKS, IdealChannel(), keep=HOST_BLOCKS))
+    n_pre = counts["presum"]
     snr = snr_db(np.stack(fused.kept), np.stack(host.kept))
     print(f"host pipeline: {disp}, {HOST_BLOCKS} blocks, {n_pre} presum "
           f"launches; {msps:.1f} Msps streaming, {wall:.3f} s with "
@@ -285,11 +295,258 @@ def phase_main_path(dev):
           "(rows ::97)")
     check(disp == (("A_RX2", "host_pipeline", None),),
           f"host dispatch {disp}")
-    check(n_pre == HOST_BLOCKS and channelizer.launches == n_chan,
-          f"host launches: presum {n_pre}, channelizer "
-          f"{channelizer.launches - n_chan}")
+    check(n_pre == HOST_BLOCKS and
+          all(v == 0 for k, v in counts.items() if k != "presum"),
+          f"host launches {counts}")
     check(snr >= SNR_BAR_DB, f"host vs fused {snr:.1f} dB")
-    return {"channelizer": channelizer.launches, "presum": presum.launches}
+    return {"channelizer": n_chan, "presum": n_pre}
+
+
+def kernel_counters():
+    """Each kernel wrapper, by its name in the kernels line: each holds
+    its launch count in ``launches``."""
+    from gpu_sdr_tpu_torch.ops.channelizer import channelizer
+    from gpu_sdr_tpu_torch.ops.ddc import ddc_fused
+    from gpu_sdr_tpu_torch.ops.fold import fold
+    from gpu_sdr_tpu_torch.ops.presum import presum
+    from gpu_sdr_tpu_torch.ops.replay_ddc import ReplayDDC, ReplayDDCT
+    return {"channelizer": channelizer, "presum": presum, "ddc": ddc_fused,
+            "replay_ddc": ReplayDDC, "replay_ddc_t": ReplayDDCT,
+            "fold": fold}
+
+
+def counted(run):
+    """(run(), launches of every kernel during it): counts set to 0 just
+    before the run and read just after."""
+    for w in kernel_counters().values():
+        w.launches = 0
+    out = run()
+    return out, {k: w.launches for k, w in kernel_counters().items()}
+
+
+def via_kernel(name: str, fn):
+    """fn(), checked to have launched kernel `name` exactly once, so a
+    comparison holds the kernel's own output against the plain version."""
+    w = kernel_counters()[name]
+    before = w.launches
+    out = fn()
+    check(w.launches == before + 1, f"{name}: the wrapper did not launch "
+          "its kernel")
+    return out
+
+
+def sinc_taps(n: int, fc: float) -> np.ndarray:
+    """The DIRECT FIR in float64: Hamming-windowed sinc of length n,
+    unit sum (reference make_sinc_window, cpp/kernels.cu:256-310)."""
+    i = np.arange(n, dtype=np.float64)
+    k = i - (n - 1) // 2
+    x = 2.0 * np.pi * fc * k
+    sinc = np.where(k != 0, 2.0 * fc * np.sin(x) / np.where(x == 0, 1, x),
+                    2.0 * fc)
+    w = sinc * (0.54 - 0.46 * np.cos(2.0 * np.pi * i / (n - 1)))
+    return w / w.sum()
+
+
+def comb(freqs, ampl, n: int) -> np.ndarray:
+    """The first n samples of a TX comb in float64, exact integer phases."""
+    t = np.arange(n, dtype=np.int64)
+    x = np.zeros(n, dtype=np.complex128)
+    for f in freqs:
+        x += ampl * np.exp(2j * np.pi * (((f % D_RATE) * t) % D_RATE) /
+                           D_RATE)
+    return x
+
+
+def direct_oracle(x: np.ndarray, freqs) -> np.ndarray:
+    """Float64 DIRECT readout of a stream that starts at sample 0 with
+    zero FIR history: integer-phase mix-down, then the decimating FIR,
+    y[n] = sum_i h[i] * z[(n - f + 1)*M + i].  (ORACLE_ROWS, C)."""
+    h = sinc_taps(D_DECIM * D_AVG, 0.75 / (2.0 * D_DECIM))
+    t = np.arange(len(x), dtype=np.int64)
+    out = np.empty((ORACLE_ROWS, len(freqs)), dtype=np.complex128)
+    for c, f in enumerate(freqs):
+        z = x * np.exp(-2j * np.pi * (((f % D_RATE) * t) % D_RATE) / D_RATE)
+        ze = np.concatenate([np.zeros((D_AVG - 1) * D_DECIM), z])
+        win = np.lib.stride_tricks.sliding_window_view(ze, len(h))
+        out[:, c] = win[::D_DECIM][:ORACLE_ROWS] @ h
+    return out
+
+
+def report(name, k, p, oracle=None, times=None, rows=None):
+    """Print and check one DIRECT kernel's output `k` against its plain
+    version's `p` and, when given, the float64 oracle of its first
+    ORACLE_ROWS rows; with `times` (kernel ms, plain ms), keep its row of
+    the kernels line in `rows`."""
+    import torch
+    torch.cuda.synchronize()
+    kn, pn = k.cpu().numpy(), p.cpu().numpy()
+    check(kn.shape == pn.shape and np.isfinite(kn).all(),
+          f"{name}: shape {kn.shape} or non-finite values")
+    s_plain = snr_db(pn, kn)
+    s_gold = snr_db(oracle, kn[:ORACLE_ROWS]) if oracle is not None \
+        else None
+    err = float(np.abs(kn - pn).max())
+    print(f"{name} {kn.shape[0]}x{kn.shape[1]}: SNR {s_plain:.1f} dB vs "
+          f"plain, max |err| {err:.3e}"
+          + (f", {s_gold:.1f} dB vs float64 (first {ORACLE_ROWS} rows)"
+             if s_gold is not None else "")
+          + ("; kernel {:.4f} ms, plain {:.4f} ms".format(*times)
+             if times else ""))
+    check(s_plain >= SNR_BAR_DB, f"{name} {s_plain:.1f} dB vs plain")
+    check(s_gold is None or s_gold >= SNR_BAR_DB,
+          f"{name} {s_gold} dB vs float64")
+    if times:
+        rows[name] = dict(max_abs_err=err, ms=times[0], plain_ms=times[1])
+
+
+def phase_direct_kernels(dev):
+    """Each DIRECT kernel against its plain version at full width."""
+    import torch
+    from gpu_sdr_tpu_torch.ops import ddc
+    from gpu_sdr_tpu_torch.ops.fold import TonesDirectFold, fold, fold_plain
+    from gpu_sdr_tpu_torch.ops.replay_ddc import make_replay_ddc
+    from gpu_sdr_tpu_torch.ops.tonegen import (comb_period,
+                                               tone_comb_wavetable_block)
+    rng = np.random.default_rng(4321)
+    rows = {}
+    prefix = ORACLE_ROWS * D_DECIM              # samples the oracle reads
+
+    # DDC (#7), streamed blocks, config 3 widths: block 0 with zero
+    # history against the oracle, block 1 with the carried history timed
+    cfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(CONFIG3),
+                              (0,) * len(CONFIG3))
+    hmod = cfg.modulated_taps(dev)
+    ramp = cfg.carrier_ramp(D_ROWS, dev)
+    step = ddc.ddc_carrier_step(cfg, D_BLOCK, dev)
+    x0_np = crandn(rng, D_BLOCK)
+    x0, x1 = torch.from_numpy(x0_np).to(dev), torch.from_numpy(
+        crandn(rng, D_BLOCK)).to(dev)
+    st = (ddc.ddc_carrier_init(cfg, dev),
+          torch.zeros((D_AVG - 1) * D_DECIM, dtype=torch.complex64,
+                      device=dev))
+    args = (hmod, ramp, step, D_RATE, cfg.M, cfg.f)
+    ph, hist, yk = via_kernel("ddc", lambda: ddc.ddc_fused(*args, *st, x0))
+    yp = ddc.direct_ddc_fir(*args, *st, x0)[2]
+    report("ddc [block 0]", yk, yp, direct_oracle(
+        x0_np[:prefix].astype(np.complex128), CONFIG3))
+    yk = via_kernel("ddc", lambda: ddc.ddc_fused(*args, ph, hist, x1))[2]
+    yp = ddc.direct_ddc_fir(*args, ph, hist, x1)[2]
+    report("ddc", yk, yp, times=(
+        time_ms(lambda: ddc.ddc_fused(*args, ph, hist, x1)),
+        time_ms(lambda: ddc.direct_ddc_fir(*args, ph, hist, x1))), rows=rows)
+
+    # replay DDC (#8, #9): the stream's first block (zero history)
+    # against the oracle, its second (history wrapped at the seam) timed
+    for name, freqs, ampl, kind in (
+            ("replay_ddc", QCOMB, 0.01, "replay_kernel"),
+            ("replay_ddc_t", CONFIG1, 1.0, "replay_kernel_t")):
+        check(D_BLOCK % comb_period(freqs, D_RATE) == 0,
+              f"{name}: comb not periodic in the block")
+        rcfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(freqs),
+                                   (0,) * len(freqs))
+        rec = tone_comb_wavetable_block(freqs, [ampl] * len(freqs), D_RATE,
+                                        D_BLOCK)
+        rk = make_replay_ddc(rcfg, rec, D_BLOCK, dev)
+        check(rk is not None and rk.path_name == kind,
+              f"{name}: replay kind {getattr(rk, 'path_name', None)}")
+        st0 = rk.init_state()
+        st1, yk = via_kernel(name, lambda: rk.step(st0))
+        report(f"{name} [block 0]", yk, rk.block_plain(st0),
+               direct_oracle(comb(freqs, ampl, prefix), freqs))
+        yk = via_kernel(name, lambda: rk.step(st1))[1]
+        report(name, yk, rk.block_plain(st1), times=(
+            time_ms(lambda: rk.step(st1)),
+            time_ms(lambda: rk.block_plain(st1))), rows=rows)
+
+    # fold (#11) at config 3: the stream's first block, startup
+    # correction applied, against plain and the oracle; then timed
+    chain = TonesDirectFold(D_RATE, tuple(CONFIG3), (0.01,) * 100, cfg,
+                            D_BLOCK, dev)
+    st0 = chain.init_state()
+    crot, qrot = chain.block_rotations_factored(st0)
+    fargs = (chain.P1, chain.G2, crot, qrot, chain.ramp1, chain.nb)
+    report("fold [stream start]",
+           chain.startup_correction(st0, via_kernel(
+               "fold", lambda: fold(*fargs))),
+           chain.startup_correction(st0, fold_plain(*fargs)),
+           direct_oracle(comb(CONFIG3, 0.01, prefix), CONFIG3))
+    report("fold", via_kernel("fold", lambda: fold(*fargs)),
+           fold_plain(*fargs), times=(time_ms(lambda: fold(*fargs)),
+                                      time_ms(lambda: fold_plain(*fargs))),
+           rows=rows)
+    return rows
+
+
+class DirectCheck:
+    """The DIRECT main path's packet callback: rows ::97 of every packet
+    finite, within D_ROW_TOL of the TX amplitude row by row and within
+    D_MEAN_TOL per channel on average (row 0 of the stream is the FIR's
+    startup); keeps those rows of the first `keep` packets."""
+
+    def __init__(self, channels: int, ampl: float, keep: int = 0):
+        self.channels, self.ampl, self.keep = channels, ampl, keep
+        self.kept, self.n = [], 0
+
+    def __call__(self, meta, d):
+        check(meta.packet_number == self.n, "packet order")
+        check(d.shape == (D_ROWS, self.channels) and
+              d.dtype == np.complex64, f"packet {self.n}: {d.shape} "
+              f"{d.dtype}")
+        sub = d[ROWS]
+        check(bool(np.isfinite(sub).all()), f"packet {self.n}: non-finite")
+        dev = np.abs(sub[1:] if self.n == 0 else sub) / self.ampl - 1.0
+        check(float(np.abs(dev).max()) <= D_ROW_TOL,
+              f"packet {self.n}: |y| off the TX amplitude by "
+              f"{np.abs(dev).max():.4f}")
+        check(float(np.abs(dev.mean(axis=0)).max()) <= D_MEAN_TOL,
+              f"packet {self.n}: mean |y| off by "
+              f"{np.abs(dev.mean(axis=0)).max():.4f}")
+        if self.n < self.keep:
+            self.kept.append(sub.copy())
+        self.n += 1
+
+
+def run_direct(dev, freqs, ampl, n_blocks, channel, keep=0):
+    return run_path(dev, direct_params(freqs, ampl, n_blocks), channel,
+                    DirectCheck(len(freqs), ampl, keep=keep), n_blocks,
+                    D_BLOCK, len(freqs))
+
+
+def phase_direct_main_path(dev):
+    """The DIRECT readout through run_measurement, four runs."""
+    from gpu_sdr_tpu_torch.engine.channel import IdealChannel
+    runs = (
+        ("config 3 fused", CONFIG3, 0.01, D_FUSED_BLOCKS, None,
+         "fold_kernel", "fold"),
+        ("config 1 fused", CONFIG1, 1.0, D_FUSED_BLOCKS, None,
+         "replay_kernel_t", "replay_ddc_t"),
+        ("quantized 100-tone comb fused", QCOMB, 0.01, D_FUSED_BLOCKS, None,
+         "replay_kernel", "replay_ddc"),
+        ("config 3 host-fed", CONFIG3, 0.01, D_HOST_BLOCKS, IdealChannel(),
+         None, "ddc"),
+    )
+    launches, kept = {}, {}
+    for name, freqs, ampl, n, channel, sub, kernel in runs:
+        run_direct(dev, freqs, ampl, D_WARMUP_BLOCKS, channel)   # warm-up
+        (pkt, disp, msps, wall), counts = counted(
+            lambda: run_direct(dev, freqs, ampl, n, channel,
+                               keep=D_HOST_BLOCKS))
+        want = (("A_RX2", "fused_loopback", sub),) if channel is None \
+            else (("A_RX2", "host_pipeline", None),)
+        print(f"DIRECT {name}: {disp}, {n} blocks of {D_BLOCK} samples, "
+              f"{counts[kernel]} {kernel} launches; {msps:.1f} Msps "
+              f"streaming, {wall:.3f} s with set-up")
+        check(disp == want, f"{name} dispatch {disp}")
+        check(counts[kernel] == n and
+              all(v == 0 for k, v in counts.items() if k != kernel),
+              f"{name} launches {counts}")
+        launches[kernel] = counts[kernel]
+        kept[name] = np.stack(pkt.kept)
+    snr = snr_db(kept["config 3 fused"], kept["config 3 host-fed"])
+    print(f"DIRECT config 3 host-fed vs fused, first {D_HOST_BLOCKS} blocks "
+          f"(rows ::97): SNR {snr:.1f} dB")
+    check(snr >= SNR_BAR_DB, f"DIRECT host-fed vs fused {snr:.1f} dB")
+    return launches
 
 
 def main() -> int:
@@ -297,13 +554,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, HERE)
-    try:
-        import gpu_sdr_tpu_torch
-    except ImportError as e:
-        print(f"chip_smoke: the port is not beside this script: {e}",
-              file=sys.stderr)
-        return 1
+    import gpu_sdr_tpu_torch
     if os.path.dirname(os.path.dirname(os.path.abspath(
             gpu_sdr_tpu_torch.__file__))) != HERE:
         print("chip_smoke: gpu_sdr_tpu_torch is not from this checkout",
@@ -314,7 +565,9 @@ def main() -> int:
         phase_card()
         phase_build()
         rows = phase_kernels(dev)
+        rows.update(phase_direct_kernels(dev))
         launches = phase_main_path(dev)
+        launches.update(phase_direct_main_path(dev))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -328,7 +581,15 @@ def main() -> int:
         dict(name="presum", route="cuda", source=src + "presum.cu",
              replaces="gpu_sdr_tpu/ops/pallas_pfb.py:82",
              launches=launches["presum"], **rows["presum"]),
-    ]
+    ] + [
+        dict(name=name, route="cuda", source=src + cu, replaces=replaces,
+             launches=launches[name], **rows[name])
+        for name, cu, replaces in (
+            ("ddc", "ddc.cu", "gpu_sdr_tpu/ops/pallas_ddc.py:187"),
+            ("replay_ddc", "ddc.cu", "gpu_sdr_tpu/ops/pallas_replay.py:363"),
+            ("replay_ddc_t", "ddc.cu",
+             "gpu_sdr_tpu/ops/pallas_replay.py:581"),
+            ("fold", "fold.cu", "gpu_sdr_tpu/ops/pallas_chain.py:653"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,9 @@ find.  The JAX package stays the reference; this package never imports
 jax.  It shares the JAX-free ``gpu_sdr_tpu.params`` and
 ``gpu_sdr_tpu.golden`` modules.
 
-Ported slice: the single-front-end TONES / NOISE PFB readout of
-``measure.run_measurement`` (fused loopback and host-fed pipeline).
+Ported slices of ``measure.run_measurement``, one front end, fused
+loopback and host-fed pipeline: the TONES / NOISE PFB readout and the
+DIRECT readout (multi-tone DDC + decimating FIR).
 Every other branch raises ``NotImplementedError`` naming the ROADMAP
 item that will port it.
 """

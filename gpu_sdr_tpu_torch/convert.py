@@ -55,5 +55,31 @@ def window(w, device) -> torch.Tensor:
 
 
 def tone_phase(phase, device) -> torch.Tensor:
-    """ToneCombConfig's int32 per-channel phase -> the port's int64."""
+    """An int32 phase vector (ToneCombConfig's per-channel phase, the
+    DIRECT carrier phases) -> the port's int64."""
     return torch.from_numpy(np.asarray(phase).astype(np.int64)).to(device)
+
+
+def ddc_state(state, device):
+    """The host-fed DIRECT demodulator's state (int32 phase (C,), history
+    pair ((f-1)*M,)) (gpu_sdr_tpu/engine/demodulator._build_direct) ->
+    the port's (int64 phase, complex64 history)."""
+    phase, hist = state
+    return tone_phase(phase, device), complex_from_pair(hist, device)
+
+
+def replay_state(state, device):
+    """A ReplayDDC / ReplayDDCT state (int32 block index, int32 phase
+    (C,), int32 started flag) (gpu_sdr_tpu/ops/pallas_replay.py) -> the
+    port's (int, int64 phase, int)."""
+    idx, phase, started = state
+    return int(idx), tone_phase(phase, device), int(started)
+
+
+def fold_state(state, device):
+    """The fold chains' state (int32 synthesis phases (Ct,), int32 DDC
+    phases (Cp,), float32 prev_valid) (gpu_sdr_tpu/ops/pallas_chain.
+    TonesDirectFoldKernel, ops/fold_chain.py) -> the port's (int64,
+    int64, float)."""
+    sph, dph, pv = state
+    return tone_phase(sph, device), tone_phase(dph, device), float(pv)

@@ -6,7 +6,8 @@ once per complex64 block on the demodulator's device; every mode emits
 a (out_rows, n_channels) tensor per block (sample-major, channel-minor,
 the reference's interleaved layout, cpp/USRP_demodulator.cpp:422-433).
 
-Ported: TONES (channelizer + tone select) and NOISE (full spectrum).
+Ported: TONES (channelizer + tone select), NOISE (full spectrum) and
+DIRECT (fused multi-tone DDC + decimating FIR).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from gpu_sdr_tpu.params import AntennaParams, WaveType
 
+from ..ops import ddc as ddc_ops
 from ..ops import pfb as pfb_ops
 from ..ops.presum import pfb_frames_fused
 from .planner import BlockPlan, plan_blocks
@@ -40,6 +42,35 @@ class Demodulator:
     step: Callable[[Any, torch.Tensor], Tuple[Any, torch.Tensor]]
     wave_type: WaveType
     device: torch.device
+
+
+def _build_direct(p: AntennaParams, plan: BlockPlan, device) -> Demodulator:
+    """DIRECT: fused multi-tone DDC + decimating FIR through the DDC
+    kernel (reference process_direct, cpp/USRP_demodulator.cpp:400-464).
+    State: (int64 phase (C,), ((f-1)*M,) history samples)."""
+    freqs = tuple(int(f) for f in p.freq)
+    cfg = ddc_ops.DirectDDCConfig(
+        rate=int(p.rate), decim=int(p.decim), pf_average=int(p.pf_average),
+        freqs=freqs, phases=(0,) * len(freqs))
+    L = plan.block_len
+    hmod = cfg.modulated_taps(device)
+    ramp = cfg.carrier_ramp(L // cfg.M, device)
+    step_v = ddc_ops.ddc_carrier_step(cfg, L, device)
+
+    def init_state():
+        return (ddc_ops.ddc_carrier_init(cfg, device),
+                torch.zeros((cfg.f - 1) * cfg.M, dtype=torch.complex64,
+                            device=device))
+
+    def step(state, x):
+        phase, hist = state
+        phase, hist, y = ddc_ops.ddc_fused(hmod, ramp, step_v, cfg.rate,
+                                           cfg.M, cfg.f, phase, hist, x)
+        return (phase, hist), y
+
+    return Demodulator(plan=plan, n_channels=len(freqs),
+                       init_state=init_state, step=step,
+                       wave_type=WaveType.DIRECT, device=device)
 
 
 def _build_pfb(p: AntennaParams, plan: BlockPlan, full_spectrum: bool,
@@ -87,8 +118,7 @@ def make_demodulator(p: AntennaParams, device) -> Demodulator:
     if w == WaveType.NOISE:
         return _build_pfb(p, plan, True, device)
     if w == WaveType.DIRECT:
-        raise NotImplementedError(
-            "DIRECT demodulation is not ported yet (ROADMAP Queue 1 item 4)")
+        return _build_direct(p, plan, device)
     if w == WaveType.CHIRP:
         raise NotImplementedError(
             "CHIRP demodulation is not ported yet (ROADMAP Queue 1 item 5)")

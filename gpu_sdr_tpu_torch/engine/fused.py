@@ -5,12 +5,18 @@ feeding RX directly, the reference's --sw_loop), the whole chain stays
 on the device and nothing touches the host until each block's
 demodulated output is fetched.
 
-Ported mode pairs: TONES->TONES (PFB) and TONES->NOISE.  A
-bin-quantized comb takes ``channelizer_wavetable``: one comb frame and
-the channelizer kernel in const-frame mode, so the block never exists
-in device memory.  Any other comb takes ``generic_scan``: the generator
-and the demodulator of the host-fed path, run back to back on the
-device.
+Ported mode pairs: TONES->DIRECT, TONES->TONES (PFB) and TONES->NOISE,
+tried in the JAX package's order: DIRECT first, then the channelizer,
+else ``generic_scan`` (the generator and the demodulator of the host-fed
+path, run back to back on the device).
+
+* TONES->DIRECT, periodic comb: the loopback is a looped one-block
+  recording, demodulated by the replay kernel (``replay_kernel_t`` for
+  at most 8 channels, else ``replay_kernel``);
+* TONES->DIRECT, any other comb: the shift-fold kernel (``fold_kernel``),
+  synthesis, mix-down and FIR contracted into one constant;
+* TONES->TONES / NOISE, bin-quantized comb: one comb frame and the
+  channelizer kernel in const-frame mode (``channelizer_wavetable``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ from ..ops import cplx
 from ..ops import pfb as pfb_ops
 from ..ops.channelizer import (can_fuse_channelizer, channelizer_consts,
                                channelizer_frames)
+from ..ops.ddc import DirectDDCConfig
+from ..ops.fold import TonesDirectFold
+from ..ops.replay_ddc import make_replay_ddc
 from ..ops.tonegen import comb_period, tone_comb_wavetable_block
 from .demodulator import make_demodulator
 from .generator import make_generator
@@ -44,7 +53,9 @@ class FusedLoopback:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.demod = make_demodulator(self.rx, self.device)
-        chain = self._try_channelizer_chain()
+        chain = self._try_tones_direct_chain()
+        if chain is None:
+            chain = self._try_channelizer_chain()
         # which chain this loopback runs: measure.LAST_DISPATCH subpath
         self.path = (chain.path_name if chain is not None
                      else "generic_scan")
@@ -65,6 +76,44 @@ class FusedLoopback:
             self._init_state = lambda: (gen.init_state(),
                                         demod.init_state())
             self._step = step
+
+    def _try_tones_direct_chain(self):
+        """TONES->DIRECT with no burst gating into a decimating receiver
+        with pf_average >= 2: a periodic comb through the replay kernel,
+        any other comb through the fold kernel.  The JAX package sends a
+        periodic comb of fewer than 8 tones that its replay refuses to
+        generic_scan (gpu_sdr_tpu/engine/fused.py:144-166); the port's
+        replay takes every periodic comb of the planner's whole-row
+        blocks, so that rule has no counterpart."""
+        tx, rx = self.tx, self.rx
+        if not (tx.wave_type and tx.wave_type[0] == WaveType.TONES
+                and rx.wave_type and rx.wave_type[0] == WaveType.DIRECT):
+            return None
+        if tx.burst_on > 0 or int(rx.decim) <= 0 or int(rx.pf_average) < 2:
+            return None
+        freqs = tuple(int(f) for f in tx.freq)
+        if not freqs or not rx.freq:
+            return None
+        L = self.demod.plan.block_len
+        period = comb_period(freqs, int(tx.rate))
+        ampls = tuple(float(a) for a in (tx.ampl or [1.0] * len(freqs)))
+        rx_freqs = tuple(int(f) for f in rx.freq)
+        cfg = DirectDDCConfig(rate=int(rx.rate), decim=int(rx.decim),
+                              pf_average=int(rx.pf_average), freqs=rx_freqs,
+                              phases=(0,) * len(rx_freqs))
+        if L % period == 0 and period <= (1 << 22):
+            chain = self._try_replay_loopback(cfg, freqs, ampls, L)
+            if chain is not None:
+                return chain
+        return TonesDirectFold(int(tx.rate), freqs, ampls, cfg, L,
+                               self.device)
+
+    def _try_replay_loopback(self, cfg, freqs, ampls, L):
+        """A periodic comb's loopback as a looped one-block recording:
+        the replay object is the chain itself (path_name, init_state,
+        step)."""
+        rec = tone_comb_wavetable_block(freqs, ampls, int(self.tx.rate), L)
+        return make_replay_ddc(cfg, rec, L, self.device)
 
     def _try_channelizer_chain(self):
         """TONES->TONES / TONES->NOISE through the channelizer kernel
@@ -137,6 +186,7 @@ class _ChannelizerWavetableChain:
 
 
 _FUSABLE = {
+    (WaveType.TONES, WaveType.DIRECT),
     (WaveType.TONES, WaveType.TONES),
     (WaveType.TONES, WaveType.NOISE),
 }
@@ -144,8 +194,8 @@ _FUSABLE = {
 
 def can_fuse(tx: Optional[AntennaParams], rx: AntennaParams) -> bool:
     """Whether FusedLoopback takes this mode pair.  The JAX package also
-    fuses TONES->DIRECT and CHIRP->CHIRP; those wait for the DIRECT and
-    CHIRP ports (ROADMAP Queue 1 items 4 and 5)."""
+    fuses CHIRP->CHIRP; that waits for the CHIRP port (ROADMAP Queue 1
+    item 5)."""
     if tx is None or not tx.wave_type or not rx.wave_type:
         return False
     return (tx.wave_type[0], rx.wave_type[0]) in _FUSABLE

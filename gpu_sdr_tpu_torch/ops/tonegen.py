@@ -22,6 +22,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .cplx import advance_phase, phase_rotation
+
 
 def _tile_split(L: int) -> Tuple[int, int]:
     """The divisor pair (U, S) of L with S closest to sqrt(L)."""
@@ -94,9 +96,5 @@ def tone_comb_block(P: torch.Tensor, Q: torch.Tensor, step: torch.Tensor,
     """One block of an aperiodic comb: (new_phase, x) with x (U*S,).
 
     The rotation angle is formed in float32 as in the JAX package."""
-    theta = phase.to(torch.float32) * np.float32(2.0 * np.pi / W)
-    rot = torch.polar(torch.ones_like(theta), theta)
-    x = (P * rot[None, :]) @ Q
-    new_phase = phase + step
-    new_phase = torch.where(new_phase >= W, new_phase - W, new_phase)
-    return new_phase, x.reshape(-1)
+    x = (P * phase_rotation(phase, W)[None, :]) @ Q
+    return advance_phase(phase, step, W), x.reshape(-1)

@@ -296,7 +296,6 @@ def _mixed(p):
     ("replay", None, dict(source=object())),
     ("mesh", None, dict(mesh=object())),
     ("dual", _dual, {}),
-    ("direct", _rx_wave(WaveType.DIRECT), {}),
     ("chirp_rx", _rx_wave(WaveType.CHIRP), {}),
     ("chirp_tx", _chirp_tx, dict(channel=IdealChannel())),
     ("mixed", _mixed, {}),
