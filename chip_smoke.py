@@ -32,24 +32,46 @@ and exits non-zero at the first phase that fails:
    kernel), config 1 fused (few-channel replay), the quantized comb
    fused (replay), config 3 host-fed through an ideal channel (DDC
    kernel), the last held against the first blocks of the config-3
-   fused run at >= 90 dB SNR; the two share no kernel.
+   fused run at >= 90 dB SNR; the two share no kernel;
+8. the CHIRP lock-in kernel's two modes against their plain versions at
+   the full width of BASELINE config 2 (a -40 to +40 MHz chirp of 5000
+   steps over 1 s at 100 Msps, ppt 20,000, 4,000,000-sample blocks of
+   200 segments) over the real 800 MB one-period table: self mode (#16)
+   on blocks 0, 1 and 24, and on blocks 3 and 17 of a random table of
+   the same size (on the chirp every row sums to 1), its imaginary half
+   exactly 0; table mode (#17) on a random incoming block against
+   oscillator blocks 0, 1 and 24; each at >= 90 dB SNR against plain
+   and, on blocks 0 and 1 and on the random blocks, against a float64
+   numpy oracle; times from CUDA events over
+   launches queued behind a device sleep, rotating over every block of
+   the table so that no row is read from L2;
+9. the CHIRP readout through ``run_measurement``: config 2 fused
+   (``chirp_wavetable``, self mode, 50 blocks: two period wraps) and
+   host-fed through an ideal channel (table mode, 25 blocks), every
+   lock-in point within 1e-5 of the TX amplitude, host-fed against fused
+   at >= 90 dB SNR.
 
-Phases 4, 5 and 7 are the main path.  Their CallbackSink checks rows
+Phases 4, 5, 7 and 9 are the main path.  Their CallbackSink checks rows
 ::97 of every packet (finite; PFB tones within 1% of their amplitude;
 DIRECT rows within 2.5% of the TX amplitude, the sum of the other tones'
 leakage through the 400-tap FIR's stopband at config 3, and each
-channel's mean over the rows within 1%) and drops the packet, and their
-rates are host-clock Msamples/s from the sink's start to its end, after
-a warm-up of each branch.  Every kernel launch counter is set to 0 just
-before each run and read just after it.
+channel's mean over the rows within 1%; every CHIRP row) and drops the
+packet, and their rates are host-clock Msamples/s from the sink's start
+to its end, after a warm-up of each branch.  Every kernel launch
+counter is set to 0 just before each run and read just after it.
 The line before the last is a JSON object with one entry per kernel
 (the channelizer's times are const-frame mode, the main path's; its
-``stream_*`` fields are stream mode); the last line is
+``stream_*`` fields are stream mode), each with its bound: the larger
+of its bytes over 3.35 TB/s and its FP32 operations over 67 TFLOP/s,
+counted from this run's shapes; ``library_ms`` is one PyTorch call
+computing the same function where there is one (the lock-in modes:
+``torch.einsum``), else null.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -62,8 +84,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 try:    # the main path's configurations (gpu_sdr_tpu_torch/probe.py)
     from gpu_sdr_tpu_torch.probe import (
-        AVG, BLOCK, CONFIG1, CONFIG3, D_AVG, D_BLOCK, D_DECIM, D_RATE,
-        FRAMES, NFFT, QCOMB, RATE, direct_params, loopback_params)
+        AVG, BLOCK, C_BLOCK, C_RATE, CONFIG1, CONFIG2, CONFIG3, D_AVG,
+        D_BLOCK, D_DECIM, D_RATE, FRAMES, NFFT, QCOMB, RATE, chirp_params,
+        direct_params, loopback_params)
 except ImportError as e:
     print(f"chip_smoke: the port is not beside this script: {e}",
           file=sys.stderr)
@@ -80,6 +103,17 @@ D_ROWS = D_BLOCK // D_DECIM                     # 40,000 rows per block
 ORACLE_ROWS = 400                   # rows of a 40,000-sample prefix
 D_FUSED_BLOCKS, D_HOST_BLOCKS, D_WARMUP_BLOCKS = 50, 10, 2
 D_ROW_TOL, D_MEAN_TOL = 2.5e-2, 1e-2
+
+C_ROWS = 200                        # lock-in points per config-2 block
+C_FUSED_BLOCKS, C_HOST_BLOCKS, C_WARMUP_BLOCKS = 50, 25, 2
+C_AMPL, C_TOL = 1.0, 1e-5           # TX amplitude; lock-in row tolerance
+C_ORACLE_BLOCKS = (0, 1)            # blocks held against float64
+C_RANDOM_BLOCKS = (3, 17)           # self-mode blocks of a random table
+QUEUED_RUNS = 5                     # timed passes over the table
+
+# the card's peaks for the bound (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 class SmokeFailure(Exception):
@@ -118,6 +152,49 @@ def time_ms(fn, runs: int = TIMED_RUNS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def time_ms_queued(fn, n: int, runs: int = QUEUED_RUNS) -> float:
+    """Median over `runs` of the device time per call of `n` calls,
+    from CUDA events around calls queued behind a device sleep: the
+    host enqueues them while the card sleeps, so the events see the
+    kernels back to back and not the host's launch overhead."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)           # ~10 ms at ~2 GHz
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, flops: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the HBM rate, or the FP32 operations at the
+    non-tensor peak, whichever is longer."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def ddc_flops(rows: int, channels: int, taps: int) -> int:
+    """A DDC+FIR block: `taps` complex MACs per output, then the two
+    complex rotations."""
+    return rows * channels * (8 * taps + 12)
 
 
 def phase_card():
@@ -194,8 +271,12 @@ def phase_kernels(dev):
               f"{pms:.4f} ms")
         check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB,
               f"channelizer {mode} under {SNR_BAR_DB} dB")
-        rows[f"channelizer_{mode}"] = dict(max_abs_err=err, ms=ms,
-                                           plain_ms=pms)
+        # the function's operations: the pre-sum, then an FFT's
+        # 5 N log2 N per frame (not the kernel's two-stage matmul DFT)
+        flops = FRAMES * (4 * AVG * NFFT + 5 * NFFT * np.log2(NFFT))
+        rows[f"channelizer_{mode}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+            **bound(nbytes(w2, F1, G, spare, *args[:1], k), flops))
 
     k = presum(w2, spare, x)
     p = presum_plain(w2, spare, x)
@@ -209,7 +290,9 @@ def phase_kernels(dev):
           f"max |err| {err:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms")
     check(np.isfinite(kn).all() and rel <= PRESUM_REL_ERR,
           f"presum relative error {rel:.3e} > {PRESUM_REL_ERR}")
-    rows["presum"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    rows["presum"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                          library_ms=None, **bound(
+                              nbytes(w2, spare, x, k), 4 * AVG * x.numel()))
     return rows
 
 
@@ -308,11 +391,13 @@ def kernel_counters():
     from gpu_sdr_tpu_torch.ops.channelizer import channelizer
     from gpu_sdr_tpu_torch.ops.ddc import ddc_fused
     from gpu_sdr_tpu_torch.ops.fold import fold
+    from gpu_sdr_tpu_torch.ops.lockin_table import lockin_self, lockin_table
     from gpu_sdr_tpu_torch.ops.presum import presum
     from gpu_sdr_tpu_torch.ops.replay_ddc import ReplayDDC, ReplayDDCT
     return {"channelizer": channelizer, "presum": presum, "ddc": ddc_fused,
             "replay_ddc": ReplayDDC, "replay_ddc_t": ReplayDDCT,
-            "fold": fold}
+            "fold": fold, "lockin_self": lockin_self,
+            "lockin_table": lockin_table}
 
 
 def counted(run):
@@ -372,11 +457,12 @@ def direct_oracle(x: np.ndarray, freqs) -> np.ndarray:
     return out
 
 
-def report(name, k, p, oracle=None, times=None, rows=None):
+def report(name, k, p, oracle=None, times=None, rows=None, cost=None):
     """Print and check one DIRECT kernel's output `k` against its plain
     version's `p` and, when given, the float64 oracle of its first
-    ORACLE_ROWS rows; with `times` (kernel ms, plain ms), keep its row of
-    the kernels line in `rows`."""
+    ORACLE_ROWS rows; with `times` (kernel ms, plain ms) and `cost`
+    (bytes in and out, operations), keep its row of the kernels line in
+    `rows`."""
     import torch
     torch.cuda.synchronize()
     kn, pn = k.cpu().numpy(), p.cpu().numpy()
@@ -396,7 +482,8 @@ def report(name, k, p, oracle=None, times=None, rows=None):
     check(s_gold is None or s_gold >= SNR_BAR_DB,
           f"{name} {s_gold} dB vs float64")
     if times:
-        rows[name] = dict(max_abs_err=err, ms=times[0], plain_ms=times[1])
+        rows[name] = dict(max_abs_err=err, ms=times[0], plain_ms=times[1],
+                          library_ms=None, **bound(*cost))
 
 
 def phase_direct_kernels(dev):
@@ -433,7 +520,9 @@ def phase_direct_kernels(dev):
     yp = ddc.direct_ddc_fir(*args, ph, hist, x1)[2]
     report("ddc", yk, yp, times=(
         time_ms(lambda: ddc.ddc_fused(*args, ph, hist, x1)),
-        time_ms(lambda: ddc.direct_ddc_fir(*args, ph, hist, x1))), rows=rows)
+        time_ms(lambda: ddc.direct_ddc_fir(*args, ph, hist, x1))), rows=rows,
+        cost=(nbytes(x1, hist, hmod, ramp, ph, yk),
+              ddc_flops(D_ROWS, len(CONFIG3), D_DECIM * D_AVG)))
 
     # replay DDC (#8, #9): the stream's first block (zero history)
     # against the oracle, its second (history wrapped at the seam) timed
@@ -454,9 +543,12 @@ def phase_direct_kernels(dev):
         report(f"{name} [block 0]", yk, rk.block_plain(st0),
                direct_oracle(comb(freqs, ampl, prefix), freqs))
         yk = via_kernel(name, lambda: rk.step(st1))[1]
+        block_bytes = (D_BLOCK + (D_AVG - 1) * D_DECIM) * 8   # rows + halo
         report(name, yk, rk.block_plain(st1), times=(
             time_ms(lambda: rk.step(st1)),
-            time_ms(lambda: rk.block_plain(st1))), rows=rows)
+            time_ms(lambda: rk.block_plain(st1))), rows=rows,
+            cost=(block_bytes + nbytes(rk._hmod, rk._ramp, st1[1], yk),
+                  ddc_flops(D_ROWS, len(freqs), D_DECIM * D_AVG)))
 
     # fold (#11) at config 3: the stream's first block, startup
     # correction applied, against plain and the oracle; then timed
@@ -470,10 +562,12 @@ def phase_direct_kernels(dev):
                "fold", lambda: fold(*fargs))),
            chain.startup_correction(st0, fold_plain(*fargs)),
            direct_oracle(comb(CONFIG3, 0.01, prefix), CONFIG3))
-    report("fold", via_kernel("fold", lambda: fold(*fargs)),
-           fold_plain(*fargs), times=(time_ms(lambda: fold(*fargs)),
-                                      time_ms(lambda: fold_plain(*fargs))),
-           rows=rows)
+    yk = via_kernel("fold", lambda: fold(*fargs))
+    Ct, Cp = chain.G2.shape
+    report("fold", yk, fold_plain(*fargs),
+           times=(time_ms(lambda: fold(*fargs)),
+                  time_ms(lambda: fold_plain(*fargs))), rows=rows,
+           cost=(nbytes(*fargs[:5], yk), D_ROWS * Cp * (8 * Ct + 12)))
     return rows
 
 
@@ -549,6 +643,203 @@ def phase_direct_main_path(dev):
     return launches
 
 
+def chirp_oracle(start: int, n: int) -> np.ndarray:
+    """Float64 config-2 chirp at stream positions start .. start+n-1: the
+    reference's quantized descriptor and uint64 phase accumulator
+    (chirp_parameter, cpp/USRP_demodulator.cpp:192-221; chirp_gen,
+    cpp/kernels.cu:335-372), the sin/cos in float64."""
+    f_start, f_end = CONFIG2["freq"][0], CONFIG2["chirp_f"][0]
+    steps, t = CONFIG2["swipe_s"][0], CONFIG2["chirp_t"][0]
+    length = int(t * C_RATE / steps)
+    u = np.uint64
+    chirpness = u(int((2.0 ** 32 - 1) * (f_end - f_start) /
+                      ((steps - 1.0) * C_RATE)) % 2 ** 32)
+    f0 = u(int((2.0 ** 32 - 1) * (f_start / C_RATE)) % 2 ** 32)
+    with np.errstate(over="ignore"):
+        eff = np.arange(start, start + n, dtype=np.uint64) % u(steps * length)
+        fi = eff // u(length)
+        q = (fi // u(2)) * (fi + u(1)) + (fi % u(2)) * ((fi + u(1)) // u(2))
+        idx = eff * (f0 + fi * chirpness) - chirpness * (u(length) * q)
+    th = np.pi * (idx.astype(np.uint32).astype(np.int32) / 2147483647.5)
+    return np.sin(th) - 1j * np.cos(th)
+
+
+def phase_chirp_kernels(dev):
+    """The CHIRP lock-in kernel's two modes against their plain versions
+    and a float64 oracle at config 2's full width, over the real table."""
+    import torch
+    from gpu_sdr_tpu_torch.ops.chirp import ChirpConfig, chirp_period_table
+    from gpu_sdr_tpu_torch.ops.lockin import lockin_profile
+    from gpu_sdr_tpu_torch.ops.lockin_table import (
+        lockin_self, lockin_self_plain, lockin_table, lockin_table_plain)
+    cfg = ChirpConfig.from_params(
+        CONFIG2["freq"][0], CONFIG2["chirp_f"][0], C_RATE,
+        CONFIG2["swipe_s"][0], CONFIG2["chirp_t"][0])
+    ppt, nseg = cfg.length, C_BLOCK // cfg.length
+    nblk = cfg.period // C_BLOCK
+    check((ppt, nseg, nblk) == (20_000, C_ROWS, 25),
+          f"config 2 geometry {ppt}, {nseg}, {nblk}")
+    t0 = time.perf_counter()
+    table = chirp_period_table(cfg, C_BLOCK, ppt, device=dev)
+    torch.cuda.synchronize(dev)
+    print(f"chirp table: {tuple(table.shape)}, {nbytes(table) / 1e6:.1f} MB "
+          f"in {time.perf_counter() - t0:.3f} s")
+    w_np = lockin_profile(ppt)
+    w = torch.from_numpy(w_np).to(dev)
+    wc = w.to(torch.complex64)                   # for the library call
+    x_np = crandn(np.random.default_rng(2468), nseg, ppt)
+    x = torch.from_numpy(x_np).to(dev)
+    w64 = w_np.astype(np.float64)
+    rows = {}
+
+    def held(name, yk, yp, oracle=None):
+        torch.cuda.synchronize(dev)
+        kn, pn = yk.cpu().numpy(), yp.cpu().numpy()
+        check(kn.shape == (nseg,) and np.isfinite(kn).all(),
+              f"{name}: shape {kn.shape} or non-finite values")
+        s_plain = snr_db(pn, kn)
+        s_gold = None if oracle is None else snr_db(oracle, kn)
+        print(f"{name}: SNR {s_plain:.1f} dB vs plain, max |err| "
+              f"{np.abs(kn - pn).max():.3e}" +
+              ("" if s_gold is None else f", {s_gold:.1f} dB vs float64"))
+        check(s_plain >= SNR_BAR_DB, f"{name} {s_plain:.1f} dB vs plain")
+        check(s_gold is None or s_gold >= SNR_BAR_DB,
+              f"{name} {s_gold} dB vs float64")
+        return float(np.abs(kn - pn).max())
+
+    errs = {"lockin_self": 0.0, "lockin_table": 0.0}
+    for o in (0, 1, nblk - 1):
+        c64 = chirp_oracle(o * C_BLOCK, C_BLOCK).reshape(nseg, ppt) \
+            if o in C_ORACLE_BLOCKS else None
+        yk = via_kernel("lockin_self",
+                        lambda: lockin_self(w, table, o, nseg))
+        torch.cuda.synchronize(dev)
+        check(bool((yk.imag == 0).all()),
+              f"lockin_self block {o}: imaginary half not exactly 0")
+        errs["lockin_self"] = max(errs["lockin_self"], held(
+            f"lockin_self [block {o}]", yk,
+            lockin_self_plain(w, table, o, nseg),
+            None if c64 is None else (np.abs(c64) ** 2) @ w64))
+        yk = via_kernel("lockin_table",
+                        lambda: lockin_table(w, table, x, o, 0, nseg))
+        errs["lockin_table"] = max(errs["lockin_table"], held(
+            f"lockin_table [oscillator block {o}]", yk,
+            lockin_table_plain(w, table, x, o, 0, nseg),
+            None if c64 is None else (np.conj(c64) * x_np) @ w64))
+
+    # self mode on a random, non-unit table of the same size: on the
+    # chirp every row sums to sum(w) = 1, so only this shows that the
+    # kernel reads the table's values at the right block's rows
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    rand = torch.randn(table.shape, dtype=torch.complex64, device=dev,
+                       generator=gen)
+    for o in C_RANDOM_BLOCKS:
+        yk = via_kernel("lockin_self", lambda: lockin_self(w, rand, o, nseg))
+        torch.cuda.synchronize(dev)
+        check(bool((yk.imag == 0).all()),
+              f"lockin_self random block {o}: imaginary half not exactly 0")
+        r64 = rand[o * nseg:(o + 1) * nseg].cpu().numpy().astype(
+            np.complex128)
+        errs["lockin_self"] = max(errs["lockin_self"], held(
+            f"lockin_self [random table, block {o}]", yk,
+            lockin_self_plain(w, rand, o, nseg), (np.abs(r64) ** 2) @ w64))
+    del rand
+
+    # times: rotate over every block of the table, (o, i) half a period
+    # apart in table mode, so that each call reads its rows from HBM
+    rot = itertools.count()
+
+    def nxt():
+        o = next(rot) % nblk
+        return o, (o + nblk // 2) % nblk
+
+    def rows_of(o, i=None):
+        c = table[o * nseg:(o + 1) * nseg]
+        return c, c if i is None else table[i * nseg:(i + 1) * nseg]
+
+    def einsum(o, i=None):
+        c, s = rows_of(o, i)
+        return torch.einsum("sk,sk,k->s", c.conj(), s, wc)
+
+    timed = {
+        "lockin_self": (
+            lambda: lockin_self(w, table, nxt()[0], nseg),
+            lambda: lockin_self_plain(w, table, nxt()[0], nseg),
+            lambda: einsum(nxt()[0]),
+            nbytes(table[:nseg], w) + nseg * 8, 5 * nseg * ppt),
+        "lockin_table": (
+            lambda: lockin_table(w, table, table, *nxt(), nseg),
+            lambda: lockin_table_plain(w, table, table, *nxt(), nseg),
+            lambda: einsum(*nxt()),
+            2 * nbytes(table[:nseg]) + nbytes(w) + nseg * 8,
+            10 * nseg * ppt),
+    }
+    for name, (kern, plain, lib, n_bytes, flops) in timed.items():
+        ms, pms, lms = (time_ms_queued(f, nblk) for f in (kern, plain, lib))
+        b = bound(n_bytes, flops)
+        print(f"{name} {nseg}x{ppt}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"library {lms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: {n_bytes / 1e6:.1f} MB, "
+              f"{flops / 1e6:.0f} MFLOP)")
+        rows[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=pms,
+                          library_ms=lms, **b)
+    return rows
+
+
+class ChirpCheck:
+    """The CHIRP main path's packet callback: every lock-in point of
+    every packet finite and within C_TOL of the TX amplitude; keeps the
+    first `keep` packets."""
+
+    def __init__(self, keep: int = 0):
+        self.keep, self.kept, self.n = keep, [], 0
+
+    def __call__(self, meta, d):
+        check(meta.packet_number == self.n, "packet order")
+        check(d.shape == (C_ROWS, 1) and d.dtype == np.complex64,
+              f"packet {self.n}: {d.shape} {d.dtype}")
+        check(bool(np.isfinite(d).all()), f"packet {self.n}: non-finite")
+        off = float(np.abs(np.abs(d) - C_AMPL).max())
+        check(off <= C_TOL, f"packet {self.n}: a lock-in point is {off:.2e} "
+              "off the TX amplitude")
+        if self.n < self.keep:
+            self.kept.append(d.copy())
+        self.n += 1
+
+
+def phase_chirp_main_path(dev):
+    """The CHIRP readout through run_measurement: config 2 fused (self
+    mode) and host-fed (table mode)."""
+    from gpu_sdr_tpu_torch.engine.channel import IdealChannel
+    runs = (("config 2 fused", C_FUSED_BLOCKS, None, "chirp_wavetable",
+             "lockin_self"),
+            ("config 2 host-fed", C_HOST_BLOCKS, IdealChannel(), None,
+             "lockin_table"))
+    launches, kept = {}, {}
+    for name, n, channel, sub, kernel in runs:
+        run_path(dev, chirp_params(C_WARMUP_BLOCKS), channel,
+                 ChirpCheck(), C_WARMUP_BLOCKS, C_BLOCK, 1)     # warm-up
+        (pkt, disp, msps, wall), counts = counted(
+            lambda: run_path(dev, chirp_params(n), channel,
+                             ChirpCheck(keep=C_HOST_BLOCKS), n, C_BLOCK, 1))
+        want = (("A_RX2", "fused_loopback", sub),) if channel is None \
+            else (("A_RX2", "host_pipeline", None),)
+        print(f"CHIRP {name}: {disp}, {n} blocks of {C_BLOCK} samples, "
+              f"{counts[kernel]} {kernel} launches; {msps:.1f} Msps "
+              f"streaming, {wall:.3f} s with set-up")
+        check(disp == want, f"{name} dispatch {disp}")
+        check(counts[kernel] == n and
+              all(v == 0 for k, v in counts.items() if k != kernel),
+              f"{name} launches {counts}")
+        launches[kernel] = counts[kernel]
+        kept[name] = np.concatenate(pkt.kept)
+    snr = snr_db(kept["config 2 fused"], kept["config 2 host-fed"])
+    print(f"CHIRP config 2 host-fed vs fused, first {C_HOST_BLOCKS} blocks: "
+          f"SNR {snr:.1f} dB")
+    check(snr >= SNR_BAR_DB, f"CHIRP host-fed vs fused {snr:.1f} dB")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -566,8 +857,10 @@ def main() -> int:
         phase_build()
         rows = phase_kernels(dev)
         rows.update(phase_direct_kernels(dev))
+        rows.update(phase_chirp_kernels(dev))
         launches = phase_main_path(dev)
         launches.update(phase_direct_main_path(dev))
+        launches.update(phase_chirp_main_path(dev))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -589,7 +882,11 @@ def main() -> int:
             ("replay_ddc", "ddc.cu", "gpu_sdr_tpu/ops/pallas_replay.py:363"),
             ("replay_ddc_t", "ddc.cu",
              "gpu_sdr_tpu/ops/pallas_replay.py:581"),
-            ("fold", "fold.cu", "gpu_sdr_tpu/ops/pallas_chain.py:653"))]
+            ("fold", "fold.cu", "gpu_sdr_tpu/ops/pallas_chain.py:653"),
+            ("lockin_self", "lockin.cu",
+             "gpu_sdr_tpu/ops/pallas_lockin.py:200"),
+            ("lockin_table", "lockin.cu",
+             "gpu_sdr_tpu/ops/pallas_lockin.py:121"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

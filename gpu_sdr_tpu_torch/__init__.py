@@ -8,13 +8,15 @@ ported path is a hand-written CUDA kernel (``csrc/*.cu``) built with
 
 The layout mirrors the JAX package (``ops/``, ``engine/``,
 ``measure.py``, ``config.py``) so each module's counterpart is easy to
-find.  The JAX package stays the reference; this package never imports
-jax.  It shares the JAX-free ``gpu_sdr_tpu.params`` and
-``gpu_sdr_tpu.golden`` modules.
+find.  The JAX package stays the reference; this package imports
+neither jax nor any module of the JAX package: it keeps its own copies
+of the parameter structs (``params.py``) and of the float64 helpers its
+constants are built with (``golden.py``).
 
 Ported slices of ``measure.run_measurement``, one front end, fused
-loopback and host-fed pipeline: the TONES / NOISE PFB readout and the
-DIRECT readout (multi-tone DDC + decimating FIR).
+loopback and host-fed pipeline: the TONES / NOISE PFB readout, the
+DIRECT readout (multi-tone DDC + decimating FIR) and the CHIRP / VNA
+readout (integer-phase chirp + lock-in).
 Every other branch raises ``NotImplementedError`` naming the ROADMAP
 item that will port it.
 """

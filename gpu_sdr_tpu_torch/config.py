@@ -1,11 +1,12 @@
 """Device resolution and the precision contract.
 
 Precision: the readout's bar is 90 dB SNR against the float64 oracles
-(``gpu_sdr_tpu.golden``).  TF32 keeps 10 mantissa bits (~60 dB per
-product), far under that bar, so every float32 matmul and convolution
-of the port runs in full float32: both TF32 switches are turned off
-here, once, before any work is placed on a card.  The kernels of
-``csrc/`` use FP32 FFMA and are not affected by these switches.
+of the JAX package, which the tests hold the port against.  TF32 keeps
+10 mantissa bits (~60 dB per product), far under that bar, so every
+float32 matmul and convolution of the port runs in full float32: both
+TF32 switches are turned off here, once, before any work is placed on
+a card.  The kernels of ``csrc/`` use FP32 FFMA and are not affected by
+these switches.
 """
 
 from __future__ import annotations

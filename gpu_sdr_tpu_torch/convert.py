@@ -83,3 +83,21 @@ def fold_state(state, device):
     int64, float)."""
     sph, dph, pv = state
     return tone_phase(sph, device), tone_phase(dph, device), float(pv)
+
+
+def chirp_state(state):
+    """A CHIRP state of the JAX package -> the port's Python ints:
+
+    * the fused chain's (uint32 stream position, int32 period block,
+      C wavetable) (gpu_sdr_tpu/engine/fused._ChirpWavetableChain)
+      -> (position, block); the port's chain holds its own table;
+    * the host-fed table step's (uint32 position, int32 oscillator
+      block) (engine/demodulator._try_chirp_table_step) -> (position,
+      block);
+    * the plain step's uint32 position -> position."""
+    if isinstance(state, (tuple, list)):
+        if len(state) not in (2, 3):
+            raise ValueError(f"CHIRP state of {len(state)} parts; expected "
+                             "(last, idx[, table]) or a scalar")
+        return int(np.asarray(state[0])), int(np.asarray(state[1]))
+    return int(np.asarray(state))

@@ -6,22 +6,26 @@ once per complex64 block on the demodulator's device; every mode emits
 a (out_rows, n_channels) tensor per block (sample-major, channel-minor,
 the reference's interleaved layout, cpp/USRP_demodulator.cpp:422-433).
 
-Ported: TONES (channelizer + tone select), NOISE (full spectrum) and
-DIRECT (fused multi-tone DDC + decimating FIR).
+Ported: TONES (channelizer + tone select), NOISE (full spectrum),
+DIRECT (fused multi-tone DDC + decimating FIR) and CHIRP (integer-phase
+chirp mix-down + lock-in).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Tuple
 
 import torch
 
-from gpu_sdr_tpu.params import AntennaParams, WaveType
-
+from ..ops import chirp as chirp_ops
 from ..ops import ddc as ddc_ops
+from ..ops import lockin as lockin_ops
 from ..ops import pfb as pfb_ops
+from ..ops.lockin_table import lockin_table
 from ..ops.presum import pfb_frames_fused
+from ..params import AntennaParams, WaveType
 from .planner import BlockPlan, plan_blocks
 
 
@@ -103,6 +107,66 @@ def _build_pfb(p: AntennaParams, plan: BlockPlan, full_spectrum: bool,
         device=device)
 
 
+def _build_chirp(p: AntennaParams, plan: BlockPlan, device) -> Demodulator:
+    """CHIRP: integer-phase chirp mix-down + lock-in segment average
+    (reference process_chirp, cpp/USRP_demodulator.cpp:342-397).  With
+    decim >= 1, the table step when it fits, else the plain mix-down and
+    lock-in; with decim 0, the mixed-down stream itself.  State: the
+    stream position, a Python int."""
+    cfg = chirp_ops.chirp_config(p)
+    decim = int(p.decim)
+    if decim > 0:
+        ppt = cfg.length * decim
+        profile = torch.from_numpy(lockin_ops.lockin_profile(ppt)).to(device)
+        if chirp_ops.chirp_table_fits(cfg, plan.block_len, ppt):
+            return _chirp_table_step(cfg, profile, plan, ppt, device)
+
+        def step(last, x):
+            last, z = chirp_ops.chirp_demod_block(cfg, last, x)
+            return last, lockin_ops.lockin_decimate(profile, z)[:, None]
+    else:
+        def step(last, x):
+            last, z = chirp_ops.chirp_demod_block(cfg, last, x)
+            return last, z[:, None]
+
+    return Demodulator(plan=plan, n_channels=1, init_state=lambda: 0,
+                       step=step, wave_type=WaveType.CHIRP, device=device)
+
+
+def _chirp_table_step(cfg, profile, plan: BlockPlan, ppt: int,
+                      device) -> Demodulator:
+    """Host-fed table-oscillator lock-in: each block against the rows of
+    a one-period oscillator table through the lock-in kernel's table
+    mode (ops/lockin_table.lockin_table, TPU kernel #17).  The table is
+    built at the first init_state / step, not here: the fused loopback
+    builds this demodulator too and never reads it.  State: (stream
+    position, oscillator block), Python ints.
+
+    The JAX package takes this step only under its Pallas switch, for a
+    table of at most 64 MB (a limit of its remote-compile relay) and
+    8-segment blocks (the TPU's row tile); the port has none of those
+    gates (ROADMAP Queue 3)."""
+    L = plan.block_len
+    nseg, nblk = L // ppt, cfg.period // L
+
+    @functools.cache
+    def oscillator():
+        return chirp_ops.chirp_period_table(cfg, L, ppt, device=device)
+
+    def init_state():
+        oscillator()
+        return (0, 0)
+
+    def step(state, x):
+        last, o = state
+        y = lockin_table(profile, oscillator(), x.reshape(nseg, ppt), o, 0,
+                         nseg)
+        return (chirp_ops.advance(cfg, last, L), (o + 1) % nblk), y[:, None]
+
+    return Demodulator(plan=plan, n_channels=1, init_state=init_state,
+                       step=step, wave_type=WaveType.CHIRP, device=device)
+
+
 def make_demodulator(p: AntennaParams, device) -> Demodulator:
     """Build the streaming demodulator for one RX antenna on `device`
     (the factory switch of the reference ctor,
@@ -120,8 +184,7 @@ def make_demodulator(p: AntennaParams, device) -> Demodulator:
     if w == WaveType.DIRECT:
         return _build_direct(p, plan, device)
     if w == WaveType.CHIRP:
-        raise NotImplementedError(
-            "CHIRP demodulation is not ported yet (ROADMAP Queue 1 item 5)")
+        return _build_chirp(p, plan, device)
     if w == WaveType.NODSP:
         raise NotImplementedError(
             "NODSP passthrough is not ported yet (ROADMAP Queue 1 item 3)")

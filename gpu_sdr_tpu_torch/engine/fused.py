@@ -5,16 +5,19 @@ feeding RX directly, the reference's --sw_loop), the whole chain stays
 on the device and nothing touches the host until each block's
 demodulated output is fetched.
 
-Ported mode pairs: TONES->DIRECT, TONES->TONES (PFB) and TONES->NOISE,
-tried in the JAX package's order: DIRECT first, then the channelizer,
-else ``generic_scan`` (the generator and the demodulator of the host-fed
-path, run back to back on the device).
+Ported mode pairs: TONES->DIRECT, CHIRP->CHIRP, TONES->TONES (PFB) and
+TONES->NOISE, tried in the JAX package's order: DIRECT first, then the
+chirp, then the channelizer, else ``generic_scan`` (the generator and
+the demodulator of the host-fed path, run back to back on the device).
 
 * TONES->DIRECT, periodic comb: the loopback is a looped one-block
   recording, demodulated by the replay kernel (``replay_kernel_t`` for
   at most 8 channels, else ``replay_kernel``);
 * TONES->DIRECT, any other comb: the shift-fold kernel (``fold_kernel``),
   synthesis, mix-down and FIR contracted into one constant;
+* CHIRP->CHIRP (the VNA sweep): one period of the TX chirp as a table
+  of segment rows and the lock-in kernel in self mode
+  (``chirp_wavetable``);
 * TONES->TONES / NOISE, bin-quantized comb: one comb frame and the
   channelizer kernel in const-frame mode (``channelizer_wavetable``).
 """
@@ -26,17 +29,19 @@ from typing import Optional
 
 import torch
 
-from gpu_sdr_tpu.params import AntennaParams, WaveType
-
 from ..config import resolve_device
+from ..ops import chirp as chirp_ops
 from ..ops import cplx
 from ..ops import pfb as pfb_ops
 from ..ops.channelizer import (can_fuse_channelizer, channelizer_consts,
                                channelizer_frames)
 from ..ops.ddc import DirectDDCConfig
 from ..ops.fold import TonesDirectFold
+from ..ops.lockin import lockin_profile
+from ..ops.lockin_table import lockin_self
 from ..ops.replay_ddc import make_replay_ddc
 from ..ops.tonegen import comb_period, tone_comb_wavetable_block
+from ..params import AntennaParams, WaveType
 from .demodulator import make_demodulator
 from .generator import make_generator
 from .pipeline import PipelineResult, run_chunked
@@ -54,6 +59,8 @@ class FusedLoopback:
         self.device = resolve_device(self.device)
         self.demod = make_demodulator(self.rx, self.device)
         chain = self._try_tones_direct_chain()
+        if chain is None:
+            chain = self._try_chirp_chain()
         if chain is None:
             chain = self._try_channelizer_chain()
         # which chain this loopback runs: measure.LAST_DISPATCH subpath
@@ -114,6 +121,31 @@ class FusedLoopback:
         step)."""
         rec = tone_comb_wavetable_block(freqs, ampls, int(self.tx.rate), L)
         return make_replay_ddc(cfg, rec, L, self.device)
+
+    def _try_chirp_chain(self):
+        """CHIRP->CHIRP with no burst gating into a lock-in receiver
+        (decim >= 1) whose chirp is the TX chirp: one period of it, a
+        table in device memory, serves the whole stream.  JAX also
+        needs its Pallas switch and 8-segment blocks (a TPU row tile);
+        the port needs neither (ROADMAP Queue 3)."""
+        tx, rx = self.tx, self.rx
+        if not (tx.wave_type and tx.wave_type[0] == WaveType.CHIRP
+                and rx.wave_type and rx.wave_type[0] == WaveType.CHIRP):
+            return None
+        if tx.burst_on > 0 or int(rx.decim) < 1:
+            return None
+        # the table is the TX signal: the demodulator's chirp must match
+        for attr in ("freq", "chirp_f", "chirp_t", "swipe_s"):
+            a, b = getattr(tx, attr), getattr(rx, attr)
+            if not a or not b or a[0] != b[0]:
+                return None
+        cfg = chirp_ops.chirp_config(rx)
+        L = self.demod.plan.block_len
+        ppt = cfg.length * int(rx.decim)
+        if not chirp_ops.chirp_table_fits(cfg, L, ppt):
+            return None
+        scale = float(tx.ampl[0]) if tx.ampl else 1.0
+        return _ChirpWavetableChain(cfg, L, ppt, scale, self.device)
 
     def _try_channelizer_chain(self):
         """TONES->TONES / TONES->NOISE through the channelizer kernel
@@ -185,17 +217,50 @@ class _ChannelizerWavetableChain:
         return spare, y
 
 
+class _ChirpWavetableChain:
+    """One period of the TX chirp as (period/ppt, ppt) segment rows in
+    device memory, and the lock-in kernel in self mode
+    (ops/lockin_table.lockin_self, TPU kernel #16): in the loopback the
+    signal is the table, so each block reads its rows once and its
+    lock-in points are sum_k w[k] |c|^2.  The TX amplitude is folded
+    into the profile: the demodulator's contract is conj(c) * x with a
+    unit oscillator, so one factor of the amplitude divides back out.
+    The table is generated on the device block by block
+    (ops/chirp.chirp_period_table), so the int64 phase temporaries stay
+    one block long.  Streaming state: (stream position, period block),
+    Python ints; the position is kept for parity with the host-fed
+    step.  One launch per block."""
+
+    path_name = "chirp_wavetable"
+
+    def __init__(self, cfg, L: int, ppt: int, scale: float, device):
+        self.cfg, self.L, self.nseg = cfg, L, L // ppt
+        self.nblk = cfg.period // L
+        self.profile = torch.from_numpy(
+            lockin_profile(ppt) / (scale if scale else 1.0)).to(device)
+        self.table = chirp_ops.chirp_period_table(cfg, L, ppt, scale=scale,
+                                                  device=device)
+
+    def init_state(self):
+        return (0, 0)
+
+    def step(self, state):
+        last, idx = state
+        y = lockin_self(self.profile, self.table, idx, self.nseg)
+        return ((chirp_ops.advance(self.cfg, last, self.L),
+                 (idx + 1) % self.nblk), y[:, None])
+
+
 _FUSABLE = {
     (WaveType.TONES, WaveType.DIRECT),
     (WaveType.TONES, WaveType.TONES),
     (WaveType.TONES, WaveType.NOISE),
+    (WaveType.CHIRP, WaveType.CHIRP),
 }
 
 
 def can_fuse(tx: Optional[AntennaParams], rx: AntennaParams) -> bool:
-    """Whether FusedLoopback takes this mode pair.  The JAX package also
-    fuses CHIRP->CHIRP; that waits for the CHIRP port (ROADMAP Queue 1
-    item 5)."""
+    """Whether FusedLoopback takes this mode pair."""
     if tx is None or not tx.wave_type or not rx.wave_type:
         return False
     return (tx.wave_type[0], rx.wave_type[0]) in _FUSABLE

@@ -69,6 +69,15 @@ class _HostFetch:
         return host.numpy()
 
 
+def _end_setup(device) -> None:
+    """Set-up ends here: on a card, wait for the work queued so far (an
+    oscillator table, a recording), so the sinks start on a finished
+    state and the streaming window holds only the stream."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def run_chunked(step, init_state, n_blocks: int, block_len: int,
                 channels: int, total_rows: int, device,
                 sinks: Sequence[Sink] = (), usrp_number: int = 0,
@@ -76,13 +85,15 @@ def run_chunked(step, init_state, n_blocks: int, block_len: int,
     """Acquisition loop of the on-device chains (engine/fused.py): no
     host input; `step(state) -> (state, y)` produces one block's
     (rows, channels) output, `n_blocks` times, with one block in flight
-    while the previous drains to the sinks.  (The JAX package scans K
-    blocks per launch to amortize dispatch; PyTorch runs eagerly, so a
-    step here is one block.)"""
+    while the previous drains to the sinks.  The state is built before
+    the sinks start: it is set-up.  (The JAX package scans K blocks per
+    launch to amortize dispatch; PyTorch runs eagerly, so a step here is
+    one block.)"""
+    state = init_state()
+    _end_setup(device)
     for s in sinks:
         s.on_start(channels, total_rows)
     fetch = _HostFetch(device)
-    state = init_state()
     rows = pkt = 0
     t0 = time.perf_counter()
 
@@ -120,16 +131,18 @@ def run_pipeline(demod: Demodulator, source: Source,
     """Stream `n_blocks` blocks from `source` through the demodulator
     into the sinks.  Ingest runs through a HostFeed (engine/ingest.py)
     `feed_depth` blocks ahead, so the host->device copy of block i+1
-    overlaps the compute of block i."""
+    overlaps the compute of block i.  The demodulator's state is built
+    before the sinks start: it is set-up."""
     from .ingest import HostFeed
     plan = demod.plan
     nb = n_blocks if n_blocks is not None else plan.n_blocks
+    state = demod.init_state()
+    _end_setup(demod.device)
     for s in sinks:
         s.on_start(demod.n_channels, plan.total_out_rows)
     stream = HostFeed(source, demod.device, depth=feed_depth).device_blocks(
         plan.block_len, nb)
     fetch = _HostFetch(demod.device)
-    state = demod.init_state()
     inflight = collections.deque()
     rows = 0
     pkt = 0

@@ -22,9 +22,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from gpu_sdr_tpu.params import (AntennaParams, DEFAULT_BUFFER_LEN,
-                                MAX_USEFULL_BUFFER, MIN_USEFULL_BUFFER,
-                                WaveType, chirp_steps_and_length)
+from ..params import (AntennaParams, DEFAULT_BUFFER_LEN, MAX_USEFULL_BUFFER,
+                      MIN_USEFULL_BUFFER, WaveType, chirp_steps_and_length)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,13 +4,13 @@ with ctypes.
 The sources are compiled at first use, for ``sm_90a`` (Hopper), into
 ``gpu_sdr_tpu_torch/_build/``: one ``nvcc -c`` per source, all started
 together, then one link, so the build takes about as long as its
-slowest source (3.1-3.7 s for the four on an H100 host, against
-8.3-9.0 s for one nvcc call over all of them).  The library's file name carries a hash of the
-sources and the flags, so an unchanged checkout reuses its build and an
-edited source rebuilds.  Each C entry point takes device
-pointers and PyTorch's current stream as ``void*``, launches, and
-returns ``cudaGetLastError()``; ``check`` turns a non-zero code into an
-exception.  Nothing here synchronizes.
+slowest source (3.1-3.7 s for the first four on an H100 host, against
+8.3-9.0 s for one nvcc call over them).  The library's file name
+carries a hash of the sources and the flags, so an unchanged checkout
+reuses its build and an edited source rebuilds.  Each C entry point
+takes device pointers and PyTorch's current stream as ``void*``,
+launches, and returns ``cudaGetLastError()``; ``check`` turns a
+non-zero code into an exception.  Nothing here synchronizes.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("presum.cu", "channelizer.cu", "ddc.cu", "fold.cu")
+SOURCES = ("presum.cu", "channelizer.cu", "ddc.cu", "fold.cu",
+           "lockin.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -116,6 +117,8 @@ def _bind(lib) -> None:
     lib.sdr_fold.restype = ci
     lib.sdr_fold_tile.argtypes = []
     lib.sdr_fold_tile.restype = ci
+    lib.sdr_lockin.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, vp]
+    lib.sdr_lockin.restype = ci
     lib.sdr_error_string.argtypes = [ci]
     lib.sdr_error_string.restype = ctypes.c_char_p
 

@@ -20,14 +20,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from gpu_sdr_tpu.params import AntMode, UsrpParams
-
 from .config import resolve_device
 from .engine import (FusedLoopback, can_fuse, make_demodulator,
                      make_generator, run_pipeline)
 from .engine.channel import Channel, IdealChannel
 from .engine.sinks import Sink
 from .engine.sources import Source, WhiteNoiseSource
+from .params import AntMode, UsrpParams
 
 # the execution paths the last run_measurement call took, one
 # (rx_name, path, subpath) per RX antenna, with the JAX package's key

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from gpu_sdr_tpu import golden
+from .. import golden
 
 
 def fir_taps_direct(decim: int, pf_average: int,

@@ -23,8 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from gpu_sdr_tpu import golden
-
+from .. import golden
 from .windows import pfb_window
 
 

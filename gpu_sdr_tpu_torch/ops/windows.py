@@ -1,11 +1,12 @@
 """Filter windows: built once per measurement in float64 numpy by the
-shared oracle (``gpu_sdr_tpu.golden``, JAX-free), then cast."""
+port's copy of the reference window functions (``golden.py``), then
+cast."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from gpu_sdr_tpu import golden
+from .. import golden
 
 
 def pfb_window(nfft: int, avg: int, dtype=np.float32) -> np.ndarray:

@@ -12,7 +12,12 @@ its configurations from here):
 * DIRECT config 3 fused and host-fed, config 1 fused, and config 3's
   comb quantized to a 100 kHz grid, fused: BASELINE's DIRECT widths
   (tools/bench_configs.py:68-105), 100 Msps, 4,000,000-sample blocks,
-  decim 100, pf_average 4.
+  decim 100, pf_average 4;
+* CHIRP config 2 fused (50 blocks, two period wraps) and host-fed (25
+  blocks, one period): BASELINE's VNA sweep (tools/bench_configs.py:
+  86-95), a -40 to +40 MHz chirp of 5000 steps over 1 s at 100 Msps,
+  lock-in at decim 1 (ppt 20,000), 4,000,000-sample blocks of 200
+  segments, a 100,000,000-sample (800 MB) period.
 
 For each cell, after one warm-up run: RUNS runs into a sink that drops
 every packet unread, each with its set-up seconds (``run_measurement``
@@ -47,6 +52,11 @@ CONFIG1 = [10_000_000]                           # amplitude 1.0
 CONFIG3 = [int(f) for f in np.linspace(-45e6, 45e6, 100)]   # 0.01 each
 QCOMB = [int(round(f / 1e5)) * 100_000 for f in CONFIG3]    # period 1000
 
+# CHIRP: BASELINE config 2
+C_RATE, C_BLOCK = 100_000_000, 4_000_000
+CONFIG2 = dict(freq=[-40_000_000], chirp_f=[40_000_000], chirp_t=[1.0],
+               swipe_s=[5000])                   # amplitude 1.0, decim 1
+
 RUNS = 3
 PROFILE_BLOCKS = 10
 TOP_OPS = 6
@@ -57,8 +67,7 @@ WINDOW = "probe.stream"             # the profiler span of the sink's window
 def loopback_params(n_blocks: int):
     """The network-stress configuration: a 1000-channel PFB readout of
     1000 bin-quantized tones, `n_blocks` blocks."""
-    from gpu_sdr_tpu.params import (AntMode, AntennaParams, UsrpParams,
-                                    WaveType)
+    from .params import AntMode, AntennaParams, UsrpParams, WaveType
     freqs = [k * (RATE // NFFT) for k in range(-NFFT // 2, NFFT // 2)]
     p = UsrpParams()
     p.A_TXRX = AntennaParams(mode=AntMode.TX, rate=RATE, buffer_len=BLOCK,
@@ -74,8 +83,7 @@ def loopback_params(n_blocks: int):
 def direct_params(freqs, ampl, n_blocks: int):
     """BASELINE config 1 / 3 geometry for a TX comb into a DIRECT
     receiver at the same frequencies, `n_blocks` blocks."""
-    from gpu_sdr_tpu.params import (AntMode, AntennaParams, UsrpParams,
-                                    WaveType)
+    from .params import AntMode, AntennaParams, UsrpParams, WaveType
     p = UsrpParams()
     p.A_TXRX = AntennaParams(mode=AntMode.TX, rate=D_RATE,
                              buffer_len=D_BLOCK, freq=list(freqs),
@@ -86,6 +94,23 @@ def direct_params(freqs, ampl, n_blocks: int):
                             pf_average=D_AVG, samples=n_blocks * D_BLOCK,
                             freq=list(freqs),
                             wave_type=[WaveType.DIRECT] * len(freqs))
+    return p
+
+
+def chirp_params(n_blocks: int):
+    """BASELINE config 2: the VNA chirp looped into a lock-in receiver
+    with the same chirp, `n_blocks` blocks."""
+    from .params import AntMode, AntennaParams, UsrpParams, WaveType
+
+    def chirp():
+        return dict(wave_type=[WaveType.CHIRP],
+                    **{k: list(v) for k, v in CONFIG2.items()})
+    p = UsrpParams()
+    p.A_TXRX = AntennaParams(mode=AntMode.TX, rate=C_RATE,
+                             buffer_len=C_BLOCK, ampl=[1.0], **chirp())
+    p.A_RX2 = AntennaParams(mode=AntMode.RX, rate=C_RATE,
+                            buffer_len=C_BLOCK, decim=1,
+                            samples=n_blocks * C_BLOCK, **chirp())
     return p
 
 
@@ -102,6 +127,8 @@ def cells():
          lambda n: direct_params(QCOMB, 0.01, n), False, 50, D_BLOCK),
         ("DIRECT config 3 host-fed",
          lambda n: direct_params(CONFIG3, 0.01, n), True, 10, D_BLOCK),
+        ("CHIRP config 2 fused", chirp_params, False, 50, C_BLOCK),
+        ("CHIRP config 2 host-fed", chirp_params, True, 25, C_BLOCK),
     )
 
 

@@ -135,17 +135,28 @@ def test_steady_amplitudes():
 
 
 def test_direct_runs_with_jax_blocked():
-    """The port imports no JAX: importing every module of the DIRECT
-    slice loads none, and with ``jax`` unimportable the fused and
-    host-fed DIRECT readouts still run."""
+    """The port imports nothing of JAX or of the JAX package: importing
+    every module of the port loads neither, and with both unimportable
+    the fused and host-fed DIRECT readouts and a host-fed CHIRP readout
+    still run."""
     code = textwrap.dedent("""
         import sys
         import gpu_sdr_tpu_torch
-        from gpu_sdr_tpu_torch import convert, measure
-        from gpu_sdr_tpu_torch.ops import ddc, fir, fold, replay_ddc
-        from gpu_sdr_tpu_torch.engine import fused, demodulator
-        assert "jax" not in sys.modules, "importing the port loaded jax"
+        from gpu_sdr_tpu_torch import (config, convert, golden, measure,
+                                       params, probe)
+        from gpu_sdr_tpu_torch.ops import (chirp, channelizer, cplx, ddc,
+                                           fir, fold, lockin, lockin_table,
+                                           pfb, presum, replay_ddc,
+                                           tonegen, windows)
+        from gpu_sdr_tpu_torch.engine import (channel, demodulator, fused,
+                                              ingest, pipeline, planner,
+                                              sinks, sources)
+        from gpu_sdr_tpu_torch.kernels import build
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "gpu_sdr_tpu")], \
+            "importing the port loaded jax or the JAX package"
         sys.modules["jax"] = None
+        sys.modules["gpu_sdr_tpu"] = None
         import numpy as np, torch
         torch.set_num_threads(2)
         from gpu_sdr_tpu_torch.params import (AntMode, AntennaParams,
@@ -170,11 +181,29 @@ def test_direct_runs_with_jax_blocked():
                 np.testing.assert_allclose(abs(s.data[3:]), 0.25,
                                            rtol=1e-2)
                 print(measure.last_dispatch()[0][2])
+        p = UsrpParams()
+        c = dict(freq=[-300_000], chirp_f=[300_000], chirp_t=[0.128],
+                 swipe_s=[128], wave_type=[WaveType.CHIRP])
+        p.A_TXRX = AntennaParams(mode=AntMode.TX, rate=1_000_000,
+                                 buffer_len=64_000, ampl=[0.25], **c)
+        p.A_RX2 = AntennaParams(mode=AntMode.RX, rate=1_000_000,
+                                buffer_len=96_000, samples=96_000,
+                                decim=1, **c)
+        s = MemorySink()
+        measure.run_measurement(p, channel=IdealChannel(), extra_sinks=[s],
+                                device="cpu")
+        assert s.data.shape == (96, 1), s.data.shape
+        np.testing.assert_allclose(abs(s.data), 0.25, rtol=1e-5)
+        print(measure.last_dispatch()[0][1])
         assert sys.modules["jax"] is None
+        assert sys.modules["gpu_sdr_tpu"] is None
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "gpu_sdr_tpu")
+                    and sys.modules[m] is not None]
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.split() == ["replay_kernel_t", "None", "fold_kernel",
-                                  "None"]
+                                  "None", "host_pipeline"]

@@ -208,11 +208,14 @@ def test_host_feed_surfaces_source_errors():
 
 
 def test_slice_runs_with_jax_blocked():
-    """The port imports no JAX: with ``jax`` unimportable it still runs
-    both branches of the slice, through both kernel wrappers."""
+    """The port imports nothing of JAX or of the JAX package: with both
+    unimportable it still runs both branches of the slice, through both
+    kernel wrappers, and the CHIRP readout fused and host-fed (its table
+    step), and loads no module of either."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["gpu_sdr_tpu"] = None
         import gpu_sdr_tpu_torch
         import numpy as np, torch
         torch.set_num_threads(2)
@@ -239,16 +242,33 @@ def test_slice_runs_with_jax_blocked():
             assert s.data.shape == (128, 8), s.data.shape
             np.testing.assert_allclose(abs(s.data[3:]), 0.125, rtol=1e-2)
             print(measure.last_dispatch()[0][1])
+        for ch in (None, IdealChannel()):
+            c = dict(freq=[-300_000], chirp_f=[300_000], chirp_t=[0.128],
+                     swipe_s=[128], wave_type=[WaveType.CHIRP])
+            p = UsrpParams()
+            p.A_TXRX = AntennaParams(mode=AntMode.TX, rate=1_000_000,
+                                     buffer_len=64_000, ampl=[0.5], **c)
+            p.A_RX2 = AntennaParams(mode=AntMode.RX, rate=1_000_000,
+                                    buffer_len=64_000, samples=128_000,
+                                    decim=1, **c)
+            s = MemorySink()
+            measure.run_measurement(p, channel=ch, extra_sinks=[s],
+                                    device="cpu")
+            assert s.data.shape == (128, 1), s.data.shape
+            np.testing.assert_allclose(abs(s.data), 0.5, rtol=1e-5)
+            print(measure.last_dispatch()[0][2])
         assert sys.modules["jax"] is None
-        assert not any(m.startswith("gpu_sdr_tpu.") and
-                       m.split(".")[1] in ("ops", "engine", "client")
-                       for m in sys.modules)
+        assert sys.modules["gpu_sdr_tpu"] is None
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "gpu_sdr_tpu")
+                    and sys.modules[m] is not None]
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert res.stdout.split() == ["fused_loopback", "host_pipeline"]
+    assert res.stdout.split() == ["fused_loopback", "host_pipeline",
+                                  "chirp_wavetable", "None"]
 
 
 def test_kernel_wrappers_count_no_cpu_launch():
@@ -281,9 +301,14 @@ def _rx_wave(w):
 
 
 def _chirp_tx(p):
-    p.A_TXRX.wave_type = [WaveType.CHIRP]
-    p.A_TXRX.freq, p.A_TXRX.ampl = [1000], [0.5]
-    p.A_TXRX.chirp_f, p.A_TXRX.chirp_t = [2000], [0.1]
+    """A CHIRP loopback on both front ends (the dual VNA): the CHIRP
+    readout itself is ported (tests/test_torch_chirp_slice.py), two
+    front ends are not."""
+    for a in (p.A_TXRX, p.A_RX2):
+        a.wave_type, a.freq = [WaveType.CHIRP], [1000]
+        a.chirp_f, a.chirp_t = [2000], [0.1]
+    p.A_TXRX.ampl, p.A_RX2.decim = [0.5], 10
+    _dual(p)
 
 
 def _mixed(p):
@@ -296,7 +321,9 @@ def _mixed(p):
     ("replay", None, dict(source=object())),
     ("mesh", None, dict(mesh=object())),
     ("dual", _dual, {}),
-    ("chirp_rx", _rx_wave(WaveType.CHIRP), {}),
+    # a CHIRP receiver fed from a recording (the replay chirp_table /
+    # chirp_at sub-paths, item 6)
+    ("chirp_rx", _rx_wave(WaveType.CHIRP), dict(source=object())),
     ("chirp_tx", _chirp_tx, dict(channel=IdealChannel())),
     ("mixed", _mixed, {}),
 ], ids=lambda v: v if isinstance(v, str) else "")
