@@ -49,9 +49,36 @@ and exits non-zero at the first phase that fails:
    (``chirp_wavetable``, self mode, 50 blocks: two period wraps) and
    host-fed through an ideal channel (table mode, 25 blocks), every
    lock-in point within 1e-5 of the TX amplitude, host-fed against fused
-   at >= 90 dB SNR.
+   at >= 90 dB SNR;
+10. the device replay's kernels against their plain versions and a
+   float64 oracle at full width: the channelizer (#4) and the pre-sum
+   (#6) reading blocks of a random 8-block (384 MB) recording in place
+   at the TONES geometry (blocks 0 at the stream's start, 3, 7, and 0
+   after the loop seam), at >= 90 dB SNR (16 frames against float64) and
+   <= 1e-6 relative error, with the channelizer's stream mode (#1) timed
+   over the same blocks as #4 is; the pre-sum again, and timed, at its
+   main path's shape (NOISE at nfft 1018, blocks of 5893 frames, the
+   same four blocks of an 8-block recording); the in-kernel chirp
+   lock-in (#18) at config 2
+   with 6,000,000-sample blocks (300 segments, the period no multiple of
+   them) from stream positions 0, 37,000,000 and 98,000,000 (across the
+   period's end) at >= 90 dB against plain and float64, and fed the
+   chirp itself, every point within 1e-5 of 1; times as in phase 8,
+   rotating over the recording's blocks;
+11. the device replay through ``run_measurement(source=ReplaySource)``,
+   each recording made on the card and saved as a .npy file: the TONES
+   comb (8 blocks looped, 20 acquired, ``channelizer_at``) against phase
+   4's first 20 blocks; NOISE at nfft 1018 (``pfb_at``); DIRECT configs
+   3 and 1 (``replay_kernel``, ``replay_kernel_t``); CHIRP config 2 (10
+   blocks looped over 30: ``chirp_table``, the recording wrapping mod 10
+   and the oscillator mod 25) and at 6,000,000-sample blocks
+   (``chirp_at``); a 5.5-block config-3 recording, not looped
+   (``scan``); then ``SegmentedDeviceReplay`` in 2-block segments over
+   16 blocks of a 6-block recording and of a looped 3-block one, with
+   its staging time per segment.  Each is held against the host-fed
+   pipeline over the same recording at >= 90 dB SNR.
 
-Phases 4, 5, 7 and 9 are the main path.  Their CallbackSink checks rows
+Phases 4, 5, 7, 9 and 11 are the main path.  Their CallbackSink checks rows
 ::97 of every packet (finite; PFB tones within 1% of their amplitude;
 DIRECT rows within 2.5% of the TX amplitude, the sum of the other tones'
 leakage through the 400-tap FIR's stopband at config 3, and each
@@ -84,9 +111,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 try:    # the main path's configurations (gpu_sdr_tpu_torch/probe.py)
     from gpu_sdr_tpu_torch.probe import (
-        AVG, BLOCK, C_BLOCK, C_RATE, CONFIG1, CONFIG2, CONFIG3, D_AVG,
-        D_BLOCK, D_DECIM, D_RATE, FRAMES, NFFT, QCOMB, RATE, chirp_params,
-        direct_params, loopback_params)
+        AT_BLOCK, AVG, BLOCK, C_BLOCK, C_RATE, CONFIG1, CONFIG2, CONFIG3,
+        D_AVG, D_BLOCK, D_DECIM, D_RATE, FRAMES, NFFT, QCOMB, RATE,
+        chirp6m_params, chirp_params, direct_params, loopback_params,
+        receiver_only, save_recording, tx_recording)
 except ImportError as e:
     print(f"chip_smoke: the port is not beside this script: {e}",
           file=sys.stderr)
@@ -110,6 +138,30 @@ C_AMPL, C_TOL = 1.0, 1e-5           # TX amplitude; lock-in row tolerance
 C_ORACLE_BLOCKS = (0, 1)            # blocks held against float64
 C_RANDOM_BLOCKS = (3, 17)           # self-mode blocks of a random table
 QUEUED_RUNS = 5                     # timed passes over the table
+
+# the device replay's kernels: blocks of an 8-block recording, as
+# (block, valid): the stream's start, inside, the last block, and block
+# 0 after the loop seam (its halo the recording's last frames)
+R_BLOCKS = 8
+R_IDX = ((0, 0), (3, 1), (7, 1), (0, 1))
+AT_POSITIONS = (0, 37_000_000, 98_000_000)   # the last crosses the period
+# operations of lockin_at per sample, counted from csrc/lockin.cu's
+# chirp mode: 21 integer and float operations for the phase (the uint32
+# index, its conversion and scaling), ~25 for sincosf (reduction and two
+# polynomials, an FMA counted as 2), 6 for conj(c) * x and 4 for the two
+# profile-weighted sums; all counted at the FP32 peak
+CHIRP_AT_OPS = 56
+
+# the replay runs: blocks of each looped recording and of its acquisition
+R_TONES = (8, 20)                   # comb, channelizer_at
+R_NOISE = (4, 10)                   # NOISE at nfft 1018, pfb_at
+R_NFFT = 1018                       # split 2 x 509: G_k1 over shared memory
+R_DIRECT = (8, 20)                  # configs 3 and 1, replay kernels
+R_CHIRP = (10, 30)                  # config 2: wraps mod 10 and mod 25
+R_CHIRP6M = (8, 20)                 # config 2 at 6,000,000: chirp_at
+R_SCAN = (5.5, 8)                   # config 3, not looped: scan
+R_SEGMENTED = ((6, False), (3, True))   # recordings over 16 blocks
+R_SEG_BLOCKS, R_SEG_ACQ = 2, 16
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -319,10 +371,11 @@ class PacketCheck:
         self.n += 1
 
 
-def run_path(dev, params, channel, pkt, n_blocks, block, channels):
-    """One run_measurement with `pkt` as the CallbackSink's check:
-    (pkt, dispatch, Msps from the sink's start to its end, seconds with
-    set-up)."""
+def run_path(dev, params, channel, pkt, n_blocks, block, channels,
+             source=None):
+    """One run_measurement (fed from `source` when given) with `pkt` as
+    the CallbackSink's check: (pkt, dispatch, Msps from the sink's start
+    to its end, seconds with set-up)."""
     from gpu_sdr_tpu_torch import measure
     from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
     stamps = []
@@ -336,7 +389,7 @@ def run_path(dev, params, channel, pkt, n_blocks, block, channels):
             stamps.append(time.perf_counter())
 
     t0 = time.perf_counter()
-    measure.run_measurement(params, channel=channel,
+    measure.run_measurement(params, channel=channel, source=source,
                             extra_sinks=[TimedSink(pkt)], device=dev)
     wall = time.perf_counter() - t0
     check(pkt.n == n_blocks, f"{pkt.n} of {n_blocks} packets")
@@ -382,22 +435,24 @@ def phase_main_path(dev):
           all(v == 0 for k, v in counts.items() if k != "presum"),
           f"host launches {counts}")
     check(snr >= SNR_BAR_DB, f"host vs fused {snr:.1f} dB")
-    return {"channelizer": n_chan, "presum": n_pre}
+    return {"channelizer": n_chan, "presum": n_pre}, np.stack(fused.kept)
 
 
 def kernel_counters():
     """Each kernel wrapper, by its name in the kernels line: each holds
     its launch count in ``launches``."""
-    from gpu_sdr_tpu_torch.ops.channelizer import channelizer
+    from gpu_sdr_tpu_torch.ops.channelizer import channelizer, channelizer_at
     from gpu_sdr_tpu_torch.ops.ddc import ddc_fused
     from gpu_sdr_tpu_torch.ops.fold import fold
+    from gpu_sdr_tpu_torch.ops.lockin_at import lockin_at
     from gpu_sdr_tpu_torch.ops.lockin_table import lockin_self, lockin_table
-    from gpu_sdr_tpu_torch.ops.presum import presum
+    from gpu_sdr_tpu_torch.ops.presum import presum, presum_at
     from gpu_sdr_tpu_torch.ops.replay_ddc import ReplayDDC, ReplayDDCT
     return {"channelizer": channelizer, "presum": presum, "ddc": ddc_fused,
             "replay_ddc": ReplayDDC, "replay_ddc_t": ReplayDDCT,
             "fold": fold, "lockin_self": lockin_self,
-            "lockin_table": lockin_table}
+            "lockin_table": lockin_table, "channelizer_at": channelizer_at,
+            "presum_at": presum_at, "lockin_at": lockin_at}
 
 
 def counted(run):
@@ -577,9 +632,11 @@ class DirectCheck:
     D_MEAN_TOL per channel on average (row 0 of the stream is the FIR's
     startup); keeps those rows of the first `keep` packets."""
 
-    def __init__(self, channels: int, ampl: float, keep: int = 0):
+    def __init__(self, channels: int, ampl: float, keep: int = 0,
+                 seam: int = 0):
         self.channels, self.ampl, self.keep = channels, ampl, keep
-        self.kept, self.n = [], 0
+        self.seam = seam        # a looped recording's blocks: row 0 of
+        self.kept, self.n = [], 0   # each packet after its seam mixes both
 
     def __call__(self, meta, d):
         check(meta.packet_number == self.n, "packet order")
@@ -588,7 +645,8 @@ class DirectCheck:
               f"{d.dtype}")
         sub = d[ROWS]
         check(bool(np.isfinite(sub).all()), f"packet {self.n}: non-finite")
-        dev = np.abs(sub[1:] if self.n == 0 else sub) / self.ampl - 1.0
+        start = self.n == 0 or (self.seam and self.n % self.seam == 0)
+        dev = np.abs(sub[1:] if start else sub) / self.ampl - 1.0
         check(float(np.abs(dev).max()) <= D_ROW_TOL,
               f"packet {self.n}: |y| off the TX amplitude by "
               f"{np.abs(dev).max():.4f}")
@@ -786,22 +844,222 @@ def phase_chirp_kernels(dev):
     return rows
 
 
+def phase_replay_kernels(dev):
+    """The device replay's three kernels against their plain versions and
+    a float64 oracle at full width: #4 (channelizer_at) on blocks of a
+    random 8-block recording at the TONES geometry, and beside it #1's
+    stream mode timed the same way; #6 (presum_at) on those blocks and
+    at its main path's own shape, NOISE at nfft 1018 (the pfb_at
+    sub-path's blocks of 5893 frames), whose times it reports; #18
+    (lockin_at) on blocks of a random recording at config 2 with
+    6,000,000-sample blocks (the period is no multiple of them)."""
+    import torch
+    from gpu_sdr_tpu_torch.engine.planner import plan_blocks
+    from gpu_sdr_tpu_torch.ops.channelizer import (
+        channelizer, channelizer_at, channelizer_at_plain, channelizer_consts)
+    from gpu_sdr_tpu_torch.ops.chirp import ChirpConfig, chirp_block
+    from gpu_sdr_tpu_torch.ops.lockin import lockin_profile
+    from gpu_sdr_tpu_torch.ops.lockin_at import lockin_at, lockin_at_plain
+    from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
+    from gpu_sdr_tpu_torch.ops.presum import presum_at, presum_at_plain
+    gen = torch.Generator(device=dev).manual_seed(97531)
+    rows, errs = {}, {"channelizer_at": 0.0, "presum_at": 0.0,
+                      "lockin_at": 0.0}
+
+    def pre64(X, w, T, idx, valid):
+        """Float64 pre-sum of the first 16 frames of block `idx`."""
+        base, avg = idx * T, w.shape[0]
+        halo = torch.arange(base - avg + 1, base, device=dev) % X.shape[0]
+        ext = np.concatenate([
+            X[halo].cpu().numpy() if valid else
+            np.zeros((avg - 1, X.shape[1]), np.complex64),
+            X[base:base + 16].cpu().numpy()]).astype(np.complex128)
+        return sum(w[i] * ext[i:i + 16] for i in range(avg))
+
+    def held_presum(tag, w2, X, T, idx, valid, keep_err):
+        k = via_kernel("presum_at", lambda: presum_at(w2, X, idx, valid, T))
+        p = presum_at_plain(w2, X, idx, valid, T)
+        torch.cuda.synchronize(dev)
+        kn, pn = k.cpu().numpy(), p.cpu().numpy()
+        pre = pre64(X, w2.cpu().numpy().astype(np.float64), T, idx, valid)
+        rel = float(np.linalg.norm(kn - pn) / np.linalg.norm(pn))
+        rel64 = float(np.linalg.norm(kn[:16] - pre) / np.linalg.norm(pre))
+        if keep_err:
+            errs["presum_at"] = max(errs["presum_at"],
+                                    float(np.abs(kn - pn).max()))
+        print(f"presum_at [{tag}]: relative error {rel:.3e} vs plain, "
+              f"{rel64:.3e} vs float64 (16 frames)")
+        check(kn.shape == (T, X.shape[1]) and np.isfinite(kn).all() and
+              rel <= PRESUM_REL_ERR and rel64 <= PRESUM_REL_ERR,
+              f"presum_at [{tag}] relative error {rel:.3e} / {rel64:.3e}")
+
+    # #4 and #6: a (8 * 6000, 1000) recording, 384 MB
+    cfg = PFBConfig(nfft=NFFT, avg=AVG, rate=RATE)
+    w2, F1, G = channelizer_consts(cfg, dev)
+    X = torch.randn((R_BLOCKS * FRAMES, NFFT), dtype=torch.complex64,
+                    device=dev, generator=gen)
+    w = w2.cpu().numpy().astype(np.float64)
+    for idx, valid in R_IDX:
+        tag = f"block {idx}, valid {valid}"
+        spec64 = np.fft.fft(pre64(X, w, FRAMES, idx, valid), axis=-1)
+        k = via_kernel("channelizer_at", lambda: channelizer_at(
+            w2, F1, G, X, idx, valid, FRAMES))
+        p = channelizer_at_plain(w2, F1, G, X, idx, valid, FRAMES)
+        torch.cuda.synchronize(dev)
+        kn, pn = k.cpu().numpy(), p.cpu().numpy()
+        check(kn.shape == (FRAMES, NFFT) and np.isfinite(kn).all(),
+              f"channelizer_at [{tag}]: shape {kn.shape} or non-finite")
+        s_plain, s_gold = snr_db(pn, kn), snr_db(spec64, kn[:16])
+        errs["channelizer_at"] = max(errs["channelizer_at"],
+                                     float(np.abs(kn - pn).max()))
+        print(f"channelizer_at [{tag}]: SNR {s_plain:.1f} dB vs plain, "
+              f"{s_gold:.1f} dB vs float64 (16 frames)")
+        check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB,
+              f"channelizer_at [{tag}] under {SNR_BAR_DB} dB")
+        held_presum(f"nfft {NFFT}, {tag}", w2, X, FRAMES, idx, valid, False)
+    # the seam's corners on small recordings (nfft 200, one-frame blocks,
+    # avg 4): a halo that wraps in part (4 frames, block 1), and a
+    # recording shorter than the halo, which wraps more than once
+    sc = channelizer_consts(PFBConfig(nfft=200, avg=AVG, rate=RATE), dev)
+    for total, idx in ((4, 1), (4, 0), (2, 1)):
+        Xs = X[:total, :200].contiguous()
+        k = via_kernel("channelizer_at", lambda: channelizer_at(
+            *sc, Xs, idx, 1, 1))
+        s_plain = snr_db(channelizer_at_plain(*sc, Xs, idx, 1, 1).cpu(),
+                         k.cpu())
+        print(f"channelizer_at [{total} frames, block {idx} of 1]: SNR "
+              f"{s_plain:.1f} dB vs plain")
+        check(s_plain >= SNR_BAR_DB, f"channelizer_at [{total} frames, "
+              f"block {idx}] under {SNR_BAR_DB} dB")
+
+    # times: rotate over the recording's blocks (384 MB, past the 50 MB
+    # L2), each launch reading its block from HBM; #1's stream mode over
+    # the same blocks, so that #4 and #1 differ only in their addressing
+    rot = itertools.count()
+    spare = X[:AVG - 1]
+
+    def block():
+        i = next(rot) % R_BLOCKS
+        return X[i * FRAMES:(i + 1) * FRAMES]
+    ms, pms = (time_ms_queued(f, 2 * R_BLOCKS) for f in (
+        lambda: channelizer_at(w2, F1, G, X, next(rot) % R_BLOCKS, 1,
+                               FRAMES),
+        lambda: channelizer_at_plain(w2, F1, G, X, next(rot) % R_BLOCKS, 1,
+                                     FRAMES)))
+    stream_ms = time_ms_queued(
+        lambda: channelizer(w2, F1, G, spare, block()), 2 * R_BLOCKS)
+    b = bound(2 * FRAMES * NFFT * 8 + nbytes(w2, F1, G),
+              FRAMES * (4 * AVG * NFFT + 5 * NFFT * np.log2(NFFT)))
+    print(f"channelizer_at {FRAMES}x{NFFT}: kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+          f"channelizer stream mode over the same blocks {stream_ms:.4f} ms")
+    rows["channelizer_at"] = dict(max_abs_err=errs["channelizer_at"], ms=ms,
+                                  plain_ms=pms, library_ms=None, **b)
+    del X, spare
+
+    # #6 at its main path's shape: the pfb_at run's NOISE receiver at nfft
+    # 1018, blocks of T frames, over an 8-block recording (~384 MB)
+    ncfg = PFBConfig(nfft=R_NFFT, avg=AVG, rate=RATE)
+    wn = ncfg.window(dev).reshape(AVG, R_NFFT)
+    T = plan_blocks(noise1018_params(1).A_RX2).block_len // R_NFFT
+    X = torch.randn((R_BLOCKS * T, R_NFFT), dtype=torch.complex64,
+                    device=dev, generator=gen)
+    for idx, valid in R_IDX:
+        held_presum(f"nfft {R_NFFT}, block {idx}, valid {valid}", wn, X, T,
+                    idx, valid, True)
+    rot = itertools.count()
+    ms, pms = (time_ms_queued(f, 2 * R_BLOCKS) for f in (
+        lambda: presum_at(wn, X, next(rot) % R_BLOCKS, 1, T),
+        lambda: presum_at_plain(wn, X, next(rot) % R_BLOCKS, 1, T)))
+    # bytes: the block read once, the (T, nfft) output written once
+    b = bound(2 * T * R_NFFT * 8 + nbytes(wn), 4 * AVG * T * R_NFFT)
+    print(f"presum_at {T}x{R_NFFT}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    rows["presum_at"] = dict(max_abs_err=errs["presum_at"], ms=ms,
+                             plain_ms=pms, library_ms=None, **b)
+    del X
+
+    # #18: config 2 at 6,000,000-sample blocks, 300 segments of 20,000
+    ccfg = ChirpConfig.from_params(
+        CONFIG2["freq"][0], CONFIG2["chirp_f"][0], C_RATE,
+        CONFIG2["swipe_s"][0], CONFIG2["chirp_t"][0])
+    ppt, nseg = ccfg.length, AT_BLOCK // ccfg.length
+    check(ppt == 20_000 and ccfg.period % AT_BLOCK,
+          f"chirp_at geometry {ppt}, {nseg}, period {ccfg.period}")
+    wp_np = lockin_profile(ppt)
+    wp, wp64 = torch.from_numpy(wp_np).to(dev), wp_np.astype(np.float64)
+    Xc = torch.randn((R_BLOCKS * nseg, ppt), dtype=torch.complex64,
+                     device=dev, generator=gen)
+    for pos, idx in zip(AT_POSITIONS, (0, 3, 7)):
+        tag = f"position {pos}, block {idx}"
+        new, yk = via_kernel("lockin_at", lambda: lockin_at(
+            ccfg, wp, pos, Xc, idx, nseg))
+        yp = lockin_at_plain(ccfg, wp, pos, Xc, idx, nseg)
+        torch.cuda.synchronize(dev)
+        check(new == (pos + AT_BLOCK) % ccfg.period,
+              f"lockin_at [{tag}]: new position {new}")
+        kn, pn = yk.cpu().numpy(), yp.cpu().numpy()
+        x64 = Xc[idx * nseg:(idx + 1) * nseg].cpu().numpy()
+        y64 = (np.conj(chirp_oracle(pos, AT_BLOCK).reshape(nseg, ppt)) *
+               x64) @ wp64
+        check(kn.shape == (nseg,) and np.isfinite(kn).all(),
+              f"lockin_at [{tag}]: shape {kn.shape} or non-finite")
+        s_plain, s_gold = snr_db(pn, kn), snr_db(y64, kn)
+        errs["lockin_at"] = max(errs["lockin_at"],
+                                float(np.abs(kn - pn).max()))
+        print(f"lockin_at [{tag}]: SNR {s_plain:.1f} dB vs plain, "
+              f"{s_gold:.1f} dB vs float64")
+        check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB,
+              f"lockin_at [{tag}] under {SNR_BAR_DB} dB")
+    # fed the chirp itself (across the period seam), every lock-in point
+    # is sum_k w[k] |c|^2 = 1
+    pos = AT_POSITIONS[-1]
+    chirp = chirp_block(ccfg, pos, AT_BLOCK, device=dev)[1].reshape(nseg, ppt)
+    _, yk = via_kernel("lockin_at", lambda: lockin_at(ccfg, wp, pos, chirp,
+                                                      0, nseg))
+    off = float((yk - 1).abs().max())
+    print(f"lockin_at [the chirp from position {pos}]: max |y - 1| {off:.2e}")
+    check(off <= C_TOL, f"lockin_at on the chirp: |y - 1| {off:.2e}")
+    del chirp
+    rot = itertools.count()
+
+    def at_args():
+        i = next(rot)
+        return ccfg, wp, (i * AT_BLOCK) % ccfg.period, Xc, i % R_BLOCKS, nseg
+
+    ms, pms = (time_ms_queued(lambda: f(*at_args()), 2 * R_BLOCKS)
+               for f in (lockin_at, lockin_at_plain))
+    b = bound(nseg * ppt * 8 + nbytes(wp) + nseg * 8,
+              CHIRP_AT_OPS * nseg * ppt)
+    print(f"lockin_at {nseg}x{ppt}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    rows["lockin_at"] = dict(max_abs_err=errs["lockin_at"], ms=ms,
+                             plain_ms=pms, library_ms=None, **b)
+    return rows
+
+
 class ChirpCheck:
     """The CHIRP main path's packet callback: every lock-in point of
     every packet finite and within C_TOL of the TX amplitude; keeps the
     first `keep` packets."""
 
-    def __init__(self, keep: int = 0):
-        self.keep, self.kept, self.n = keep, [], 0
+    def __init__(self, keep: int = 0, rows: int = C_ROWS,
+                 ampl_packets=None):
+        self.keep, self.rows, self.kept, self.n = keep, rows, [], 0
+        # packets whose lock-in points are checked against the amplitude
+        # (a replayed recording's blocks before its first wrap), else all
+        self.ampl_packets = ampl_packets
 
     def __call__(self, meta, d):
         check(meta.packet_number == self.n, "packet order")
-        check(d.shape == (C_ROWS, 1) and d.dtype == np.complex64,
+        check(d.shape == (self.rows, 1) and d.dtype == np.complex64,
               f"packet {self.n}: {d.shape} {d.dtype}")
         check(bool(np.isfinite(d).all()), f"packet {self.n}: non-finite")
         off = float(np.abs(np.abs(d) - C_AMPL).max())
-        check(off <= C_TOL, f"packet {self.n}: a lock-in point is {off:.2e} "
-              "off the TX amplitude")
+        check(off <= C_TOL or (self.ampl_packets is not None and
+                               self.n >= self.ampl_packets),
+              f"packet {self.n}: a lock-in point is {off:.2e} off the TX "
+              "amplitude")
         if self.n < self.keep:
             self.kept.append(d.copy())
         self.n += 1
@@ -840,6 +1098,229 @@ def phase_chirp_main_path(dev):
     return launches
 
 
+class KeepCheck:
+    """A replay run's packet callback where the rows have no fixed
+    amplitude (noise, or a recording past its end): packets in order, of
+    the expected shape, rows ::97 finite; keeps those rows of the first
+    `keep` packets."""
+
+    def __init__(self, rows: int, channels: int, keep: int = 0):
+        self.rows, self.channels, self.keep = rows, channels, keep
+        self.kept, self.n = [], 0
+
+    def __call__(self, meta, d):
+        check(meta.packet_number == self.n, "packet order")
+        check(d.shape == (self.rows, self.channels) and
+              d.dtype == np.complex64, f"packet {self.n}: {d.shape} "
+              f"{d.dtype}")
+        sub = d[ROWS]
+        check(bool(np.isfinite(sub).all()), f"packet {self.n}: non-finite")
+        if self.n < self.keep:
+            self.kept.append(sub.copy())
+        self.n += 1
+
+
+def noise1018_params(n_blocks: int):
+    """A full-spectrum NOISE receiver at nfft 1018 (split 2 x 509, whose
+    stage-2 constants do not fit one block's shared memory, so the
+    channelizer refuses it) at 100 Msps, ~6,000,000-sample blocks."""
+    from gpu_sdr_tpu_torch.params import (AntMode, AntennaParams,
+                                          UsrpParams, WaveType)
+    from gpu_sdr_tpu_torch.engine.planner import plan_blocks
+    p = UsrpParams()
+    p.A_RX2 = AntennaParams(mode=AntMode.RX, rate=RATE, fft_tones=R_NFFT,
+                            pf_average=AVG, buffer_len=BLOCK, freq=[0],
+                            wave_type=[WaveType.NOISE])
+    p.A_RX2.samples = n_blocks * plan_blocks(p.A_RX2).block_len
+    return p
+
+
+def host_fed_replay(dev, params, path, loop, pkt):
+    """The recording at `path` through the host-fed pipeline
+    (engine.run_pipeline over a ReplaySource), into `pkt`."""
+    from gpu_sdr_tpu_torch.engine import make_demodulator, run_pipeline
+    from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
+    from gpu_sdr_tpu_torch.engine.sources import ReplaySource
+    params.validate()
+    run_pipeline(make_demodulator(params.A_RX2, dev),
+                 ReplaySource(path, loop=loop), [CallbackSink(pkt)])
+    return pkt
+
+
+def replay_run(dev, name, params, path, loop, make_pkt, n, block, channels,
+               sub, kernel):
+    """run_measurement(source=ReplaySource(path)) after a warm-up, its
+    launches counted: (pkt, launches of `kernel`)."""
+    from gpu_sdr_tpu_torch.engine.sources import ReplaySource
+
+    def run(n_blocks, pkt):
+        return run_path(dev, receiver_only(params(n_blocks)), None, pkt,
+                        n_blocks, block, channels,
+                        source=ReplaySource(path, loop=loop))
+    run(2, make_pkt())                                      # warm-up
+    (pkt, disp, msps, wall), counts = counted(lambda: run(n, make_pkt()))
+    print(f"replay {name}: {disp}, {n} blocks of {block} samples, "
+          f"{counts[kernel]} {kernel} launches; {msps:.1f} Msps "
+          f"streaming, {wall:.3f} s with set-up (the upload)")
+    check(disp == (("A_RX2", "device_replay", sub),),
+          f"replay {name} dispatch {disp}")
+    check(counts[kernel] == n and
+          all(v == 0 for k, v in counts.items() if k != kernel),
+          f"replay {name} launches {counts}")
+    return pkt, counts[kernel]
+
+
+def held_against(name, ref, got, against="the host-fed run") -> bool:
+    """Check a replay's kept rows against `ref`'s at SNR_BAR_DB; whether
+    they are bit-identical."""
+    ref, got = np.stack(ref), np.stack(got)
+    same = np.array_equal(ref, got)
+    snr = snr_db(ref, got)
+    print(f"replay {name} vs {against}: SNR {snr:.1f} dB"
+          + (", bit-identical" if same else ""))
+    check(snr >= SNR_BAR_DB, f"replay {name} vs {against}: {snr:.1f} dB")
+    return same
+
+
+def phase_replay_main_path(dev, tones_fused):
+    """The device replay through run_measurement(source=ReplaySource):
+    one run per sub-path, each of a recording made on the card, and
+    SegmentedDeviceReplay driven directly."""
+    import tempfile
+
+    import torch
+    from gpu_sdr_tpu_torch.engine.planner import plan_blocks
+    from gpu_sdr_tpu_torch.engine.replay import SegmentedDeviceReplay
+    from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
+
+    def config3(n):
+        return direct_params(CONFIG3, 0.01, n)
+
+    def config1(n):
+        return direct_params(CONFIG1, 1.0, n)
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # TONES: the phase-4 comb, one-frame-periodic, so the loop is
+        # seamless and the replay equals the fused run
+        rec_blocks, n = R_TONES
+        path = save_recording(tmp, "tones", tx_recording(
+            loopback_params, rec_blocks, BLOCK, dev))
+        pkt, launches["channelizer_at"] = replay_run(
+            dev, "TONES", loopback_params, path, True,
+            lambda: PacketCheck(FRAMES, keep=HOST_BLOCKS), n, BLOCK, NFFT,
+            "channelizer_at", "channelizer_at")
+        held_against("TONES", tones_fused, pkt.kept,
+                     f"the fused run's first {HOST_BLOCKS} blocks")
+
+        # NOISE at nfft 1018: the pre-sum kernel in place, then the FFT
+        rec_blocks, n = R_NOISE
+        L = plan_blocks(noise1018_params(1).A_RX2).block_len
+        gen = torch.Generator(device=dev).manual_seed(8642)
+        path = save_recording(tmp, "noise", torch.randn(
+            rec_blocks * L, dtype=torch.complex64, device=dev,
+            generator=gen).cpu().numpy())
+        T = L // R_NFFT
+        pkt, launches["presum_at"] = replay_run(
+            dev, f"NOISE nfft {R_NFFT}", noise1018_params, path, True,
+            lambda: KeepCheck(T, R_NFFT, keep=n), n, L, R_NFFT, "pfb_at",
+            "presum_at")
+        host = host_fed_replay(dev, noise1018_params(n), path, True,
+                               KeepCheck(T, R_NFFT, keep=n))
+        held_against(f"NOISE nfft {R_NFFT}", host.kept, pkt.kept)
+
+        # DIRECT config 3 (replay_kernel) and config 1 (replay_kernel_t)
+        rec_blocks, n = R_DIRECT
+        for name, cfg, freqs, ampl, sub, kernel in (
+                ("DIRECT config 3", config3, CONFIG3, 0.01,
+                 "replay_kernel", "replay_ddc"),
+                ("DIRECT config 1", config1, CONFIG1, 1.0,
+                 "replay_kernel_t", "replay_ddc_t")):
+            path = save_recording(tmp, sub, tx_recording(
+                cfg, rec_blocks, D_BLOCK, dev))
+            pkt, _ = replay_run(
+                dev, name, cfg, path, True,
+                lambda: DirectCheck(len(freqs), ampl, keep=n,
+                                    seam=rec_blocks),
+                n, D_BLOCK, len(freqs), sub, kernel)
+            host = host_fed_replay(dev, receiver_only(cfg(D_HOST_BLOCKS)),
+                                   path, True,
+                                   DirectCheck(len(freqs), ampl,
+                                               keep=D_HOST_BLOCKS,
+                                               seam=rec_blocks))
+            held_against(name, host.kept, pkt.kept[:D_HOST_BLOCKS])
+
+        # CHIRP config 2: the table (chirp_table) and, at 6,000,000-sample
+        # blocks, the in-kernel chirp (chirp_at); amplitude 1 until the
+        # recording wraps, then against the host-fed run
+        for name, cfg, (rec_blocks, n), block, sub, kernel in (
+                ("CHIRP config 2", chirp_params, R_CHIRP, C_BLOCK,
+                 "chirp_table", "lockin_table"),
+                ("CHIRP config 2, 6M blocks", chirp6m_params, R_CHIRP6M,
+                 AT_BLOCK, "chirp_at", "lockin_at")):
+            path = save_recording(tmp, sub, tx_recording(
+                cfg, rec_blocks, block, dev))
+            rows = block // (C_BLOCK // C_ROWS)         # segments
+            pkt, count = replay_run(
+                dev, name, cfg, path, True,
+                lambda: ChirpCheck(keep=n, rows=rows,
+                                   ampl_packets=rec_blocks),
+                n, block, 1, sub, kernel)
+            if kernel == "lockin_at":
+                launches[kernel] = count
+            host = host_fed_replay(dev, receiver_only(cfg(n)), path, True,
+                                   ChirpCheck(keep=n, rows=rows,
+                                              ampl_packets=rec_blocks))
+            held_against(name, host.kept, pkt.kept)
+
+        # scan: a config-3 recording of 5.5 blocks, not looped; the
+        # demodulator's own step (the DDC kernel) over its views
+        rec_blocks, n = R_SCAN
+        rec = tx_recording(config3, int(np.ceil(rec_blocks)), D_BLOCK, dev)
+        path = save_recording(tmp, "scan",
+                              rec[:int(rec_blocks * D_BLOCK)])
+        pkt, _ = replay_run(
+            dev, "DIRECT config 3, not looped", config3, path, False,
+            lambda: KeepCheck(D_ROWS, len(CONFIG3), keep=n), n, D_BLOCK,
+            len(CONFIG3), "scan", "ddc")
+        host = host_fed_replay(dev, receiver_only(config3(n)), path, False,
+                               KeepCheck(D_ROWS, len(CONFIG3), keep=n))
+        exact = held_against("DIRECT config 3, not looped", host.kept,
+                             pkt.kept)
+        print("  scan runs the host-fed path's DDC kernel on the same "
+              "samples" + ("" if exact else
+                           ": not bit-identical (the kernel's sums)"))
+
+        # SegmentedDeviceReplay: segments of 2 blocks over 16 blocks
+        params = receiver_only(config3(R_SEG_ACQ))
+        params.validate()
+        for rec_blocks, loop in R_SEGMENTED:
+            name = f"segmented, {rec_blocks} blocks" + \
+                (", looped" if loop else "")
+            sr = SegmentedDeviceReplay(
+                params.A_RX2, rec[:rec_blocks * D_BLOCK], loop=loop,
+                segment_bytes=R_SEG_BLOCKS * D_BLOCK * 8, device=dev)
+            check(sr.seg_blocks == R_SEG_BLOCKS, f"{name}: segment blocks")
+            pkt = KeepCheck(D_ROWS, len(CONFIG3), keep=R_SEG_ACQ)
+            t0 = time.perf_counter()
+            res, counts = counted(lambda: sr.run([CallbackSink(pkt)]))
+            wall = time.perf_counter() - t0
+            check(pkt.n == R_SEG_ACQ and counts["ddc"] == R_SEG_ACQ and
+                  all(v == 0 for k, v in counts.items() if k != "ddc"),
+                  f"{name}: {pkt.n} packets, launches {counts}")
+            path = save_recording(tmp, "seg", rec[:rec_blocks * D_BLOCK])
+            host = host_fed_replay(dev, receiver_only(config3(R_SEG_ACQ)),
+                                   path, loop,
+                                   KeepCheck(D_ROWS, len(CONFIG3),
+                                             keep=R_SEG_ACQ))
+            stage = ", ".join(f"{1e3 * t:.1f}" for t in sr.stage_seconds)
+            print(f"replay {name}: {R_SEG_ACQ} blocks, {res.msps:.1f} Msps "
+                  f"streaming, {wall:.3f} s with set-up; staging ms per "
+                  f"segment [{stage}]")
+            held_against(name, host.kept, pkt.kept)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -852,15 +1333,28 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"[{name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+        return out
+
     try:
-        phase_card()
-        phase_build()
-        rows = phase_kernels(dev)
-        rows.update(phase_direct_kernels(dev))
-        rows.update(phase_chirp_kernels(dev))
-        launches = phase_main_path(dev)
-        launches.update(phase_direct_main_path(dev))
-        launches.update(phase_chirp_main_path(dev))
+        timed("card", phase_card)
+        timed("build", phase_build)
+        rows = timed("PFB kernels", phase_kernels, dev)
+        rows.update(timed("DIRECT kernels", phase_direct_kernels, dev))
+        rows.update(timed("CHIRP kernels", phase_chirp_kernels, dev))
+        rows.update(timed("replay kernels", phase_replay_kernels, dev))
+        launches, tones_fused = timed("TONES main path", phase_main_path,
+                                      dev)
+        launches.update(timed("DIRECT main path", phase_direct_main_path,
+                              dev))
+        launches.update(timed("CHIRP main path", phase_chirp_main_path,
+                              dev))
+        launches.update(timed("replay main path", phase_replay_main_path,
+                              dev, tones_fused))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -886,7 +1380,12 @@ def main() -> int:
             ("lockin_self", "lockin.cu",
              "gpu_sdr_tpu/ops/pallas_lockin.py:200"),
             ("lockin_table", "lockin.cu",
-             "gpu_sdr_tpu/ops/pallas_lockin.py:121"))]
+             "gpu_sdr_tpu/ops/pallas_lockin.py:121"),
+            ("channelizer_at", "channelizer.cu",
+             "gpu_sdr_tpu/ops/pallas_channelizer.py:712"),
+            ("presum_at", "presum.cu", "gpu_sdr_tpu/ops/pallas_pfb.py:197"),
+            ("lockin_at", "lockin.cu",
+             "gpu_sdr_tpu/ops/pallas_lockin.py:260"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

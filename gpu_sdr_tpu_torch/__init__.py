@@ -14,9 +14,10 @@ of the parameter structs (``params.py``) and of the float64 helpers its
 constants are built with (``golden.py``).
 
 Ported slices of ``measure.run_measurement``, one front end, fused
-loopback and host-fed pipeline: the TONES / NOISE PFB readout, the
-DIRECT readout (multi-tone DDC + decimating FIR) and the CHIRP / VNA
-readout (integer-phase chirp + lock-in).
+loopback, host-fed pipeline and device-resident replay of a recording:
+the TONES / NOISE PFB readout, the DIRECT readout (multi-tone DDC +
+decimating FIR) and the CHIRP / VNA readout (integer-phase chirp +
+lock-in).
 Every other branch raises ``NotImplementedError`` naming the ROADMAP
 item that will port it.
 """

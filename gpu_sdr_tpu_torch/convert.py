@@ -85,6 +85,38 @@ def fold_state(state, device):
     return tone_phase(sph, device), tone_phase(dph, device), float(pv)
 
 
+def replay_at_state(state):
+    """The JAX DeviceReplay's channelizer_at / pfb_at state (int32
+    started flag, int32 block index) -> the port's (block index, started
+    flag), Python ints."""
+    started, idx = state
+    return int(np.asarray(idx)), int(np.asarray(started))
+
+
+def replay_chirp_at_state(state):
+    """The JAX DeviceReplay's chirp_at state (uint32 stream position,
+    int32 block index) -> the port's (position, block index)."""
+    last, idx = state
+    return int(np.asarray(last)), int(np.asarray(idx))
+
+
+def replay_chirp_table_state(state):
+    """The JAX DeviceReplay's chirp_table state ((uint32 stream position,
+    int32 oscillator block, C table), int32 recording block) -> the
+    port's (position, oscillator block, recording block); the table is
+    dropped, as chirp_state drops it: the port's chain holds its own."""
+    (last, o, _table), idx = state
+    return int(np.asarray(last)), int(np.asarray(o)), int(np.asarray(idx))
+
+
+def replay_scan_state(state, demod_state):
+    """The JAX DeviceReplay's scan state (demodulator state, int32 block
+    index) -> the port's, the demodulator's state through `demod_state`,
+    the converter of its mode (host_spare, ddc_state or chirp_state)."""
+    st, idx = state
+    return demod_state(st), int(np.asarray(idx))
+
+
 def chirp_state(state):
     """A CHIRP state of the JAX package -> the port's Python ints:
 

@@ -10,13 +10,8 @@
 //   y[n, c] = rot_c * ramp[n, c] * sum_{j<f} sum_{m<M} E[n + j, m] * hmod[j*M + m, c]
 //
 // E is the block's extended (nb + f - 1, M) row view: f - 1 history
-// rows, then the block's nb rows.  Two ways to address them:
-//   (a) streamed block: history rows from `hist`, block rows from `x`;
-//   (b) resident recording: `x` holds x_rows rows and the block starts at
-//       row `base`; its history rows are the rows before it, wrapped mod
-//       x_rows (the loop seam), and zero when `valid` is 0 (the stream's
-//       first block).  Rows are read in place: nothing is copied out of
-//       the recording first.
+// rows, then the block's nb rows, from a streamed block (a) or read in
+// place from a resident recording (b) (rows.cuh).
 // rot_c = exp(-2 pi i phase_c / W) is formed here from the exact integer
 // phase, in float32 as the JAX package forms it (ops/ddc.py:141-143),
 // with the precise sincosf.
@@ -44,6 +39,8 @@
 
 #include <cuda_runtime.h>
 
+#include "rows.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;        // channel mode: channels per block
@@ -54,29 +51,6 @@ constexpr int kChunkC = 64;       // channel mode: staged samples per row
 constexpr int kTileR = 128;       // row mode: rows (threads) per block
 constexpr int kChunkR = 32;       // row mode: staged samples per row
 constexpr int kMaxRowChannels = 8;
-
-struct Rows {
-    const float2* x;      // block rows (a) or the whole recording (b)
-    const float2* hist;   // (a): f-1 history rows; (b): nullptr
-    long long x_rows;     // rows in x
-    long long base;       // row of x where the block starts
-    int nb;               // output rows of the block
-    int lead;             // f - 1
-    int M;
-    int valid;            // (b): history rows are the stream's
-};
-
-// Extended row g (0 <= g < nb + lead) of the block, column m.
-__device__ __forceinline__ float2 sample(const Rows& in, long long g, int m) {
-    if (g >= in.nb + in.lead) return make_float2(0.f, 0.f);   // past the block
-    const long long r = g - in.lead;
-    if (r >= 0) return in.x[(in.base + r) * in.M + m];
-    if (in.hist != nullptr) return in.hist[g * in.M + m];
-    if (!in.valid) return make_float2(0.f, 0.f);
-    long long w = (in.base + r) % in.x_rows;
-    if (w < 0) w += in.x_rows;
-    return in.x[w * in.M + m];
-}
 
 // Stage extended rows [g0, g0 + nrows), columns [m0, m0 + mc).
 __device__ __forceinline__ void stage(float2* xs, const Rows& in,

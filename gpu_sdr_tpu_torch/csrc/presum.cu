@@ -1,16 +1,25 @@
-// PFB windowed pre-sum, one pass, for Hopper (sm_90a).
+// PFB windowed pre-sum, one pass, for Hopper (sm_90a).  One body, two
+// ways to address the block's rows (rows.cuh).
 //
-// Replaces the TPU kernel gpu_sdr_tpu/ops/pallas_pfb.py: pallas_presum
-// (_kernel), reached through pfb_frames_fused on the host-fed TONES /
-// NOISE demodulator.
+// Replaces the TPU kernels gpu_sdr_tpu/ops/pallas_pfb.py:
+//   pallas_presum    (_kernel): a streamed block, reached through
+//                    pfb_frames_fused on the host-fed TONES / NOISE
+//                    demodulator;
+//   pallas_presum_at (_kernel_at): block `idx` of a resident
+//                    (total_frames, nfft) recording, the device replay's
+//                    pfb_at sub-path.
 //
 //   pre[t, b] = sum_{i<avg} W[i, b] * ext[t + i, b]
-//   ext       = spare rows (avg-1) followed by the block's rows X (T)
+//   ext       = the avg-1 halo rows, then the block's rows (T)
 //
-// ext is never built: row r < avg-1 is read from the spare, any other
-// row from X, in place.  The TPU kernel staged an 8-row halo per tile
-// because Mosaic blocks cannot overlap; here every thread reads what it
-// needs directly, so no halo array exists.
+// ext is never built.  Streamed: the halo is the carried spare.
+// Recording: the block is rows [base, base + T) of the recording, read in
+// place, and the halo is the rows before it, wrapped mod total_frames at
+// the loop seam and zero on the stream's first block (`valid` 0).  The
+// TPU kernels staged 8-row halo units because Mosaic blocks cannot
+// overlap, and needed 8-aligned tiles and recordings; here every thread
+// reads what it needs directly, so no halo array and no alignment rule
+// exist.
 //
 // Bound: device memory.  Each output reads avg complex samples (the
 // neighbouring frames are re-read from L1/L2, not from HBM) and writes
@@ -21,14 +30,14 @@
 
 #include <cuda_runtime.h>
 
+#include "rows.cuh"
+
 namespace {
 
-__global__ void presum_kernel(const float2* __restrict__ x,
-                              const float2* __restrict__ spare,
-                              const float* __restrict__ w,
-                              float2* __restrict__ out,
-                              long long total, int nfft, int avg) {
-    const int lead = avg - 1;
+__global__ void presum_kernel(Rows in, const float* __restrict__ w,
+                              float2* __restrict__ out, int avg) {
+    const int nfft = in.M;
+    const long long total = (long long)in.nb * nfft;
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          e < total; e += stride) {
@@ -36,9 +45,7 @@ __global__ void presum_kernel(const float2* __restrict__ x,
         const int b = (int)(e - t * nfft);
         float re = 0.f, im = 0.f;
         for (int i = 0; i < avg; ++i) {
-            const long long r = t + i;          // row of ext
-            const float2 v = (r < lead) ? spare[r * nfft + b]
-                                        : x[(r - lead) * nfft + b];
+            const float2 v = sample(in, t + i, b);   // row of ext
             const float wi = w[(long long)i * nfft + b];
             re = fmaf(wi, v.x, re);
             im = fmaf(wi, v.y, im);
@@ -47,19 +54,36 @@ __global__ void presum_kernel(const float2* __restrict__ x,
     }
 }
 
-}  // namespace
-
-extern "C" int sdr_presum(const void* x, const void* spare, const void* w,
-                          void* out, int T, int nfft, int avg,
-                          void* stream) {
-    const long long total = (long long)T * nfft;
+int launch(const Rows& in, const void* w, void* out, int avg, void* stream) {
+    const long long total = (long long)in.nb * in.M;
     const int threads = 256;
     long long blocks = (total + threads - 1) / threads;
     if (blocks > (1LL << 30)) blocks = 1LL << 30;   // grid-stride covers it
     presum_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float2*)x, (const float2*)spare, (const float*)w,
-        (float2*)out, total, nfft, avg);
+        in, (const float*)w, (float2*)out, avg);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Streamed block x (T, nfft) after the spare (avg-1, nfft).
+extern "C" int sdr_presum(const void* x, const void* spare, const void* w,
+                          void* out, int T, int nfft, int avg,
+                          void* stream) {
+    const Rows in{(const float2*)x, (const float2*)spare, T, 0, T, avg - 1,
+                  nfft, 1};
+    return launch(in, w, out, avg, stream);
+}
+
+// Block rows [base, base + T) of a (total_frames, nfft) recording.
+extern "C" int sdr_presum_at(const void* rec, const void* w, void* out,
+                             long long total_frames, long long base, int T,
+                             int nfft, int avg, int valid, void* stream) {
+    if (total_frames <= 0 || base < 0 || base + T > total_frames)
+        return (int)cudaErrorInvalidValue;
+    const Rows in{(const float2*)rec, nullptr, total_frames, base, T,
+                  avg - 1, nfft, valid};
+    return launch(in, w, out, avg, stream);
 }
 
 extern "C" const char* sdr_error_string(int code) {

@@ -6,7 +6,7 @@ spares, comb phases) is explicit:
 
 Sources synthesize or serve IQ on the host, HostFeed stages it onto the
 device, sinks receive numpy packets; FusedLoopback keeps a synthetic
-loopback entirely on the device.
+loopback entirely on the device, and replay.DeviceReplay a recording.
 """
 
 from .planner import BlockPlan, plan_blocks  # noqa: F401

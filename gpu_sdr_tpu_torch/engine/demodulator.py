@@ -48,14 +48,30 @@ class Demodulator:
     device: torch.device
 
 
+def direct_config(p: AntennaParams) -> ddc_ops.DirectDDCConfig:
+    """The DDC configuration of a DIRECT receiver."""
+    freqs = tuple(int(f) for f in p.freq)
+    return ddc_ops.DirectDDCConfig(
+        rate=int(p.rate), decim=int(p.decim), pf_average=int(p.pf_average),
+        freqs=freqs, phases=(0,) * len(freqs))
+
+
+def pfb_config(p: AntennaParams) -> pfb_ops.PFBConfig:
+    """The PFB configuration of a TONES (its tones' bins) or NOISE
+    (every bin) receiver."""
+    nfft = int(p.fft_tones)
+    bins = None if p.wave_type[0] == WaveType.NOISE else tuple(
+        int(b) for b in pfb_ops.tone_bins(p.freq, p.rate, nfft))
+    return pfb_ops.PFBConfig(nfft=nfft, avg=int(p.pf_average),
+                             rate=int(p.rate), bins=bins,
+                             decim=int(p.decim))
+
+
 def _build_direct(p: AntennaParams, plan: BlockPlan, device) -> Demodulator:
     """DIRECT: fused multi-tone DDC + decimating FIR through the DDC
     kernel (reference process_direct, cpp/USRP_demodulator.cpp:400-464).
     State: (int64 phase (C,), ((f-1)*M,) history samples)."""
-    freqs = tuple(int(f) for f in p.freq)
-    cfg = ddc_ops.DirectDDCConfig(
-        rate=int(p.rate), decim=int(p.decim), pf_average=int(p.pf_average),
-        freqs=freqs, phases=(0,) * len(freqs))
+    cfg = direct_config(p)
     L = plan.block_len
     hmod = cfg.modulated_taps(device)
     ramp = cfg.carrier_ramp(L // cfg.M, device)
@@ -72,22 +88,18 @@ def _build_direct(p: AntennaParams, plan: BlockPlan, device) -> Demodulator:
                                            cfg.M, cfg.f, phase, hist, x)
         return (phase, hist), y
 
-    return Demodulator(plan=plan, n_channels=len(freqs),
+    return Demodulator(plan=plan, n_channels=len(cfg.freqs),
                        init_state=init_state, step=step,
                        wave_type=WaveType.DIRECT, device=device)
 
 
-def _build_pfb(p: AntennaParams, plan: BlockPlan, full_spectrum: bool,
-               device) -> Demodulator:
+def _build_pfb(p: AntennaParams, plan: BlockPlan, device) -> Demodulator:
     """TONES (channelizer + tone select) / NOISE (full spectrum)
     (reference process_pfb / process_pfb_spec,
     cpp/USRP_demodulator.cpp:486-649): the pre-sum kernel, then
     ``torch.fft.fft``, frame averaging and tone selection."""
-    nfft, avg = int(p.fft_tones), int(p.pf_average)
-    bins = None if full_spectrum else tuple(
-        int(b) for b in pfb_ops.tone_bins(p.freq, p.rate, nfft))
-    cfg = pfb_ops.PFBConfig(nfft=nfft, avg=avg, rate=int(p.rate),
-                            bins=bins, decim=int(p.decim))
+    cfg = pfb_config(p)
+    full_spectrum = cfg.bins is None
     window = cfg.window(device)
     bins_t = cfg.bins_tensor(device)
     decim = int(p.decim)
@@ -101,7 +113,7 @@ def _build_pfb(p: AntennaParams, plan: BlockPlan, full_spectrum: bool,
         return spare, frames
 
     return Demodulator(
-        plan=plan, n_channels=nfft if full_spectrum else len(bins),
+        plan=plan, n_channels=cfg.nfft if full_spectrum else len(cfg.bins),
         init_state=lambda: pfb_ops.pfb_spare_init(cfg, device), step=step,
         wave_type=WaveType.NOISE if full_spectrum else WaveType.TONES,
         device=device)
@@ -177,10 +189,8 @@ def make_demodulator(p: AntennaParams, device) -> Demodulator:
             "mixed wave types on one antenna are not ported yet (ROADMAP "
             "Queue 1 item 3)")
     plan = plan_blocks(p)
-    if w == WaveType.TONES:
-        return _build_pfb(p, plan, False, device)
-    if w == WaveType.NOISE:
-        return _build_pfb(p, plan, True, device)
+    if w in (WaveType.TONES, WaveType.NOISE):
+        return _build_pfb(p, plan, device)
     if w == WaveType.DIRECT:
         return _build_direct(p, plan, device)
     if w == WaveType.CHIRP:

@@ -1,6 +1,7 @@
 """IQ block sources (port of gpu_sdr_tpu/engine/sources.py): a source
 yields fixed-size numpy complex64 blocks from the host, as a radio
-would.  The loopback source feeds a TX Generator's output straight into
+would; a recording (ReplaySource, ArraySource) also exposes its samples
+as ``data``.  The loopback source feeds a TX Generator's output straight into
 RX, the reference's software loopback (cpp/USRP_hardware_manager.cpp:
 1071-1123, 1331-1395)."""
 
@@ -38,6 +39,51 @@ class LoopbackSource(Source):
                     (self.noise_rms / np.sqrt(2.0))
                 x = x + (n[::2] + 1j * n[1::2]).astype(np.complex64)
             yield np.asarray(x, dtype=np.complex64)
+
+
+class ReplaySource(Source):
+    """Replay a recorded IQ stream from disk (raw complex64 or .npy).
+
+    The file replaces the radio: blocks are served in order, zero-padded at
+    the tail, looping if `loop` is set.  The file is mapped, not read:
+    ``run_measurement`` uploads it once to the device (engine/replay.py)
+    when it fits, else streams it.
+    """
+
+    def __init__(self, path: str, loop: bool = False):
+        self.path = path
+        self.loop = loop
+        if path.endswith(".npy"):
+            self.data = np.load(path, mmap_mode="r")
+        else:
+            self.data = np.memmap(path, dtype=np.complex64, mode="r")
+
+    def blocks(self, block_len: int, n_blocks: int):
+        n = len(self.data)
+        pos = 0
+        for _ in range(n_blocks):
+            if pos + block_len <= n:
+                # a copy: the mapped file is read-only
+                blk = np.array(self.data[pos:pos + block_len],
+                               dtype=np.complex64)
+                pos += block_len
+            else:
+                blk = np.zeros(block_len, dtype=np.complex64)
+                take = max(0, n - pos)
+                if take > 0:
+                    blk[:take] = self.data[pos:]
+                if self.loop:
+                    # wrap as many times as needed: the recording may be
+                    # shorter than one block
+                    filled = take
+                    while filled < block_len:
+                        rem = min(n, block_len - filled)
+                        blk[filled:filled + rem] = self.data[:rem]
+                        filled += rem
+                    pos = (pos + block_len) % n
+                else:
+                    pos = n
+            yield blk
 
 
 class WhiteNoiseSource(Source):

@@ -40,13 +40,12 @@ def tone_bins(freqs, rate: int, nfft: int) -> np.ndarray:
     last bin of the axis i*bs - bs*(nfft//2) within bs of the tone,
     wrapped by nfft//2."""
     bs = float(rate) / float(nfft)
-    bins = np.zeros(len(freqs), dtype=np.int64)
     axis = np.arange(nfft, dtype=np.float64) * bs - bs * (nfft // 2)
-    for u, f in enumerate(freqs):
-        for i in range(nfft):
-            if (f < axis[i] + bs) and (f > axis[i] - bs):
-                bins[u] = (i + nfft // 2) % nfft
-    return bins
+    f = np.asarray(freqs, dtype=np.float64).reshape(-1, 1)
+    hit = (f < axis + bs) & (f > axis - bs)                   # (tones, nfft)
+    last = nfft - 1 - np.argmax(hit[:, ::-1], axis=1)
+    return np.where(hit.any(axis=1), (last + nfft // 2) % nfft,
+                    0).astype(np.int64)
 
 
 class ChirpParameter:

@@ -29,6 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("presum.cu", "channelizer.cu", "ddc.cu", "fold.cu",
            "lockin.cu")
+HEADERS = ("rows.cuh",)               # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,7 +57,7 @@ def nvcc_path() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
@@ -102,14 +103,20 @@ def build() -> Path:
 
 def _bind(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    ll, fl, cu = ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
+    # row offsets and row counts of a recording are 64-bit (c_longlong)
     lib.sdr_presum.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
     lib.sdr_presum.restype = ci
+    lib.sdr_presum_at.argtypes = [vp, vp, vp, ll, ll, ci, ci, ci, ci, vp]
+    lib.sdr_presum_at.restype = ci
     lib.sdr_channelizer.argtypes = [vp, vp, vp, vp, vp, vp,
                                     ci, ci, ci, ci, ci, vp]
     lib.sdr_channelizer.restype = ci
+    lib.sdr_channelizer_at.argtypes = [vp, vp, vp, vp, vp, ll, ll,
+                                       ci, ci, ci, ci, ci, vp]
+    lib.sdr_channelizer_at.restype = ci
     lib.sdr_channelizer_frame_tile.argtypes = []
     lib.sdr_channelizer_frame_tile.restype = ci
-    ll, fl = ctypes.c_longlong, ctypes.c_float
     lib.sdr_ddc.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ci, ci, ci, ci,
                             ci, fl, ci, vp]
     lib.sdr_ddc.restype = ci
@@ -119,6 +126,9 @@ def _bind(lib) -> None:
     lib.sdr_fold_tile.restype = ci
     lib.sdr_lockin.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, vp]
     lib.sdr_lockin.restype = ci
+    lib.sdr_lockin_at.argtypes = [vp, vp, vp, ll, ci, ci, cu, cu, cu, cu, cu,
+                                  fl, fl, vp]
+    lib.sdr_lockin_at.restype = ci
     lib.sdr_error_string.argtypes = [ci]
     lib.sdr_error_string.restype = ctypes.c_char_p
 

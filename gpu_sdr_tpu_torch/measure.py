@@ -2,12 +2,19 @@
 
 Given a validated UsrpParams, build TX generators and RX demodulators
 and route TX -> channel -> RX on one device.  Ported branches, for one
-front end with no recorded source:
+front end, in the JAX package's order:
 
 * ``fused_loopback``: ideal loopback with no channel model, the whole
   chain on the device (engine/fused.py);
+* ``device_replay``: a recording (``source=ReplaySource / ArraySource``)
+  within the device budget, with no channel model: uploaded once and
+  demodulated from device memory (engine/replay.DeviceReplay; the
+  dispatch's subpath names its sub-path);
+* ``segmented_replay``: such a recording over the budget, staged to the
+  device segment by segment (engine/replay.SegmentedDeviceReplay);
 * ``host_pipeline``: a generator (or white noise) on the host through a
-  channel model, fed block by block to the demodulator.
+  channel model, or any other source (a looped recording that is not
+  whole blocks among them), fed block by block to the demodulator.
 
 Every other branch raises NotImplementedError naming the ROADMAP item
 that will port it; none falls back to another path.
@@ -24,6 +31,9 @@ from .config import resolve_device
 from .engine import (FusedLoopback, can_fuse, make_demodulator,
                      make_generator, run_pipeline)
 from .engine.channel import Channel, IdealChannel
+from .engine.planner import plan_blocks
+from .engine.replay import (DeviceReplay, SegmentedDeviceReplay,
+                            can_device_replay, can_segmented_replay)
 from .engine.sinks import Sink
 from .engine.sources import Source, WhiteNoiseSource
 from .params import AntMode, UsrpParams
@@ -109,6 +119,16 @@ def _pair_tx(params: UsrpParams, rx_name: str) -> Optional[str]:
     return None
 
 
+def _replays_whole_blocks(source, rx) -> bool:
+    """A recording that one of the replays takes: within the device
+    budget or over it, and, when looped, a whole number of blocks (the
+    host-fed source's loop semantics need it)."""
+    if not (can_device_replay(source) or can_segmented_replay(source)):
+        return False
+    loop = bool(getattr(source, "loop", False))
+    return not (loop and len(source.data) % plan_blocks(rx).block_len)
+
+
 def run_measurement(params: UsrpParams, filename: Optional[str] = None,
                     channel: Optional[Channel] = None,
                     source: Optional[Source] = None,
@@ -118,16 +138,14 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
     """Execute a measurement described by `params` on `device`.
 
     With an active TX, TX drives RX through `channel`; with no channel
-    model the ideal loopback runs fused on the device.  With no TX, RX
-    consumes white noise.  Data goes to `extra_sinks`."""
+    model the ideal loopback runs fused on the device.  A `source` feeds
+    RX instead: a recording of whole blocks (or one that is not looped)
+    with no channel model is replayed from device memory.  With neither,
+    RX consumes white noise.  Data goes to `extra_sinks`."""
     if filename is not None or trigger is not None:
         raise NotImplementedError(
             "HDF5 output is not ported yet (ROADMAP Queue 1 item 3: "
             "client/files.H5Sink imports the JAX engine)")
-    if source is not None:
-        raise NotImplementedError(
-            "recorded sources (device replay) are not ported yet (ROADMAP "
-            "Queue 1 item 6)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh measurements are not ported yet (ROADMAP Queue 1 item 9)")
@@ -146,15 +164,30 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
                 "(ROADMAP Queue 1 item 3)")
         tx_name = _pair_tx(params, rx_name)
         tx = params.antenna(tx_name) if tx_name else None
-        if channel is None and tx is not None and can_fuse(tx, rx) and \
-                rx.delay <= tx.delay:
+        if source is None and channel is None and tx is not None and \
+                can_fuse(tx, rx) and rx.delay <= tx.delay:
             fused = FusedLoopback(tx, rx, device=dev)
             _record_dispatch(rx_name, "fused_loopback", fused.path)
             fused.run(list(extra_sinks), usrp_number=params.usrp_number,
                       front_end=rx_name[0])
             continue
+        if source is not None and channel is None and \
+                _replays_whole_blocks(source, rx):
+            loop = bool(getattr(source, "loop", False))
+            if can_device_replay(source):
+                replay = DeviceReplay(rx, source.data, loop=loop, device=dev)
+                _record_dispatch(rx_name, "device_replay", replay.path)
+            else:
+                replay = SegmentedDeviceReplay(rx, source.data, loop=loop,
+                                               device=dev)
+                _record_dispatch(rx_name, "segmented_replay")
+            replay.run(list(extra_sinks), usrp_number=params.usrp_number,
+                       front_end=rx_name[0])
+            continue
         demod = make_demodulator(rx, dev)
-        if tx is not None:
+        if source is not None:
+            src = source
+        elif tx is not None:
             gen = make_generator(tx, demod.plan.block_len, dev)
             # timed RX start: honor the delay parameter difference
             skip = int(round(max(rx.delay - tx.delay, 0.0) * rx.rate))

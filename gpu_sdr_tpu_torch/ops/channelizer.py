@@ -1,14 +1,19 @@
-"""Fused PFB channelizer: the CUDA kernel (csrc/channelizer.cu) and its
-plain PyTorch version.
+"""Fused PFB channelizer: the CUDA kernel (csrc/channelizer.cu) in its
+streamed and recording modes, and their plain PyTorch versions.
 
-Port of gpu_sdr_tpu/ops/pallas_channelizer.py (channelizer_frames_t):
-the windowed pre-sum over avg-1 carried frames, then a two-stage n1 x n2
-DFT with the twiddle folded into per-k1 stage-2 constants.  The output
-is (T, nfft) in natural bin order, so tone selection is
-ops/pfb.select_tones (a plain ``index_select``) where the JAX package
-needed select_tones_t; the TPU layout artifacts (transposed (n1, T, n2)
-blocks, scrambled bins, 8-frame halo units, bf16 hi/lo constants, the
-bt % 8 tiling rule) have no counterpart here.
+Port of gpu_sdr_tpu/ops/pallas_channelizer.py (channelizer_frames_t and
+channelizer_frames_at): the windowed pre-sum over avg-1 halo frames,
+then a two-stage n1 x n2 DFT with the twiddle folded into per-k1
+stage-2 constants.  ``channelizer`` takes a streamed block and its
+carried spare; ``channelizer_at`` reads block `idx` of a resident
+(total_frames, nfft) recording in place, its halo the avg-1 frames
+before it, wrapped at the loop seam and zero on the stream's first
+block (``valid`` 0).  The output is (T, nfft) in natural bin order, so
+tone selection is ops/pfb.select_tones (a plain ``index_select``) where
+the JAX package needed select_tones_t; the TPU layout artifacts
+(transposed (n1, T, n2) blocks and the recording transposed at upload,
+scrambled bins, 8-frame halo units, bf16 hi/lo constants, the bt % 8
+tiling rule) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from ..kernels import build
 from .pfb import PFBConfig
-from .presum import presum_plain
+from .presum import presum_plain, recording_halo
 
 FRAME_TILE = 32                     # frames per CUDA block (csrc FT)
 SMEM_LIMIT = 232_448                # bytes of shared memory a block may use
@@ -170,6 +175,52 @@ def channelizer(window2d: torch.Tensor, F1: torch.Tensor, G: torch.Tensor,
 
 
 channelizer.launches = 0
+
+
+def channelizer_at_plain(window2d: torch.Tensor, F1: torch.Tensor,
+                         G: torch.Tensor, X: torch.Tensor, idx: int,
+                         valid: int, nframes: int) -> torch.Tensor:
+    """Plain PyTorch channelizer of block `idx` (nframes frames) of a
+    recording X (total_frames, nfft): (nframes, nfft) complex64."""
+    base = idx * nframes
+    halo = recording_halo(X, base, window2d.shape[0] - 1, valid)
+    return channelizer_plain(window2d, F1, G, halo, X[base:base + nframes])
+
+
+def channelizer_at(window2d: torch.Tensor, F1: torch.Tensor, G: torch.Tensor,
+                   X: torch.Tensor, idx: int, valid: int,
+                   nframes: int) -> torch.Tensor:
+    """The channelizer of block `idx` of a resident recording X
+    (total_frames, nfft), blocks of `nframes` frames: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors.  Counts its kernel
+    launches in ``channelizer_at.launches``."""
+    avg, nfft = window2d.shape
+    if nframes <= 0 or idx < 0 or X.ndim != 2 or \
+            (idx + 1) * nframes > X.shape[0]:
+        raise ValueError(f"channelizer_at: block {idx} of {nframes} frames "
+                         f"outside the recording {tuple(X.shape)}")
+    _check(window2d, F1, G, X.new_empty((avg - 1, nfft)), X, None)
+    if X.device.type == "cpu":
+        return channelizer_at_plain(window2d, F1, G, X, idx, valid, nframes)
+    if X.device.type != "cuda":
+        raise ValueError(f"channelizer_at: unsupported device {X.device}")
+    n1, n2 = G.shape[0], G.shape[1]
+    if smem_bytes(n2) > SMEM_LIMIT:
+        raise ValueError(f"channelizer_at: split ({n1}, {n2}) does not fit "
+                         "one block's shared memory")
+    X, window2d, F1, G = (t.contiguous() for t in (X, window2d, F1, G))
+    out = torch.empty((nframes, nfft), dtype=torch.complex64,
+                      device=X.device)
+    rc = _library().sdr_channelizer_at(
+        X.data_ptr(), window2d.data_ptr(), F1.data_ptr(), G.data_ptr(),
+        out.data_ptr(), X.shape[0], idx * nframes, nframes, n1, n2, avg,
+        int(bool(valid)), torch.cuda.current_stream(X.device).cuda_stream)
+    build.check(rc, "sdr_channelizer_at")
+    channelizer_at.launches += 1
+    return out
+
+
+channelizer_at.launches = 0
 
 
 def channelizer_frames(consts, spare: torch.Tensor, x: torch.Tensor,

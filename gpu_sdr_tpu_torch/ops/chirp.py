@@ -32,8 +32,9 @@ M32 = 0xFFFFFFFF
 # the one-period oscillator table's size limit: the JAX package's
 # device-resident budget (gpu_sdr_tpu/engine/replay.py:35)
 CHIRP_TABLE_MAX_BYTES = 2 << 30
-_INV_2_31_5 = float(np.float32(1.0 / golden.TWO_31_5))
-_PI = float(np.float32(np.pi))
+# the float32 constants of th = pi * (idx * (1 / 2147483647.5))
+INV_2_31_5 = float(np.float32(1.0 / golden.TWO_31_5))
+PI_F32 = float(np.float32(np.pi))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +130,7 @@ def _chirp_wave(cfg: ChirpConfig, last_index: int, block_len: int,
     if block_len > cfg.period:
         r = torch.remainder(r, cfg.period)
     idx = _phase_index_at(cfg, _positions(cfg, last_index, r))
-    th = (idx.to(torch.float32) * _INV_2_31_5) * _PI
+    th = (idx.to(torch.float32) * INV_2_31_5) * PI_F32
     return torch.complex(torch.sin(th), -torch.cos(th))
 
 
@@ -139,7 +140,7 @@ def advance(cfg: ChirpConfig, last_index: int, block_len: int) -> int:
 
 
 def chirp_block(cfg: ChirpConfig, last_index: int, block_len: int,
-                scale: float = 1.0, device="cpu"):
+                scale: float = 1.0, *, device):
     """One TX chirp block: (new_last_index, x) with
     x[n] = scale * (sin(th) - 1j*cos(th)), th = pi*idx/2^31.5
     (reference chirp_gen, cpp/kernels.cu:367-368)."""
@@ -158,7 +159,7 @@ def chirp_demod_block(cfg: ChirpConfig, last_index: int, x: torch.Tensor):
 
 
 def chirp_period_table(cfg: ChirpConfig, block_len: int, ppt: int,
-                       scale: float = 1.0, device="cpu") -> torch.Tensor:
+                       scale: float = 1.0, *, device) -> torch.Tensor:
     """One period of the chirp from stream position 0, (period // ppt,
     ppt) complex64: segment-aligned rows for the table lock-in kernels
     (ops/lockin_table.py).  Generated block by block (period //

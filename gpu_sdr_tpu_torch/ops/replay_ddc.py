@@ -29,20 +29,7 @@ import torch
 from . import ddc as ddc_ops
 from .cplx import advance_phase
 from .ddc import DirectDDCConfig
-
-
-def recording_rows(X: torch.Tensor, idx: int, nbr: int, lead: int,
-                   valid: int) -> torch.Tensor:
-    """The extended rows (nbr + lead, M) of block `idx` of a recording X
-    (nblk*nbr, M): the `lead` rows before it, wrapped mod the recording
-    and zeroed unless `valid`, then its nbr rows."""
-    base = idx * nbr
-    body = X[base:base + nbr]
-    if lead == 0:
-        return body
-    rows = torch.arange(base - lead, base, device=X.device) % X.shape[0]
-    halo = X.index_select(0, rows) if valid else torch.zeros_like(X[:lead])
-    return torch.cat([halo, body])
+from .presum import recording_rows
 
 
 class ReplayDDC:
@@ -66,8 +53,9 @@ class ReplayDDC:
             return None
         return L // M, n // L
 
-    def __init__(self, cfg: DirectDDCConfig, data: np.ndarray,
-                 block_len: int, device):
+    def __init__(self, cfg: DirectDDCConfig, data, block_len: int, device):
+        """data: the recording, numpy or a complex64 tensor (an uploaded
+        tensor on `device` is used as it is)."""
         plan = self.plan_tiles(cfg, len(data), int(block_len))
         if plan is None:
             raise ValueError(f"{type(self).__name__}: recording of "
@@ -75,9 +63,9 @@ class ReplayDDC:
                              "not tile")
         self.cfg, self.L, self.device = cfg, int(block_len), device
         self.nbr, self.nblk = plan
-        self.X = torch.from_numpy(np.ascontiguousarray(
-            data, dtype=np.complex64).reshape(self.nblk * self.nbr,
-                                              cfg.M)).to(device)
+        rec = data if isinstance(data, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(data, dtype=np.complex64))
+        self.X = rec.reshape(self.nblk * self.nbr, cfg.M).to(device)
         self._hmod = cfg.modulated_taps(device)
         self._ramp = cfg.carrier_ramp(self.nbr, device)
         self._dstep = ddc_ops.ddc_carrier_step(cfg, self.L, device)
@@ -133,8 +121,7 @@ class ReplayDDCT(ReplayDDC):
         return super().plan_tiles(cfg, n, L)
 
 
-def make_replay_ddc(cfg: DirectDDCConfig, data: np.ndarray, block_len: int,
-                    device):
+def make_replay_ddc(cfg: DirectDDCConfig, data, block_len: int, device):
     """The replay for this recording, as replay_ddc_kind names it, or
     None when no kernel takes it."""
     kind = replay_ddc_kind(cfg, len(data), block_len)

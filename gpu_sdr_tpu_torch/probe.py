@@ -17,7 +17,14 @@ its configurations from here):
   blocks, one period): BASELINE's VNA sweep (tools/bench_configs.py:
   86-95), a -40 to +40 MHz chirp of 5000 steps over 1 s at 100 Msps,
   lock-in at decim 1 (ppt 20,000), 4,000,000-sample blocks of 200
-  segments, a 100,000,000-sample (800 MB) period.
+  segments, a 100,000,000-sample (800 MB) period;
+* replay through ``run_measurement(source=ReplaySource(..., loop=True))``
+  of a recording of the TX signal of a loopback cell, made by the port's
+  generator and uploaded once: TONES (8 blocks, ``channelizer_at``),
+  DIRECT config 3 (8 blocks, ``replay_kernel``), CHIRP config 2 (10
+  blocks, ``chirp_table``) and config 2 at 6,000,000-sample blocks,
+  which do not divide its period (8 blocks, ``chirp_at``).  The upload
+  is set-up.
 
 For each cell, after one warm-up run: RUNS runs into a sink that drops
 every packet unread, each with its set-up seconds (``run_measurement``
@@ -54,11 +61,12 @@ QCOMB = [int(round(f / 1e5)) * 100_000 for f in CONFIG3]    # period 1000
 
 # CHIRP: BASELINE config 2
 C_RATE, C_BLOCK = 100_000_000, 4_000_000
+AT_BLOCK = 6_000_000                # config 2 at 300 segments a block
 CONFIG2 = dict(freq=[-40_000_000], chirp_f=[40_000_000], chirp_t=[1.0],
                swipe_s=[5000])                   # amplitude 1.0, decim 1
 
 RUNS = 3
-PROFILE_BLOCKS = 10
+PROFILE_BLOCKS = 30
 TOP_OPS = 6
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "probe.stream"             # the profiler span of the sink's window
@@ -97,9 +105,9 @@ def direct_params(freqs, ampl, n_blocks: int):
     return p
 
 
-def chirp_params(n_blocks: int):
+def chirp_params(n_blocks: int, block: int = C_BLOCK):
     """BASELINE config 2: the VNA chirp looped into a lock-in receiver
-    with the same chirp, `n_blocks` blocks."""
+    with the same chirp, `n_blocks` blocks of `block` samples."""
     from .params import AntMode, AntennaParams, UsrpParams, WaveType
 
     def chirp():
@@ -107,35 +115,70 @@ def chirp_params(n_blocks: int):
                     **{k: list(v) for k, v in CONFIG2.items()})
     p = UsrpParams()
     p.A_TXRX = AntennaParams(mode=AntMode.TX, rate=C_RATE,
-                             buffer_len=C_BLOCK, ampl=[1.0], **chirp())
+                             buffer_len=block, ampl=[1.0], **chirp())
     p.A_RX2 = AntennaParams(mode=AntMode.RX, rate=C_RATE,
-                            buffer_len=C_BLOCK, decim=1,
-                            samples=n_blocks * C_BLOCK, **chirp())
+                            buffer_len=block, decim=1,
+                            samples=n_blocks * block, **chirp())
+    return p
+
+
+def chirp6m_params(n_blocks: int):
+    """Config 2 at 6,000,000-sample blocks (300 segments), which do not
+    divide the 100,000,000-sample period: no one-period table serves
+    them, so a replay takes the in-kernel chirp (chirp_at)."""
+    return chirp_params(n_blocks, AT_BLOCK)
+
+
+def tx_recording(params, n_blocks: int, block: int, device) -> np.ndarray:
+    """`n_blocks` blocks of the TX signal of a configuration, made by the
+    port's generator on `device`: the recording of a loopback."""
+    from .engine.generator import make_generator
+    gen = make_generator(params(n_blocks).A_TXRX, block, device)
+    return np.concatenate(list(gen.blocks(n_blocks)))
+
+
+def save_recording(directory: str, name: str, rec: np.ndarray) -> str:
+    """The recording as a .npy file, for engine/sources.ReplaySource."""
+    path = os.path.join(directory, name + ".npy")
+    np.save(path, rec)
+    return path
+
+
+def receiver_only(p):
+    """The configuration with its TX antenna off: a recording feeds RX."""
+    from .params import AntennaParams
+    p.A_TXRX = AntennaParams()
     return p
 
 
 def cells():
-    """(name, params(n_blocks), host-fed, blocks per run, block length)."""
+    """(name, params(n_blocks), host-fed, blocks per run, block length,
+    blocks of the looped recording a replay cell reads, else None)."""
+    def config3(n):
+        return direct_params(CONFIG3, 0.01, n)
     return (
-        ("TONES fused", loopback_params, False, 100, BLOCK),
-        ("TONES host-fed", loopback_params, True, 20, BLOCK),
-        ("DIRECT config 3 fused",
-         lambda n: direct_params(CONFIG3, 0.01, n), False, 50, D_BLOCK),
+        ("TONES fused", loopback_params, False, 100, BLOCK, None),
+        ("TONES host-fed", loopback_params, True, 20, BLOCK, None),
+        ("DIRECT config 3 fused", config3, False, 50, D_BLOCK, None),
         ("DIRECT config 1 fused",
-         lambda n: direct_params(CONFIG1, 1.0, n), False, 50, D_BLOCK),
+         lambda n: direct_params(CONFIG1, 1.0, n), False, 50, D_BLOCK, None),
         ("DIRECT quantized comb fused",
-         lambda n: direct_params(QCOMB, 0.01, n), False, 50, D_BLOCK),
-        ("DIRECT config 3 host-fed",
-         lambda n: direct_params(CONFIG3, 0.01, n), True, 10, D_BLOCK),
-        ("CHIRP config 2 fused", chirp_params, False, 50, C_BLOCK),
-        ("CHIRP config 2 host-fed", chirp_params, True, 25, C_BLOCK),
+         lambda n: direct_params(QCOMB, 0.01, n), False, 50, D_BLOCK, None),
+        ("DIRECT config 3 host-fed", config3, True, 10, D_BLOCK, None),
+        ("CHIRP config 2 fused", chirp_params, False, 50, C_BLOCK, None),
+        ("CHIRP config 2 host-fed", chirp_params, True, 25, C_BLOCK, None),
+        ("TONES replay", loopback_params, False, 100, BLOCK, 8),
+        ("DIRECT config 3 replay", config3, False, 50, D_BLOCK, 8),
+        ("CHIRP config 2 replay", chirp_params, False, 50, C_BLOCK, 10),
+        ("CHIRP config 2 replay, 6M blocks", chirp6m_params, False, 50,
+         AT_BLOCK, 8),
     )
 
 
-def run_once(dev, params, host_fed: bool, window=None):
-    """One run_measurement into a dropping sink: (dispatch, packets,
-    set-up s, streaming s).  With `window`, a profiler span of that
-    name covers the sink's start to its end."""
+def run_once(dev, params, host_fed: bool, window=None, source=None):
+    """One run_measurement into a dropping sink, fed from `source` when
+    given: (dispatch, packets, set-up s, streaming s).  With `window`, a
+    profiler span of that name covers the sink's start to its end."""
     import torch
     from . import measure
     from .engine.channel import IdealChannel
@@ -162,7 +205,8 @@ def run_once(dev, params, host_fed: bool, window=None):
     sink = DropSink()
     t0 = time.perf_counter()
     measure.run_measurement(params, extra_sinks=[sink], device=dev,
-                            channel=IdealChannel() if host_fed else None)
+                            channel=IdealChannel() if host_fed else None,
+                            source=source)
     return (measure.last_dispatch(), sink.packets, stamps[0] - t0,
             stamps[1] - stamps[0])
 
@@ -197,8 +241,13 @@ def device_breakdown(trace_path: str, n_blocks: int):
         op = _short(e["name"], e["cat"])
         per_op[op] = per_op.get(op, 0.0) + (b - a) / 1e3 / n_blocks
     if not spans:
-        raise RuntimeError("no device work inside the sink's window: the "
-                           "profiler saw no device activity")
+        dev = [e for e in events
+               if e.get("cat") in DEVICE_CATS and "dur" in e]
+        raise RuntimeError(
+            f"no device work inside the sink's window [{lo}, {hi}] us: the "
+            f"trace holds {len(dev)} device events" +
+            (f" in [{min(e['ts'] for e in dev)}, "
+             f"{max(e['ts'] + e['dur'] for e in dev)}] us" if dev else ""))
     busy, end = 0.0, lo
     for a, b in sorted(spans):
         if b > end:
@@ -208,24 +257,37 @@ def device_breakdown(trace_path: str, n_blocks: int):
     return busy / (hi - lo), top
 
 
-def probe_cell(dev, name, params, host_fed, n_blocks, block):
+def probe_cell(dev, name, params, host_fed, n_blocks, block, rec_blocks):
     from torch.profiler import ProfilerActivity, profile
-    run_once(dev, params(2), host_fed)                     # warm-up
-    setup, msps, disp = [], [], None
-    for _ in range(RUNS):
-        disp, n, s, t = run_once(dev, params(n_blocks), host_fed)
-        if n != n_blocks:
-            raise RuntimeError(f"{name}: {n} of {n_blocks} packets")
-        setup.append(s)
-        msps.append(n_blocks * block / t / 1e6)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, _, t = run_once(dev, params(PROFILE_BLOCKS), host_fed,
-                              window=WINDOW)
+    from .engine.sources import ReplaySource
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        busy, top = device_breakdown(path, PROFILE_BLOCKS)
+        path = None
+        if rec_blocks:          # the loopback's TX signal, recorded
+            path = save_recording(tmp, "rec", tx_recording(
+                params, rec_blocks, block, dev))
+            tx_params = params
+
+            def params(n):
+                return receiver_only(tx_params(n))
+
+        def source():
+            return ReplaySource(path, loop=True) if path else None
+        run_once(dev, params(2), host_fed, source=source())   # warm-up
+        setup, msps, disp = [], [], None
+        for _ in range(RUNS):
+            disp, n, s, t = run_once(dev, params(n_blocks), host_fed,
+                                     source=source())
+            if n != n_blocks:
+                raise RuntimeError(f"{name}: {n} of {n_blocks} packets")
+            setup.append(s)
+            msps.append(n_blocks * block / t / 1e6)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, _, t = run_once(dev, params(PROFILE_BLOCKS), host_fed,
+                                  window=WINDOW, source=source())
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        busy, top = device_breakdown(trace, PROFILE_BLOCKS)
     prof_msps = PROFILE_BLOCKS * block / t / 1e6
     print(f"{name}: {disp}; set-up s {[round(s, 4) for s in setup]}; "
           f"{[round(m, 1) for m in msps]} Msps; profiled {PROFILE_BLOCKS} "
@@ -249,9 +311,15 @@ def main() -> int:
         else torch.cuda.get_device_name(0)
     print(card)
     dev = torch.device("cuda", 0)
-    out = [probe_cell(dev, *c) for c in cells()]
+    out = []
+    for c in cells():
+        try:
+            out.append(probe_cell(dev, *c))
+        except RuntimeError as e:       # the next cells still run
+            print(f"{c[0]}: FAILED: {e}", flush=True)
+            out.append(dict(cell=c[0], error=str(e)))
     print(json.dumps({"card": card, "cells": out}))
-    return 0
+    return 1 if any("error" in c for c in out) else 0
 
 
 if __name__ == "__main__":

@@ -88,7 +88,7 @@ def test_chirp_wave_uses_the_exact_phase_index(name):
     for last, L in ((P - 1, 300), (P - 3, 7), (0, 2 * P + 5),
                     (P // 2, min(P, 5000))):
         idx = chirp.chirp_phase_index(t, last, torch.arange(L))
-        th = (idx.to(torch.float32) * chirp._INV_2_31_5) * chirp._PI
+        th = (idx.to(torch.float32) * chirp.INV_2_31_5) * chirp.PI_F32
         want = torch.complex(torch.sin(th), -torch.cos(th))
         assert torch.equal(chirp._chirp_wave(t, last, L, "cpu"), want)
 
@@ -119,7 +119,7 @@ def test_chirp_block_matches_jax_and_golden(name):
     t, j, g = configs(name)
     L = min(4000, t.period)
     last = t.period - L // 3
-    new, x = chirp.chirp_block(t, last, L, scale=0.7)
+    new, x = chirp.chirp_block(t, last, L, scale=0.7, device="cpu")
     jnew, jx = jchirp.chirp_block(j, jnp.uint32(last), L, scale=0.7)
     assert new == int(jnew)
     assert x.dtype == torch.complex64 and x.shape == (L,)
@@ -133,7 +133,7 @@ def test_chirp_block_longer_than_the_period():
     through a division rather than one subtraction."""
     t, j, g = configs("no_steps")
     assert t.period == 500
-    new, x = chirp.chirp_block(t, 123, 4300)
+    new, x = chirp.chirp_block(t, 123, 4300, device="cpu")
     jnew, jx = jchirp.chirp_block(j, jnp.uint32(123), 4300)
     assert new == int(jnew) == (123 + 4300) % 500
     assert jgolden.snr_db(jcplx.to_np(jx), x.numpy()) > 120.0
@@ -160,12 +160,13 @@ def test_chirp_period_table_is_the_stream():
     """The one-period table, built block by block, is the chirp stream
     from position 0, as segment rows."""
     t, j, _ = configs("small")
-    table = chirp.chirp_period_table(t, 64_000, 1000, scale=0.5)
+    table = chirp.chirp_period_table(t, 64_000, 1000, scale=0.5,
+                                     device="cpu")
     assert table.shape == (128, 1000)
-    _, whole = chirp.chirp_block(t, 0, t.period, scale=0.5)
+    _, whole = chirp.chirp_block(t, 0, t.period, scale=0.5, device="cpu")
     assert torch.equal(table.reshape(-1), whole)
     with pytest.raises(ValueError, match="must divide the period"):
-        chirp.chirp_period_table(t, 96_000, 1000)
+        chirp.chirp_period_table(t, 96_000, 1000, device="cpu")
 
 
 @pytest.mark.parametrize("ppt", [1, 9, 10, 1000, 20_000])

@@ -36,7 +36,7 @@ def tables(scale=1.0):
     """The port's and the JAX package's one-period tables, (128, ppt)."""
     cfg = chirp.ChirpConfig.from_params(*ARGS)
     jcfg = jchirp.ChirpConfig.from_params(*ARGS)
-    ours = chirp.chirp_period_table(cfg, L, PPT, scale=scale)
+    ours = chirp.chirp_period_table(cfg, L, PPT, scale=scale, device="cpu")
 
     def body(last, _):
         return jchirp.chirp_block(jcfg, last, L, scale=scale)

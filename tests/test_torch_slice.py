@@ -210,8 +210,9 @@ def test_host_feed_surfaces_source_errors():
 def test_slice_runs_with_jax_blocked():
     """The port imports nothing of JAX or of the JAX package: with both
     unimportable it still runs both branches of the slice, through both
-    kernel wrappers, and the CHIRP readout fused and host-fed (its table
-    step), and loads no module of either."""
+    kernel wrappers, the CHIRP readout fused and host-fed (its table
+    step), and a device replay (engine/replay.py) directly and through
+    run_measurement, and loads no module of either."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -257,6 +258,24 @@ def test_slice_runs_with_jax_blocked():
             assert s.data.shape == (128, 1), s.data.shape
             np.testing.assert_allclose(abs(s.data), 0.5, rtol=1e-5)
             print(measure.last_dispatch()[0][2])
+        # a recording replayed from device memory, through the replay
+        # module directly and through run_measurement(source=...)
+        from gpu_sdr_tpu_torch.engine import replay
+        from gpu_sdr_tpu_torch.engine.sources import ArraySource
+        x = np.exp(2j * np.pi * 1000 * np.arange(128_000) / 1_000_000)
+        rx = AntennaParams(mode=AntMode.RX, rate=1_000_000, fft_tones=1000,
+                           pf_average=4, buffer_len=64_000, samples=192_000,
+                           freq=[1000], wave_type=[WaveType.TONES])
+        dr = replay.DeviceReplay(rx, x.astype(np.complex64), device="cpu")
+        s = MemorySink()
+        dr.run([s])
+        np.testing.assert_allclose(abs(s.data[3:]), 1.0, rtol=1e-2)
+        print(dr.path)
+        p = UsrpParams()
+        p.A_RX2 = rx
+        measure.run_measurement(p, source=ArraySource(x[:100_000]),
+                                extra_sinks=[s], device="cpu")
+        print(":".join(map(str, measure.last_dispatch()[0][1:])))
         assert sys.modules["jax"] is None
         assert sys.modules["gpu_sdr_tpu"] is None
         assert not [m for m in sys.modules
@@ -268,7 +287,8 @@ def test_slice_runs_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.split() == ["fused_loopback", "host_pipeline",
-                                  "chirp_wavetable", "None"]
+                                  "chirp_wavetable", "None",
+                                  "channelizer_at", "device_replay:scan"]
 
 
 def test_kernel_wrappers_count_no_cpu_launch():
@@ -291,15 +311,6 @@ def _dual(p):
     p.B_RX2 = AntennaParams(**{**p.A_RX2.__dict__})
 
 
-def _rx_wave(w):
-    def f(p):
-        p.A_RX2.wave_type = [w] * len(p.A_RX2.wave_type)
-        p.A_RX2.decim = 10
-        p.A_RX2.chirp_f = [1000] * len(p.A_RX2.wave_type)
-        p.A_RX2.chirp_t = [0.1] * len(p.A_RX2.wave_type)
-    return f
-
-
 def _chirp_tx(p):
     """A CHIRP loopback on both front ends (the dual VNA): the CHIRP
     readout itself is ported (tests/test_torch_chirp_slice.py), two
@@ -318,12 +329,8 @@ def _mixed(p):
 
 @pytest.mark.parametrize("case, edit, kwargs", [
     ("hdf5", None, dict(filename="out.h5")),
-    ("replay", None, dict(source=object())),
     ("mesh", None, dict(mesh=object())),
     ("dual", _dual, {}),
-    # a CHIRP receiver fed from a recording (the replay chirp_table /
-    # chirp_at sub-paths, item 6)
-    ("chirp_rx", _rx_wave(WaveType.CHIRP), dict(source=object())),
     ("chirp_tx", _chirp_tx, dict(channel=IdealChannel())),
     ("mixed", _mixed, {}),
 ], ids=lambda v: v if isinstance(v, str) else "")
