@@ -78,7 +78,25 @@ and exits non-zero at the first phase that fails:
    its staging time per segment.  Each is held against the host-fed
    pipeline over the same recording at >= 90 dB SNR.
 
-Phases 4, 5, 7, 9 and 11 are the main path.  Their CallbackSink checks rows
+12. the sharded layer's kernels against their plain versions and a
+   float64 oracle at full width, on the shards of a (time=2) mesh: the
+   channelizer after a staged halo (#5) on an 8-block TONES recording
+   (3000 frames a shard), the replay DDC after staged history rows
+   (#10) on an 8-block config-3 recording (20,000 rows a shard), the
+   G-fused chain (#15) at config 3 (Ct = Cp = 100, f 4), each at the
+   stream's start, inside and at the seam, on shards 0 and 1; times as
+   phase 10 (#5, #10) or phase 6 (#15, beside one complex matmul of the
+   stacked rows, its library_ms);
+13. the sharded layer through ``run_measurement(mesh=...)`` on meshes of
+   this card, 10 blocks each: TONES fused (2, 1), TONES host-fed (2, 2,
+   4 blocks: the psum), config 3 fused (2, 1, ``fold_kernel``) and its
+   ``g_chain`` (``ShardedFusedDirect(use_fold=False)``), config 2 fused
+   (``chirp_table``), the TONES and config-3 replays (``channelizer_at``,
+   ``replay_kernel``), a not-looped config-3 replay (``scan``) and
+   ``ShardedSegmentedReplay``; each held against the port's unsharded
+   run of the same measurement at >= 90 dB SNR.
+
+Phases 4, 5, 7, 9, 11 and 13 are the main path.  Their CallbackSink checks rows
 ::97 of every packet (finite; PFB tones within 1% of their amplitude;
 DIRECT rows within 2.5% of the TX amplitude, the sum of the other tones'
 leakage through the 400-tap FIR's stopband at config 3, and each
@@ -162,6 +180,7 @@ R_CHIRP6M = (8, 20)                 # config 2 at 6,000,000: chirp_at
 R_SCAN = (5.5, 8)                   # config 3, not looped: scan
 R_SEGMENTED = ((6, False), (3, True))   # recordings over 16 blocks
 R_SEG_BLOCKS, R_SEG_ACQ = 2, 16
+S_BLOCKS, S_HOST = 10, 4            # blocks of the sharded main path's runs
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -372,10 +391,10 @@ class PacketCheck:
 
 
 def run_path(dev, params, channel, pkt, n_blocks, block, channels,
-             source=None):
-    """One run_measurement (fed from `source` when given) with `pkt` as
-    the CallbackSink's check: (pkt, dispatch, Msps from the sink's start
-    to its end, seconds with set-up)."""
+             source=None, mesh=None):
+    """One run_measurement (fed from `source` when given, on `mesh` when
+    given) with `pkt` as the CallbackSink's check: (pkt, dispatch, Msps
+    from the sink's start to its end, seconds with set-up)."""
     from gpu_sdr_tpu_torch import measure
     from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
     stamps = []
@@ -390,7 +409,8 @@ def run_path(dev, params, channel, pkt, n_blocks, block, channels,
 
     t0 = time.perf_counter()
     measure.run_measurement(params, channel=channel, source=source,
-                            extra_sinks=[TimedSink(pkt)], device=dev)
+                            extra_sinks=[TimedSink(pkt)], device=dev,
+                            mesh=mesh)
     wall = time.perf_counter() - t0
     check(pkt.n == n_blocks, f"{pkt.n} of {n_blocks} packets")
     msps = n_blocks * block / (stamps[1] - stamps[0]) / 1e6
@@ -447,12 +467,17 @@ def kernel_counters():
     from gpu_sdr_tpu_torch.ops.lockin_at import lockin_at
     from gpu_sdr_tpu_torch.ops.lockin_table import lockin_self, lockin_table
     from gpu_sdr_tpu_torch.ops.presum import presum, presum_at
-    from gpu_sdr_tpu_torch.ops.replay_ddc import ReplayDDC, ReplayDDCT
+    from gpu_sdr_tpu_torch.ops.chain import chain
+    from gpu_sdr_tpu_torch.ops.channelizer import channelizer_at_halo
+    from gpu_sdr_tpu_torch.ops.replay_ddc import (ReplayDDC, ReplayDDCT,
+                                                  ShardedReplayDDC)
     return {"channelizer": channelizer, "presum": presum, "ddc": ddc_fused,
             "replay_ddc": ReplayDDC, "replay_ddc_t": ReplayDDCT,
             "fold": fold, "lockin_self": lockin_self,
             "lockin_table": lockin_table, "channelizer_at": channelizer_at,
-            "presum_at": presum_at, "lockin_at": lockin_at}
+            "presum_at": presum_at, "lockin_at": lockin_at,
+            "channelizer_at_halo": channelizer_at_halo,
+            "replay_ddc_sharded": ShardedReplayDDC, "chain": chain}
 
 
 def counted(run):
@@ -1038,6 +1063,201 @@ def phase_replay_kernels(dev):
     return rows
 
 
+def comb_at(freqs, ampl, a0: int, n: int) -> np.ndarray:
+    """Samples a0 .. a0+n-1 of a TX comb in float64, exact integer phases
+    (zero before sample 0: the stream's start)."""
+    t = np.arange(a0, a0 + n, dtype=np.int64)
+    x = np.zeros(n, dtype=np.complex128)
+    for f in freqs:
+        x += ampl * np.exp(2j * np.pi * (((f % D_RATE) * (t % D_RATE)) %
+                                         D_RATE) / D_RATE)
+    x[t < 0] = 0
+    return x
+
+
+def direct_oracle_at(x: np.ndarray, freqs) -> np.ndarray:
+    """direct_oracle of rows from absolute sample a0 on, x holding
+    samples a0 - (f-1)*M .. of the stream (its history first) and the
+    carrier at their absolute index: x = (samples, a0)."""
+    xs, a0 = x
+    h = sinc_taps(D_DECIM * D_AVG, 0.75 / (2.0 * D_DECIM))
+    t = np.arange(a0 - (D_AVG - 1) * D_DECIM,
+                  a0 - (D_AVG - 1) * D_DECIM + len(xs), dtype=np.int64)
+    out = np.empty((ORACLE_ROWS, len(freqs)), dtype=np.complex128)
+    for c, f in enumerate(freqs):
+        z = xs * np.exp(-2j * np.pi * (((f % D_RATE) * (t % D_RATE)) %
+                                       D_RATE) / D_RATE)
+        win = np.lib.stride_tricks.sliding_window_view(z, len(h))
+        out[:, c] = win[::D_DECIM][:ORACLE_ROWS] @ h
+    return out
+
+
+def phase_sharded_kernels(dev):
+    """The sharded layer's kernels against their plain versions and a
+    float64 oracle at full width, each on a (time=2) mesh's shards: #5
+    (channelizer_at_halo) on an 8-block TONES recording, #10
+    (ShardedReplayDDC) on an 8-block config-3 recording, #15 (chain) at
+    config 3 through use_fold=False; each at the stream's start, inside
+    and at the loop (or block) seam, on shard 0 and shard 1.  Times as
+    phase 10 (#5, #10: queued over rotating blocks) or phase 6 (#15, and
+    the library call: one matmul of the stacked rotated rows)."""
+    import torch
+    from gpu_sdr_tpu_torch.ops import ddc
+    from gpu_sdr_tpu_torch.ops.chain import (TonesDirectChain, chain,
+                                             chain_plain)
+    from gpu_sdr_tpu_torch.ops.channelizer import (
+        channelizer_at_halo, channelizer_at_halo_plain, channelizer_consts)
+    from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
+    from gpu_sdr_tpu_torch.ops.presum import shard_spans, staged_halos
+    from gpu_sdr_tpu_torch.ops.replay_ddc import ShardedReplayDDC
+    gen = torch.Generator(device=dev).manual_seed(24680)
+    rows, T = {}, 2
+    # (block, valid, shard): stream start on both shards (valid is
+    # shard 0's only), inside, the last block, block 0 after the seam
+    cases = ((0, 0, 0), (0, 0, 1), (3, 1, 0), (7, 1, 1), (0, 1, 0),
+             (0, 1, 1))
+
+    # #5: TONES, 3000 frames per shard per block, 8 blocks (384 MB)
+    cfg = PFBConfig(nfft=NFFT, avg=AVG, rate=RATE)
+    w2, F1, G = channelizer_consts(cfg, dev)
+    ftl = FRAMES // T
+    X = torch.randn((R_BLOCKS * FRAMES, NFFT), dtype=torch.complex64,
+                    device=dev, generator=gen)
+    spans = shard_spans(X, R_BLOCKS, T)
+    halos = staged_halos(X, R_BLOCKS, T, AVG - 1)
+    w = w2.cpu().numpy().astype(np.float64)
+    err = 0.0
+    for idx, valid, t in cases:
+        v = valid if t == 0 else 1
+        tag = f"block {idx}, shard {t}, valid {v}"
+        k = via_kernel("channelizer_at_halo", lambda: channelizer_at_halo(
+            w2, F1, G, spans[t], halos[t], idx, v, ftl))
+        p = channelizer_at_halo_plain(w2, F1, G, spans[t], halos[t], idx, v,
+                                      ftl)
+        base = idx * FRAMES + t * ftl                # in stream order
+        hrows = torch.arange(base - AVG + 1, base, device=dev) % X.shape[0]
+        ext = np.concatenate([
+            X[hrows].cpu().numpy() if v else
+            np.zeros((AVG - 1, NFFT), np.complex64),
+            X[base:base + 16].cpu().numpy()]).astype(np.complex128)
+        spec64 = np.fft.fft(sum(w[i] * ext[i:i + 16] for i in range(AVG)),
+                            axis=-1)
+        torch.cuda.synchronize(dev)
+        kn, pn = k.cpu().numpy(), p.cpu().numpy()
+        check(kn.shape == (ftl, NFFT) and np.isfinite(kn).all(),
+              f"channelizer_at_halo [{tag}]: shape or non-finite")
+        s_plain, s_gold = snr_db(pn, kn), snr_db(spec64, kn[:16])
+        err = max(err, float(np.abs(kn - pn).max()))
+        print(f"channelizer_at_halo [{tag}]: SNR {s_plain:.1f} dB vs "
+              f"plain, {s_gold:.1f} dB vs float64 (16 frames)")
+        check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB,
+              f"channelizer_at_halo [{tag}] under {SNR_BAR_DB} dB")
+    rot = itertools.count()
+
+    def nxt():
+        i = next(rot)
+        return spans[i % T], halos[i % T], (i // T) % R_BLOCKS
+
+    ms, pms = (time_ms_queued(lambda: f(w2, F1, G, *nxt(), 1, ftl),
+                              2 * R_BLOCKS)
+               for f in (channelizer_at_halo, channelizer_at_halo_plain))
+    b = bound(2 * ftl * NFFT * 8 + (AVG - 1) * NFFT * 8 + nbytes(w2, F1, G),
+              ftl * (4 * AVG * NFFT + 5 * NFFT * np.log2(NFFT)))
+    print(f"channelizer_at_halo {ftl}x{NFFT}: kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    rows["channelizer_at_halo"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                       library_ms=None, **b)
+    del X, spans, halos
+
+    # #10: config 3, 20,000 rows per shard per block, 8 blocks (256 MB)
+    dcfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(CONFIG3),
+                               (0,) * len(CONFIG3))
+    rec = torch.randn(R_BLOCKS * D_BLOCK, dtype=torch.complex64, device=dev,
+                      generator=gen)
+    rk = ShardedReplayDDC(dcfg, rec, D_BLOCK, [dev] * T)
+    nbt, H = rk.nbr_t, (D_AVG - 1) * D_DECIM
+    rec_np = rec.cpu().numpy()
+    st0 = rk.init_state()
+    err = 0.0
+    for idx, valid, t in cases:
+        # the block `idx` of a stream that has run `idx` blocks, or, at the
+        # seam, R_BLOCKS: its carrier phase advanced by as many
+        nabs = R_BLOCKS if (idx, valid) == (0, 1) else idx
+        ph = st0[1]
+        for _ in range(nabs):
+            ph = rk.advance((0, ph, 1))[1]
+        st = (idx, ph, valid)
+        tag = f"block {idx}, shard {t}, valid {valid if t == 0 else 1}"
+        yk = via_kernel("replay_ddc_sharded", lambda: rk.local(st, t))
+        a0 = nabs * D_BLOCK + t * (D_BLOCK // T)     # absolute first row
+        hist = (np.arange(a0 - H, a0 + ORACLE_ROWS * D_DECIM) %
+                len(rec_np))
+        xs = rec_np[hist].astype(np.complex128)
+        if a0 == 0 and not valid:
+            xs[:H] = 0
+        report(f"replay_ddc_sharded [{tag}]", yk, rk.local_plain(st, t),
+               direct_oracle_at((xs, a0), CONFIG3))
+        err = max(err, float((yk - rk.local_plain(st, t)).abs().max()))
+    rot = itertools.count()
+
+    def rst():
+        i = next(rot)
+        return ((i // T) % R_BLOCKS, st0[1], 1), i % T
+
+    ms, pms = (time_ms_queued(lambda: f(*rst()), 2 * R_BLOCKS)
+               for f in (rk.local, rk.local_plain))
+    b = bound((nbt + D_AVG - 1) * D_DECIM * 8 +
+              nbytes(rk._hmod[0], rk._ramp[0], st0[1]) + nbt * 100 * 8,
+              ddc_flops(nbt, len(CONFIG3), D_DECIM * D_AVG))
+    print(f"replay_ddc_sharded {nbt}x{len(CONFIG3)}: kernel {ms:.4f} ms, "
+          f"plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})")
+    rows["replay_ddc_sharded"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                      library_ms=None, **b)
+    del rk, rec
+
+    # #15: config 3 through use_fold=False, 20,000 rows per shard
+    ch = TonesDirectChain(D_RATE, tuple(CONFIG3), (0.01,) * 100, dcfg,
+                          D_BLOCK, time_shards=T)
+    check(ch.ok and ch.nb // T == nbt, "chain geometry")
+    Pt = [ch.P[t * nbt:(t + 1) * nbt].to(dev) for t in range(T)]
+    hPt = [ch.halo_rows(t * nbt).to(dev) for t in range(T)]
+    Gd, ramp = ch.G.to(dev), ch.ramp.to(dev)
+    rampt = [ramp[t * nbt:(t + 1) * nbt] for t in range(T)]
+    st = ch.init_state(dev)
+    states = []
+    for blk in range(R_BLOCKS):
+        states.append(st)
+        st = ch.block_rotations(st)[0]
+    err = 0.0
+    for blk, t in ((0, 0), (0, 1), (1, 0), (1, 1), (7, 0)):
+        _, srot, hrot0, drot = ch.block_rotations(states[blk])
+        args = (Pt[t], hPt[t], Gd, rampt[t], srot,
+                hrot0 if t == 0 else srot, drot)
+        yk = via_kernel("chain", lambda: chain(*args))
+        a0 = blk * D_BLOCK + t * (D_BLOCK // T)
+        xs = comb_at(CONFIG3, 0.01, a0 - H, H + ORACLE_ROWS * D_DECIM)
+        report(f"chain [block {blk}, shard {t}]", yk, chain_plain(*args),
+               direct_oracle_at((xs, a0), CONFIG3))
+        err = max(err, float((yk - chain_plain(*args)).abs().max()))
+    _, srot, hrot0, drot = ch.block_rotations(states[1])
+    args = (Pt[1], hPt[1], Gd, rampt[1], srot, srot, drot)
+    f = Gd.shape[0]
+    E = torch.cat([hPt[1] * srot, Pt[1] * srot])
+    A = torch.cat([E[j:j + nbt] for j in range(f)], dim=1)   # (nbt, f*Ct)
+    Gr = Gd.reshape(-1, Gd.shape[2])
+    ms, pms, lms = (time_ms(fn) for fn in (
+        lambda: chain(*args), lambda: chain_plain(*args), lambda: A @ Gr))
+    Ct, Cp = Gd.shape[1], Gd.shape[2]
+    b = bound(nbytes(*args) + nbt * Cp * 8, nbt * Cp * (8 * f * Ct + 12))
+    print(f"chain {nbt}x{Cp}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"library (matmul of the stacked rows) {lms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    rows["chain"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                         library_ms=lms, **b)
+    return rows
+
+
 class ChirpCheck:
     """The CHIRP main path's packet callback: every lock-in point of
     every packet finite and within C_TOL of the TX amplitude; keeps the
@@ -1321,6 +1541,167 @@ def phase_replay_main_path(dev, tones_fused):
     return launches
 
 
+def phase_sharded_main_path(dev, meshes=None):
+    """The sharded layer through run_measurement(mesh=...) on `meshes`:
+    a time-only mesh (by default (2, 1) of this card, virtual shards) for
+    TONES fused, config 3 fused and its g_chain (ShardedFusedDirect with
+    use_fold=False, which run_measurement never takes), config 2 fused,
+    the TONES and config-3 replays, a not-looped config-3 replay (scan)
+    and ShardedSegmentedReplay; a (time, channels) mesh (by default
+    (2, 2)) for TONES host-fed.  Each run is held against the port's
+    unsharded run of the same measurement at >= 90 dB; its kernel
+    launched once per shard and block, no other."""
+    import tempfile
+
+    from gpu_sdr_tpu_torch.engine.channel import IdealChannel
+    from gpu_sdr_tpu_torch.engine.replay import SegmentedDeviceReplay
+    from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
+    from gpu_sdr_tpu_torch.engine.sources import ReplaySource
+    from gpu_sdr_tpu_torch.parallel import make_mesh
+    from gpu_sdr_tpu_torch.parallel.fused_sharded import (ShardedFusedDirect,
+                                                          plan_sharded_block)
+    from gpu_sdr_tpu_torch.parallel.sharded_replay import \
+        ShardedSegmentedReplay
+    m21, m22 = meshes or (make_mesh((2, 1), devices=[dev] * 2),
+                          make_mesh((2, 2), devices=[dev] * 4))
+    launches = {}
+
+    def config3(n):
+        return direct_params(CONFIG3, 0.01, n)
+
+    def held(name, ref, got):
+        ref, got = np.stack(ref), np.stack(got)
+        check(ref.shape == got.shape, f"sharded {name}: {got.shape} rows "
+              f"kept, unsharded {ref.shape}")
+        snr = snr_db(ref, got)
+        print(f"sharded {name} vs unsharded: SNR {snr:.1f} dB"
+              + (", bit-identical" if np.array_equal(ref, got) else ""))
+        check(snr >= SNR_BAR_DB, f"sharded {name} vs unsharded {snr:.1f} dB")
+
+    def sharded(name, mesh, run, want, kernel, n):
+        """run() -> (pkt, dispatch, Msps, wall), its launches counted."""
+        (pkt, disp, msps, wall), counts = counted(run)
+        shards = mesh.T * mesh.Kc
+        print(f"sharded {name} {tuple(mesh.shape.values())}: {disp}, {n} "
+              f"blocks, {counts[kernel]} {kernel} launches; {msps:.1f} Msps "
+              f"streaming, {wall:.3f} s with set-up")
+        check(disp == (("A_RX2",) + want,) if want else True,
+              f"sharded {name} dispatch {disp}")
+        check(counts[kernel] == n * shards and
+              all(v == 0 for k, v in counts.items() if k != kernel),
+              f"sharded {name} launches {counts}")
+        launches[kernel] = counts[kernel]
+        return pkt
+
+    def measured(params, n, pkt, block, channels, channel=None, mesh=None,
+                 source=None):
+        return lambda: run_path(dev, params(n), channel, pkt, n, block,
+                                channels, source=source, mesh=mesh)
+
+    n = S_BLOCKS
+    # TONES: fused on (2, 1), host-fed on (2, 2) (the ShardedPFB psum)
+    ref = measured(loopback_params, n, PacketCheck(FRAMES, keep=n), BLOCK,
+                   NFFT)()[0].kept
+    pkt = sharded("TONES fused", m21, measured(
+        loopback_params, n, PacketCheck(FRAMES, keep=n), BLOCK, NFFT,
+        mesh=m21), ("sharded_fused", "channelizer_wavetable"),
+        "channelizer", n)
+    held("TONES fused", ref, pkt.kept)
+    pkt = sharded("TONES host-fed", m22, measured(
+        loopback_params, S_HOST, PacketCheck(FRAMES, keep=S_HOST), BLOCK,
+        NFFT, channel=IdealChannel(), mesh=m22), ("host_pipeline", None),
+        "presum", S_HOST)
+    held("TONES host-fed", ref[:S_HOST], pkt.kept)
+    tones_ref = ref
+
+    # DIRECT config 3: fold_kernel through run_measurement, g_chain direct
+    ref = measured(config3, n, DirectCheck(100, 0.01, keep=n), D_BLOCK,
+                   100)()[0].kept
+    pkt = sharded("config 3 fused", m21, measured(
+        config3, n, DirectCheck(100, 0.01, keep=n), D_BLOCK, 100, mesh=m21),
+        ("sharded_fused", "fold_kernel"), "fold", n)
+    held("config 3 fused", ref, pkt.kept)
+    p = config3(n)
+    p.validate()
+    L, _ = plan_sharded_block(p.A_RX2, m21)
+    sf = ShardedFusedDirect(p.A_TXRX, p.A_RX2, m21, block_len=L,
+                            use_fold=False)
+    check(sf.ok and sf.path == "g_chain", f"g_chain: {sf.ok}, "
+          f"{getattr(sf, 'path', None)}")
+
+    def g_chain():
+        pkt = DirectCheck(100, 0.01, keep=n)
+        t0 = time.perf_counter()
+        res = sf.run([CallbackSink(pkt)], n_blocks=n)
+        return pkt, None, res.msps, time.perf_counter() - t0
+    pkt = sharded("config 3 fused, use_fold=False", m21, g_chain, None,
+                  "chain", n)
+    held("config 3 g_chain", ref, pkt.kept)
+
+    # CHIRP config 2 fused: the table lock-in at block o*T + t per shard
+    ref = measured(chirp_params, n, ChirpCheck(keep=n), C_BLOCK, 1)()[0].kept
+    pkt = sharded("config 2 fused", m21, measured(
+        chirp_params, n, ChirpCheck(keep=n), C_BLOCK, 1, mesh=m21),
+        ("sharded_fused", "chirp_table"), "lockin_self", n)
+    held("config 2 fused", ref, pkt.kept)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the TONES replay (#5) against the unsharded fused TONES run
+        path = save_recording(tmp, "tones", tx_recording(
+            loopback_params, R_BLOCKS, BLOCK, dev))
+        pkt = sharded("TONES replay", m21, measured(
+            lambda k: receiver_only(loopback_params(k)), n,
+            PacketCheck(FRAMES, keep=n), BLOCK, NFFT, mesh=m21,
+            source=ReplaySource(path, loop=True)),
+            ("sharded_replay", "channelizer_at"), "channelizer_at_halo", n)
+        held("TONES replay", tones_ref, pkt.kept)
+
+        # config 3 replay (#10), its recording looped at 8 blocks
+        rec = tx_recording(config3, R_BLOCKS, D_BLOCK, dev)
+        path = save_recording(tmp, "c3", rec)
+
+        def c3(k):
+            return receiver_only(config3(k))
+        ref = measured(c3, n, DirectCheck(100, 0.01, keep=n, seam=R_BLOCKS),
+                       D_BLOCK, 100,
+                       source=ReplaySource(path, loop=True))()[0].kept
+        pkt = sharded("config 3 replay", m21, measured(
+            c3, n, DirectCheck(100, 0.01, keep=n, seam=R_BLOCKS), D_BLOCK,
+            100, mesh=m21, source=ReplaySource(path, loop=True)),
+            ("sharded_replay", "replay_kernel"), "replay_ddc_sharded", n)
+        held("config 3 replay", ref, pkt.kept)
+
+        # scan: 5.5 blocks, not looped: the sharded DDC per shard (#7)
+        path = save_recording(tmp, "scan", rec[:int(5.5 * D_BLOCK)])
+        ref = measured(c3, n, KeepCheck(D_ROWS, 100, keep=n), D_BLOCK, 100,
+                       source=ReplaySource(path))()[0].kept
+        pkt = sharded("config 3 replay, not looped", m21, measured(
+            c3, n, KeepCheck(D_ROWS, 100, keep=n), D_BLOCK, 100, mesh=m21,
+            source=ReplaySource(path)), ("sharded_replay", "scan"), "ddc", n)
+        held("config 3 scan", ref, pkt.kept)
+
+    # ShardedSegmentedReplay: 2-block segments of a looped 3-block one
+    p = c3(n)
+    p.validate()
+    outs = []
+    for mesh in (None, m21):
+        kw = dict(loop=True, segment_bytes=R_SEG_BLOCKS * D_BLOCK * 8)
+        seg = (SegmentedDeviceReplay(p.A_RX2, rec[:3 * D_BLOCK], device=dev,
+                                     **kw) if mesh is None else
+               ShardedSegmentedReplay(p.A_RX2, rec[:3 * D_BLOCK], mesh, **kw))
+        pkt = KeepCheck(D_ROWS, 100, keep=n)
+
+        def run_seg():
+            t0 = time.perf_counter()
+            res = seg.run([CallbackSink(pkt)])
+            return pkt, None, res.msps, time.perf_counter() - t0
+        outs.append(run_seg()[0].kept if mesh is None else sharded(
+            "segmented", mesh, run_seg, None, "ddc", n).kept)
+    held("segmented", *outs)
+    return {k: launches[k] for k in ("channelizer_at_halo",
+                                     "replay_ddc_sharded", "chain")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1355,6 +1736,9 @@ def main() -> int:
                               dev))
         launches.update(timed("replay main path", phase_replay_main_path,
                               dev, tones_fused))
+        rows.update(timed("sharded kernels", phase_sharded_kernels, dev))
+        launches.update(timed("sharded main path", phase_sharded_main_path,
+                              dev))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1385,7 +1769,12 @@ def main() -> int:
              "gpu_sdr_tpu/ops/pallas_channelizer.py:712"),
             ("presum_at", "presum.cu", "gpu_sdr_tpu/ops/pallas_pfb.py:197"),
             ("lockin_at", "lockin.cu",
-             "gpu_sdr_tpu/ops/pallas_lockin.py:260"))]
+             "gpu_sdr_tpu/ops/pallas_lockin.py:260"),
+            ("channelizer_at_halo", "channelizer.cu",
+             "gpu_sdr_tpu/ops/pallas_channelizer.py:622"),
+            ("replay_ddc_sharded", "ddc.cu",
+             "gpu_sdr_tpu/ops/pallas_replay.py:222"),
+            ("chain", "chain.cu", "gpu_sdr_tpu/ops/pallas_chain.py:253"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,9 @@ Ported slices of ``measure.run_measurement``, one front end, fused
 loopback, host-fed pipeline and device-resident replay of a recording:
 the TONES / NOISE PFB readout, the DIRECT readout (multi-tone DDC +
 decimating FIR) and the CHIRP / VNA readout (integer-phase chirp +
-lock-in).
+lock-in); each of them also sharded over a (time, channels) mesh of
+devices driven by one process (``parallel/``, ``run_measurement(
+mesh=...)``).
 Every other branch raises ``NotImplementedError`` naming the ROADMAP
 item that will port it.
 """

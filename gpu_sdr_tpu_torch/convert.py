@@ -133,3 +133,89 @@ def chirp_state(state):
                              "(last, idx[, table]) or a scalar")
         return int(np.asarray(state[0])), int(np.asarray(state[1]))
     return int(np.asarray(state))
+
+
+# ---------------------------------------------------------------------
+# The sharded layer (gpu_sdr_tpu/parallel): JAX keeps a sharded state as
+# one global array; the port keeps a grid of per-shard parts, each on
+# its shard's device (parallel/mesh.Mesh.grid).
+
+
+def _scalar(a) -> int:
+    """An int from a scalar or a one-element array (a uint32 (1,) `last`)."""
+    return int(np.asarray(a).reshape(-1)[0])
+
+
+def _carry_grid(pair, mesh, H: int):
+    """A (T*H,) halo carry pair, sharded over time and replicated over
+    channels -> the carry grid [t][c] of (H,) tensors."""
+    carry = complex_from_pair(pair, "cpu")
+    if tuple(carry.shape) != (mesh.T * H,):
+        raise ValueError(f"sharded carry shape {tuple(carry.shape)}, "
+                         f"expected ({mesh.T * H},)")
+    return mesh.grid(lambda t, c, d: carry[t * H:(t + 1) * H].to(d))
+
+
+def sharded_ddc_state(state, sd):
+    """A ShardedDDC state (int32 phase (C,) over channels, the (T*H,)
+    carry pair over time) (gpu_sdr_tpu/parallel/sharded.py) -> the port's
+    ShardedDDC `sd`'s (phase grid, carry grid)."""
+    phase, carry = state
+    ph = tone_phase(phase, "cpu")
+    Cl = sd.Cl
+    return (sd.mesh.grid(lambda t, c, d: ph[c * Cl:(c + 1) * Cl].to(d)),
+            _carry_grid(carry, sd.mesh, sd.H))
+
+
+def sharded_pfb_state(carry, sp):
+    """A ShardedPFB carry ((T*H,) pair) (gpu_sdr_tpu/parallel/
+    sharded_pfb.py) -> the port's ShardedPFB `sp`'s carry grid."""
+    return _carry_grid(carry, sp.mesh, sp.H)
+
+
+def sharded_chirp_state(last) -> int:
+    """A ShardedChirpLockin's uint32 (1,) `last` -> the stream position."""
+    return _scalar(last)
+
+
+def sharded_fused_state(state, sf):
+    """A sharded fused chain's state (gpu_sdr_tpu/parallel/fused_sharded.
+    py) -> the port's chain `sf`'s, by its sub-path:
+
+    * channelizer_wavetable: (started,) -> started;
+    * pfb_scan: (halo,) or (int32 TX phases (T*Ct,), halo) -> (carry
+      grid,) or (phase grid, carry grid);
+    * chirp_table: (uint32 last (1,), int32 block) -> block (the
+      accumulator is never read, and not ported); chirp_lockin: (last,)
+      -> last;
+    * fold_kernel / g_chain: (sph, dph, pv) -> fold_state's, on the
+      mesh's first device."""
+    path = sf.path
+    if path == "channelizer_wavetable":
+        return _scalar(state[0])
+    if path == "pfb_scan":
+        halo = _carry_grid(state[-1], sf.mesh, sf.H)
+        if len(state) == 1:
+            return (halo,)
+        ph = tone_phase(state[0], "cpu").reshape(sf.T, -1)
+        return (sf.mesh.grid(lambda t, c, d: ph[t].to(d)), halo)
+    if path == "chirp_table":
+        return _scalar(state[1])
+    if path == "chirp_lockin":
+        return _scalar(state[0])
+    return fold_state(state, sf.mesh.first)
+
+
+def sharded_replay_state(state, sr, demod_state=None):
+    """A ShardedDeviceReplay state (gpu_sdr_tpu/parallel/sharded_replay.
+    py) -> the port's replay `sr`'s, by its sub-path: replay_kernel
+    ((idx, int32 phase, started), idx) -> replay_state's; channelizer_at
+    (started, idx) -> (idx, started); scan (demodulator state, idx) ->
+    (demod_state(it), idx), `demod_state` the converter of the sharded
+    demodulator's mode (e.g. lambda s: sharded_ddc_state(s, sd))."""
+    if sr.path == "replay_kernel":
+        return replay_state(state[0], sr.mesh.first)
+    if sr.path == "channelizer_at":
+        return replay_at_state(state)
+    st, idx = state
+    return demod_state(st), _scalar(idx)

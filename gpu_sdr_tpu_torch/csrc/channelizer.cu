@@ -6,7 +6,11 @@
 //                         NOISE chain (engine/fused._ChannelizerWavetableChain);
 //   channelizer_frames_at (_kernel_t_at): block `idx` of a resident
 //                         (total_frames, nfft) recording, read in place;
-//                         the device replay's channelizer_at sub-path.
+//                         the device replay's channelizer_at sub-path;
+//   channelizer_frames_at_halo (_kernel_t_at_h): block `idx` of one time
+//                         shard's span of the recording after a staged
+//                         halo; the sharded device replay's
+//                         channelizer_at sub-path.
 //
 // For frame t of the block (nfft = n1*n2, bin k = k1 + n1*k2):
 //   pre[t, s]     = sum_{i<avg} W[i, s] * ext[t + i, s]   (ext = spare ++ x)
@@ -15,7 +19,7 @@
 // with F1[a, k1] = exp(-2 pi i a k1 / n1) and the twiddle folded into
 // G[k1, b, k2] = exp(-2 pi i b k1 / nfft) * exp(-2 pi i b k2 / n2).
 // Output is (T, nfft) in natural bin order.  The extended block (avg-1
-// halo rows, then the block's T frames) is read in place from one of two
+// halo rows, then the block's T frames) is read in place from one of three
 // sources, a template parameter of the kernel so that each mode's
 // addressing costs what it needs in the pre-sum's inner loop:
 //   Streamed: a streamed block after its carried spare; in const-frame
@@ -26,7 +30,13 @@
 //             frames before them, wrapped at the loop seam and zero on
 //             the stream's first block (`valid` 0), as rows.cuh says,
 //             addressed as cheaply as Streamed (no 64-bit row products,
-//             no modulo in the inner loop).
+//             no modulo in the inner loop);
+//   Staged:   one time shard's frames of the block, in place in its span,
+//             after avg-1 halo frames staged at upload (they lie on the
+//             previous shard, or in the previous block), zero on the
+//             stream's first block (rows.cuh (c)).  Bound as #4: 48.5 MB
+//             of HBM per 3000-frame shard block against ~3.6 GFLOP of
+//             FFMA, so the FP32 pipes set the time.
 //
 // Grid: (frame tile of FT = 32 frames, k1).  A block
 //   1. copies G_k1 (n2*n2 complex, 125 KB at n2 = 125) into shared memory
@@ -93,6 +103,23 @@ struct Recorded {
         const float2* p = r < split ? wrap : body;
         return r >= lead || valid ? p[(r - lead) * nfft + s]
                                   : make_float2(0.f, 0.f);
+    }
+};
+
+// Row r of the extended frames of block `blk` of one time shard's span
+// (rows.cuh (c)): the halo rows (r < lead) from the staged array's row
+// blk, zero on the stream's first block (`valid` 0); the body rows read
+// in place from the shard's span, at an int offset from the block's
+// first frame.  A pointer select and a predicated load, as in Recorded.
+struct Staged {
+    const float2* body;   // shard span row blk*T
+    const float2* halo;   // staged (nblk, lead, nfft) row blk
+    int T, lead, nfft, valid;
+
+    __device__ __forceinline__ float2 operator()(int r, int s) const {
+        if (r < lead)
+            return valid ? halo[r * nfft + s] : make_float2(0.f, 0.f);
+        return body[(r - lead) * nfft + s];
     }
 };
 
@@ -249,5 +276,24 @@ extern "C" int sdr_channelizer_at(const void* rec, const void* w,
     const Recorded src{x + base * nfft, x + (base + total_frames) * nfft, T,
                        lead, nfft, base < lead ? (int)(lead - base) : 0,
                        valid};
+    return launch(src, w, F1, G, out, n1, n2, avg, stream);
+}
+
+// Block `blk` (frames [blk*T, (blk+1)*T)) of one time shard's span of
+// span_frames frames, its avg-1 halo frames the staged (nblk, avg-1,
+// nfft) array's row blk.
+extern "C" int sdr_channelizer_at_halo(const void* span, const void* staged,
+                                       const void* w, const void* F1,
+                                       const void* G, void* out,
+                                       long long span_frames, long long blk,
+                                       int T, int n1, int n2, int avg,
+                                       int valid, void* stream) {
+    const int nfft = n1 * n2, lead = avg - 1;
+    if (blk < 0 || (blk + 1) * T > span_frames ||
+        (long long)(T + lead) * nfft >= (1LL << 31))   // int row offsets
+        return (int)cudaErrorInvalidValue;
+    const Staged src{(const float2*)span + blk * T * nfft,
+                     (const float2*)staged + blk * lead * nfft, T, lead,
+                     nfft, valid};
     return launch(src, w, F1, G, out, n1, n2, avg, stream);
 }

@@ -1,17 +1,20 @@
 // Multi-tone direct down-conversion + decimating polyphase FIR (DIRECT
 // mode), one pass, for Hopper (sm_90a).
 //
-// Replaces three TPU kernels that compute one function and differ only
+// Replaces four TPU kernels that compute one function and differ only
 // in where their input rows come from and in how they fill the MXU:
 //   gpu_sdr_tpu/ops/pallas_ddc.py:    _pallas_ddc (_kernel), via ddc_fused
 //   gpu_sdr_tpu/ops/pallas_replay.py: ReplayDDC.multi_step (_kernel)
 //   gpu_sdr_tpu/ops/pallas_replay.py: ReplayDDCT.multi_step (_kernel_t)
+//   gpu_sdr_tpu/ops/pallas_replay.py: ShardedReplayDDC.invoke_local
+//                                     (_kernel_h), via sdr_ddc_staged
 //
 //   y[n, c] = rot_c * ramp[n, c] * sum_{j<f} sum_{m<M} E[n + j, m] * hmod[j*M + m, c]
 //
 // E is the block's extended (nb + f - 1, M) row view: f - 1 history
-// rows, then the block's nb rows, from a streamed block (a) or read in
-// place from a resident recording (b) (rows.cuh).
+// rows, then the block's nb rows, from a streamed block (a), read in
+// place from a resident recording (b), or from one time shard's span of
+// it after a staged history (c) (rows.cuh).
 // rot_c = exp(-2 pi i phase_c / W) is formed here from the exact integer
 // phase, in float32 as the JAX package forms it (ops/ddc.py:141-143),
 // with the precise sincosf.
@@ -171,18 +174,13 @@ int smem_bytes(int lead, int row_mode) {
                     : (kTileC + lead) * (kChunkC + 1) * (int)sizeof(float2);
 }
 
-}  // namespace
-
-extern "C" int sdr_ddc(const void* x, const void* hist, const void* hmod,
-                       const void* ramp, const void* phase, void* out,
-                       long long x_rows, long long base, int nb, int M,
-                       int f, int C, int valid, float two_pi_w,
-                       int row_mode, void* stream) {
-    if (nb <= 0 || M <= 0 || f <= 0 || C <= 0 ||
+int launch(const Rows& in, const void* hmod, const void* ramp,
+           const void* phase, void* out, int C, float two_pi_w,
+           int row_mode, void* stream) {
+    const int nb = in.nb, f = in.lead + 1;
+    if (nb <= 0 || in.M <= 0 || f <= 0 || C <= 0 ||
         (row_mode && C > kMaxRowChannels))
         return (int)cudaErrorInvalidValue;
-    const Rows in{(const float2*)x, (const float2*)hist, x_rows, base, nb,
-                  f - 1, M, valid};
     // an f too deep for shared memory fails here, cudaErrorInvalidValue
     const int smem = smem_bytes(f - 1, row_mode);
     if (smem > 48 * 1024) {
@@ -209,4 +207,38 @@ extern "C" int sdr_ddc(const void* x, const void* hist, const void* hmod,
             (const long long*)phase, (float2*)out, f, C, two_pi_w);
     }
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// (a) a streamed block after its history (`hist` of (f-1)*M samples), or
+// (b) block rows [base, base + nb) of an x_rows-row recording (`hist`
+// null).
+extern "C" int sdr_ddc(const void* x, const void* hist, const void* hmod,
+                       const void* ramp, const void* phase, void* out,
+                       long long x_rows, long long base, int nb, int M,
+                       int f, int C, int valid, float two_pi_w,
+                       int row_mode, void* stream) {
+    const Rows in{(const float2*)x, (const float2*)hist, x_rows, base, nb,
+                  f - 1, M, valid};
+    return launch(in, hmod, ramp, phase, out, C, two_pi_w, row_mode, stream);
+}
+
+// (c) block `blk` of one time shard's span: rows [blk*nb, (blk+1)*nb) of
+// the shard's x_rows rows, its f-1 history rows the staged (nblk, f-1, M)
+// array's row blk, zero when `valid` is 0.  Replaces the TPU kernel
+// gpu_sdr_tpu/ops/pallas_replay.py: ShardedReplayDDC.invoke_local
+// (_kernel_h), the sharded device replay's replay_kernel sub-path.
+extern "C" int sdr_ddc_staged(const void* x, const void* staged,
+                              const void* hmod, const void* ramp,
+                              const void* phase, void* out,
+                              long long x_rows, long long blk, int nb,
+                              int M, int f, int C, int valid,
+                              float two_pi_w, int row_mode, void* stream) {
+    if (blk < 0 || (blk + 1) * nb > x_rows || f < 2)
+        return (int)cudaErrorInvalidValue;
+    const float2* hist = (const float2*)staged + blk * (f - 1) * M;
+    const Rows in{(const float2*)x, hist, x_rows, blk * nb, nb, f - 1, M,
+                  valid};
+    return launch(in, hmod, ramp, phase, out, C, two_pi_w, row_mode, stream);
 }

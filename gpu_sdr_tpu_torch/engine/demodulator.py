@@ -8,14 +8,17 @@ the reference's interleaved layout, cpp/USRP_demodulator.cpp:422-433).
 
 Ported: TONES (channelizer + tone select), NOISE (full spectrum),
 DIRECT (fused multi-tone DDC + decimating FIR) and CHIRP (integer-phase
-chirp mix-down + lock-in).
+chirp mix-down + lock-in); each also under a mesh (``make_demodulator(p,
+mesh=...)``: the sharded steps of parallel/, whose output is a
+parallel.mesh.Sharded block the pipeline's fetch gathers).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Tuple
+import math
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -46,6 +49,8 @@ class Demodulator:
     step: Callable[[Any, torch.Tensor], Tuple[Any, torch.Tensor]]
     wave_type: WaveType
     device: torch.device
+    mesh: Optional[Any] = None      # parallel.mesh.Mesh of a sharded step
+    sharded: Optional[Any] = None   # its ShardedDDC / ShardedPFB / ...
 
 
 def direct_config(p: AntennaParams) -> ddc_ops.DirectDDCConfig:
@@ -179,16 +184,120 @@ def _chirp_table_step(cfg, profile, plan: BlockPlan, ppt: int,
                        step=step, wave_type=WaveType.CHIRP, device=device)
 
 
-def make_demodulator(p: AntennaParams, device) -> Demodulator:
+def _mesh_plan(plan: BlockPlan, mesh) -> BlockPlan:
+    """Round the block length down to a multiple of (time shards *
+    stride), so time segments split evenly."""
+    q = plan.stride * mesh.T
+    block = max(q, (plan.block_len // q) * q)
+    n_blocks = max(1, math.ceil(plan.total_samples / block))
+    return BlockPlan(block_len=block, stride=plan.stride,
+                     out_rows=block // plan.stride, n_blocks=n_blocks,
+                     total_samples=n_blocks * block)
+
+
+def _build_direct_sharded(p: AntennaParams, plan: BlockPlan,
+                          mesh) -> Demodulator:
+    """DIRECT over a (time, channels) mesh: channel-sharded modulated
+    taps, time-sharded blocks with the halo ring (parallel/sharded.py).
+    A tone list the channel axis does not split evenly is padded with
+    dummy DC tones, dropped from the output."""
+    from ..parallel.sharded import ShardedDDC
+    plan = _mesh_plan(plan, mesh)
+    freqs = tuple(int(f) for f in p.freq)
+    Cg = len(freqs)
+    pad = (-Cg) % mesh.Kc
+    cfg = ddc_ops.DirectDDCConfig(
+        rate=int(p.rate), decim=int(p.decim), pf_average=int(p.pf_average),
+        freqs=freqs + (0,) * pad, phases=(0,) * (Cg + pad))
+    sd = ShardedDDC(cfg, mesh, plan.block_len)
+
+    def step(state, x):
+        state, y = sd.step(state, x)
+        return state, (y.columns(Cg) if pad else y)
+
+    return Demodulator(plan=plan, n_channels=Cg, init_state=sd.init_state,
+                       step=step, wave_type=WaveType.DIRECT,
+                       device=mesh.first, mesh=mesh, sharded=sd)
+
+
+def _build_pfb_sharded(p: AntennaParams, plan: BlockPlan,
+                       mesh) -> Demodulator:
+    """TONES / NOISE over a (time, channels) mesh (parallel/sharded_pfb):
+    TONES selects owner-locally and joins the channel shards with one
+    psum, then averages frames (selection commutes with averaging, both
+    linear); NOISE averages each shard's bins.  The plan's stride is
+    nfft*decim, so each time shard holds whole decimation groups."""
+    from ..parallel.sharded_pfb import ShardedPFB
+    plan = _mesh_plan(plan, mesh)
+    cfg = pfb_config(p)
+    full_spectrum = cfg.bins is None
+    sp = ShardedPFB(cfg, mesh, plan.block_len, bins=cfg.bins)
+    decim = int(p.decim)
+
+    def step(state, x):
+        state, y = sp.step(state, x)
+        if decim > 0:
+            y = y.map(lambda f: pfb_ops.average_frames(f, decim))
+        return state, y
+
+    return Demodulator(
+        plan=plan, n_channels=cfg.nfft if full_spectrum else len(cfg.bins),
+        init_state=sp.init_state, step=step,
+        wave_type=WaveType.NOISE if full_spectrum else WaveType.TONES,
+        device=mesh.first, mesh=mesh, sharded=sp)
+
+
+def _build_chirp_sharded(p: AntennaParams, plan: BlockPlan,
+                         mesh) -> Demodulator:
+    """CHIRP lock-in over a time mesh (parallel/sharded_chirp): no halo,
+    the mix-down is elementwise and the lock-in segments shard-local."""
+    from ..parallel.sharded_chirp import ShardedChirpLockin
+    if len(p.wave_type) > 1:
+        raise NotImplementedError(
+            "Multiple chirp demodulation not implemented (matches "
+            "reference)")
+    if p.decim <= 0:
+        raise NotImplementedError(
+            "sharded CHIRP requires lock-in decimation (decim >= 1)")
+    cfg = chirp_ops.chirp_config(p)
+    plan = _mesh_plan(plan, mesh)
+    sc = ShardedChirpLockin(cfg, mesh, plan.block_len,
+                            cfg.length * int(p.decim))
+    return Demodulator(plan=plan, n_channels=1, init_state=sc.init_state,
+                       step=sc.step, wave_type=WaveType.CHIRP,
+                       device=mesh.first, mesh=mesh, sharded=sc)
+
+
+def _build_sharded(p: AntennaParams, plan: BlockPlan, w: WaveType,
+                   mesh) -> Demodulator:
+    if w == WaveType.DIRECT:
+        return _build_direct_sharded(p, plan, mesh)
+    if w in (WaveType.TONES, WaveType.NOISE):
+        return _build_pfb_sharded(p, plan, mesh)
+    if w == WaveType.CHIRP:
+        return _build_chirp_sharded(p, plan, mesh)
+    raise NotImplementedError(
+        f"sharded demodulation for {w} not implemented")
+
+
+def make_demodulator(p: AntennaParams, device=None,
+                     mesh=None) -> Demodulator:
     """Build the streaming demodulator for one RX antenna on `device`
     (the factory switch of the reference ctor,
-    cpp/USRP_demodulator.cpp:56-326)."""
+    cpp/USRP_demodulator.cpp:56-326).  With `mesh` (parallel.mesh.Mesh)
+    every mode but NODSP runs sharded over its devices: ``step`` takes a
+    block on the mesh's first device (or a per-shard grid) and returns a
+    parallel.mesh.Sharded result, and `device` is the mesh's first."""
     w = p.wave_type[0] if p.wave_type else WaveType.NODSP
     if any(x != w for x in p.wave_type):
         raise NotImplementedError(
             "mixed wave types on one antenna are not ported yet (ROADMAP "
             "Queue 1 item 3)")
     plan = plan_blocks(p)
+    if mesh is not None:
+        return _build_sharded(p, plan, w, mesh)
+    if device is None:
+        raise ValueError("make_demodulator: name a device or a mesh")
     if w in (WaveType.TONES, WaveType.NOISE):
         return _build_pfb(p, plan, device)
     if w == WaveType.DIRECT:

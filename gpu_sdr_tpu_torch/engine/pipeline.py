@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import Sharded
 from .demodulator import Demodulator
 from .sinks import PacketMeta, Sink
 from .sources import Source
@@ -42,14 +43,18 @@ class _HostFetch:
     stream: ``start(y)`` queues the copy of `y` into pinned memory behind
     the work that produced it; ``result()`` waits for that copy alone and
     returns the numpy array (the sinks may keep it).  On the CPU the
-    tensor is handed over as it is."""
+    tensor is handed over as it is.  A mesh's sharded result
+    (parallel/mesh.Sharded) is gathered onto `device` first: the global
+    view gpu_sdr_tpu/parallel/fused_sharded._to_np_global took."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.stream = (torch.cuda.Stream(device=self.device)
                        if self.device.type == "cuda" else None)
 
-    def start(self, y: torch.Tensor):
+    def start(self, y):
+        if isinstance(y, Sharded):      # a mesh's sharded result
+            y = y.gather(self.device)
         if self.stream is None:
             return y, None
         host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)

@@ -28,7 +28,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("presum.cu", "channelizer.cu", "ddc.cu", "fold.cu",
-           "lockin.cu")
+           "lockin.cu", "chain.cu")
 HEADERS = ("rows.cuh",)               # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -115,13 +115,21 @@ def _bind(lib) -> None:
     lib.sdr_channelizer_at.argtypes = [vp, vp, vp, vp, vp, ll, ll,
                                        ci, ci, ci, ci, ci, vp]
     lib.sdr_channelizer_at.restype = ci
+    lib.sdr_channelizer_at_halo.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll,
+                                            ci, ci, ci, ci, ci, vp]
+    lib.sdr_channelizer_at_halo.restype = ci
     lib.sdr_channelizer_frame_tile.argtypes = []
     lib.sdr_channelizer_frame_tile.restype = ci
     lib.sdr_ddc.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ci, ci, ci, ci,
                             ci, fl, ci, vp]
     lib.sdr_ddc.restype = ci
+    lib.sdr_ddc_staged.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ci, ci,
+                                   ci, ci, ci, fl, ci, vp]
+    lib.sdr_ddc_staged.restype = ci
     lib.sdr_fold.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.sdr_fold.restype = ci
+    lib.sdr_chain.argtypes = [vp] * 8 + [ci, ci, ci, ci, vp]
+    lib.sdr_chain.restype = ci
     lib.sdr_fold_tile.argtypes = []
     lib.sdr_fold_tile.restype = ci
     lib.sdr_lockin.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, vp]
@@ -142,6 +150,19 @@ def load():
             _bind(lib)
             _lib = lib
         return _lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the C entry point `name` with `args` and the current stream
+    of `device` (a CUDA torch.device), with `device` made the current
+    device for the call: the runtime launches onto the current device,
+    and a stream of another card would be refused.  Raises on a non-zero
+    return code."""
+    import torch
+    with torch.cuda.device(device):
+        rc = getattr(load(), name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(rc, name)
 
 
 def check(rc: int, name: str) -> None:

@@ -16,6 +16,13 @@ front end, in the JAX package's order:
   channel model, or any other source (a looped recording that is not
   whole blocks among them), fed block by block to the demodulator.
 
+With ``mesh`` (parallel.mesh.Mesh, one process driving every shard) the
+mesh branches replace the first three, in the JAX package's order:
+``sharded_fused`` (parallel/fused_sharded.py), ``sharded_replay``
+(parallel/sharded_replay.ShardedDeviceReplay), ``sharded_segmented_
+replay`` (ShardedSegmentedReplay), else ``host_pipeline`` with the
+sharded demodulator.  The mesh names the devices; `device` is not read.
+
 Every other branch raises NotImplementedError naming the ROADMAP item
 that will port it; none falls back to another path.
 """
@@ -141,21 +148,20 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
     model the ideal loopback runs fused on the device.  A `source` feeds
     RX instead: a recording of whole blocks (or one that is not looped)
     with no channel model is replayed from device memory.  With neither,
-    RX consumes white noise.  Data goes to `extra_sinks`."""
+    RX consumes white noise.  With `mesh` (parallel.make_mesh) the front
+    end runs sharded over the mesh's devices, which replace `device`.
+    Data goes to `extra_sinks`."""
     if filename is not None or trigger is not None:
         raise NotImplementedError(
             "HDF5 output is not ported yet (ROADMAP Queue 1 item 3: "
             "client/files.H5Sink imports the JAX engine)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh measurements are not ported yet (ROADMAP Queue 1 item 9)")
-    dev = resolve_device(device)
+    dev = mesh.first if mesh is not None else resolve_device(device)
     params.validate()
     rx_list = list(params.active_antennas(AntMode.RX))
     if len(rx_list) > 1:
         raise NotImplementedError(
             "more than one RX front end (dual / sequential) is not ported "
-            "yet (ROADMAP Queue 1 item 7)")
+            "yet, with or without a mesh (ROADMAP Queue 1 item 7)")
     LAST_DISPATCH.clear()
     for rx_name, rx in rx_list:
         if _is_mixed(rx):
@@ -164,14 +170,18 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
                 "(ROADMAP Queue 1 item 3)")
         tx_name = _pair_tx(params, rx_name)
         tx = params.antenna(tx_name) if tx_name else None
-        if source is None and channel is None and tx is not None and \
-                can_fuse(tx, rx) and rx.delay <= tx.delay:
+        sinks = list(extra_sinks)
+        run_kw = dict(usrp_number=params.usrp_number, front_end=rx_name[0])
+        if mesh is None and source is None and channel is None and \
+                tx is not None and can_fuse(tx, rx) and rx.delay <= tx.delay:
             fused = FusedLoopback(tx, rx, device=dev)
             _record_dispatch(rx_name, "fused_loopback", fused.path)
-            fused.run(list(extra_sinks), usrp_number=params.usrp_number,
-                      front_end=rx_name[0])
+            fused.run(sinks, **run_kw)
             continue
-        if source is not None and channel is None and \
+        if mesh is not None and _run_on_mesh(rx_name, tx, rx, mesh, source,
+                                             channel, sinks, run_kw):
+            continue
+        if mesh is None and source is not None and channel is None and \
                 _replays_whole_blocks(source, rx):
             loop = bool(getattr(source, "loop", False))
             if can_device_replay(source):
@@ -181,10 +191,9 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
                 replay = SegmentedDeviceReplay(rx, source.data, loop=loop,
                                                device=dev)
                 _record_dispatch(rx_name, "segmented_replay")
-            replay.run(list(extra_sinks), usrp_number=params.usrp_number,
-                       front_end=rx_name[0])
+            replay.run(sinks, **run_kw)
             continue
-        demod = make_demodulator(rx, dev)
+        demod = make_demodulator(rx, dev, mesh=mesh)
         if source is not None:
             src = source
         elif tx is not None:
@@ -196,6 +205,48 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
         else:
             src = WhiteNoiseSource()
         _record_dispatch(rx_name, "host_pipeline")
-        run_pipeline(demod, src, list(extra_sinks),
-                     usrp_number=params.usrp_number, front_end=rx_name[0])
+        run_pipeline(demod, src, sinks, **run_kw)
     return None
+
+
+def _run_on_mesh(rx_name, tx, rx, mesh, source, channel, sinks,
+                 run_kw) -> bool:
+    """The mesh branches, in the JAX package's order: the sharded fused
+    chain (an ideal loopback, no channel model), then a recording
+    replayed from the mesh's devices (within the device budget:
+    ShardedDeviceReplay; over it: ShardedSegmentedReplay), when looped
+    in whole blocks of the sharded plan.  Whether a branch ran; if none
+    did, the caller takes the host pipeline with the sharded
+    demodulator."""
+    from .engine.demodulator import _mesh_plan
+    from .parallel.fused_sharded import (can_fuse_sharded,
+                                         make_sharded_fused,
+                                         plan_sharded_block)
+    from .parallel.sharded_replay import (ShardedDeviceReplay,
+                                          ShardedSegmentedReplay)
+    if source is None and channel is None:
+        if tx is None or not can_fuse_sharded(tx, rx, mesh) or \
+                rx.delay > tx.delay:
+            return False
+        L, nb = plan_sharded_block(rx, mesh)
+        sf = make_sharded_fused(tx, rx, mesh, block_len=L)
+        if sf is None:                 # untileable: the host pipeline
+            return False
+        _record_dispatch(rx_name, "sharded_fused", sf.path)
+        sf.run(sinks, n_blocks=nb, **run_kw)
+        return True
+    if source is None or channel is not None or not (
+            can_device_replay(source) or can_segmented_replay(source)):
+        return False
+    loop = bool(getattr(source, "loop", False))
+    if loop and len(source.data) % _mesh_plan(plan_blocks(rx),
+                                              mesh).block_len:
+        return False
+    if can_device_replay(source):
+        replay = ShardedDeviceReplay(rx, source.data, mesh, loop=loop)
+        _record_dispatch(rx_name, "sharded_replay", replay.path)
+    else:
+        replay = ShardedSegmentedReplay(rx, source.data, mesh, loop=loop)
+        _record_dispatch(rx_name, "sharded_segmented_replay")
+    replay.run(sinks, **run_kw)
+    return True

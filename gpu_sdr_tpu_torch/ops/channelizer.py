@@ -1,14 +1,19 @@
 """Fused PFB channelizer: the CUDA kernel (csrc/channelizer.cu) in its
-streamed and recording modes, and their plain PyTorch versions.
+streamed, recording and staged-halo modes, and their plain PyTorch
+versions.
 
-Port of gpu_sdr_tpu/ops/pallas_channelizer.py (channelizer_frames_t and
-channelizer_frames_at): the windowed pre-sum over avg-1 halo frames,
+Port of gpu_sdr_tpu/ops/pallas_channelizer.py (channelizer_frames_t,
+channelizer_frames_at and channelizer_frames_at_halo): the windowed
+pre-sum over avg-1 halo frames,
 then a two-stage n1 x n2 DFT with the twiddle folded into per-k1
 stage-2 constants.  ``channelizer`` takes a streamed block and its
 carried spare; ``channelizer_at`` reads block `idx` of a resident
 (total_frames, nfft) recording in place, its halo the avg-1 frames
 before it, wrapped at the loop seam and zero on the stream's first
-block (``valid`` 0).  The output is (T, nfft) in natural bin order, so
+block (``valid`` 0); ``channelizer_at_halo`` reads block `idx` of one
+time shard's span of a recording, its halo frames staged per block at
+upload (the sharded replay, parallel/sharded_replay.py).  The output is
+(T, nfft) in natural bin order, so
 tone selection is ops/pfb.select_tones (a plain ``index_select``) where
 the JAX package needed select_tones_t; the TPU layout artifacts
 (transposed (n1, T, n2) blocks and the recording transposed at upload,
@@ -164,12 +169,10 @@ def channelizer(window2d: torch.Tensor, F1: torch.Tensor, G: torch.Tensor,
     out = torch.empty((T, nfft), dtype=torch.complex64, device=x.device)
     if T == 0:
         return out
-    rc = _library().sdr_channelizer(
-        x.data_ptr(), spare.data_ptr(), window2d.data_ptr(), F1.data_ptr(),
-        G.data_ptr(), out.data_ptr(), T, n1, n2, avg,
-        int(nframes is not None),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "sdr_channelizer")
+    _library()
+    build.launch("sdr_channelizer", x.device, x.data_ptr(), spare.data_ptr(),
+                 window2d.data_ptr(), F1.data_ptr(), G.data_ptr(),
+                 out.data_ptr(), T, n1, n2, avg, int(nframes is not None))
     channelizer.launches += 1
     return out
 
@@ -211,16 +214,82 @@ def channelizer_at(window2d: torch.Tensor, F1: torch.Tensor, G: torch.Tensor,
     X, window2d, F1, G = (t.contiguous() for t in (X, window2d, F1, G))
     out = torch.empty((nframes, nfft), dtype=torch.complex64,
                       device=X.device)
-    rc = _library().sdr_channelizer_at(
-        X.data_ptr(), window2d.data_ptr(), F1.data_ptr(), G.data_ptr(),
-        out.data_ptr(), X.shape[0], idx * nframes, nframes, n1, n2, avg,
-        int(bool(valid)), torch.cuda.current_stream(X.device).cuda_stream)
-    build.check(rc, "sdr_channelizer_at")
+    _library()
+    build.launch("sdr_channelizer_at", X.device, X.data_ptr(),
+                 window2d.data_ptr(), F1.data_ptr(), G.data_ptr(),
+                 out.data_ptr(), X.shape[0], idx * nframes, nframes, n1, n2,
+                 avg, int(bool(valid)))
     channelizer_at.launches += 1
     return out
 
 
 channelizer_at.launches = 0
+
+
+def can_channelizer_at_halo(cfg: PFBConfig, nframes: int,
+                            total_frames: int) -> bool:
+    """Whether channelizer_at_halo takes a shard's geometry: the
+    channelizer's own gate on blocks of `nframes` frames, whole blocks
+    in the shard's `total_frames`.  The JAX gate's 8-frame halo units,
+    its bt tiling and 2 <= n1 <= 16 have no counterpart."""
+    return (nframes > 0 and total_frames % nframes == 0 and
+            can_fuse_channelizer(cfg, nframes * cfg.nfft))
+
+
+def channelizer_at_halo_plain(window2d: torch.Tensor, F1: torch.Tensor,
+                              G: torch.Tensor, X: torch.Tensor,
+                              Hs: torch.Tensor, idx: int, valid: int,
+                              nframes: int) -> torch.Tensor:
+    """Plain PyTorch channelizer of block `idx` of one time shard's span
+    X (nblk*nframes, nfft) after its staged halo Hs[idx] (avg-1, nfft),
+    zero unless `valid`: (nframes, nfft) complex64."""
+    halo = Hs[idx] if valid else torch.zeros_like(Hs[idx])
+    return channelizer_plain(window2d, F1, G, halo,
+                             X[idx * nframes:(idx + 1) * nframes])
+
+
+def channelizer_at_halo(window2d: torch.Tensor, F1: torch.Tensor,
+                        G: torch.Tensor, X: torch.Tensor, Hs: torch.Tensor,
+                        idx: int, valid: int, nframes: int) -> torch.Tensor:
+    """The channelizer of block `idx` of one time shard's span of a
+    resident recording, X (nblk*nframes, nfft), its avg-1 halo frames
+    the staged Hs (nblk, avg-1, nfft)'s row idx, zero unless `valid`
+    (kernel #5, gpu_sdr_tpu/ops/pallas_channelizer.
+    channelizer_frames_at_halo): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  Counts its kernel launches in
+    ``channelizer_at_halo.launches``."""
+    avg, nfft = window2d.shape
+    if nframes <= 0 or idx < 0 or X.ndim != 2 or \
+            (idx + 1) * nframes > X.shape[0] or \
+            tuple(Hs.shape) != (X.shape[0] // nframes, avg - 1, nfft):
+        raise ValueError(f"channelizer_at_halo: block {idx} of {nframes} "
+                         f"frames, span {tuple(X.shape)}, staged halo "
+                         f"{tuple(Hs.shape)}")
+    _check(window2d, F1, G, Hs[0], X, None)
+    if X.device.type == "cpu":
+        return channelizer_at_halo_plain(window2d, F1, G, X, Hs, idx, valid,
+                                         nframes)
+    if X.device.type != "cuda":
+        raise ValueError(f"channelizer_at_halo: unsupported device "
+                         f"{X.device}")
+    n1, n2 = G.shape[0], G.shape[1]
+    if smem_bytes(n2) > SMEM_LIMIT:
+        raise ValueError(f"channelizer_at_halo: split ({n1}, {n2}) does not "
+                         "fit one block's shared memory")
+    X, Hs, window2d, F1, G = (t.contiguous() for t in
+                              (X, Hs, window2d, F1, G))
+    out = torch.empty((nframes, nfft), dtype=torch.complex64,
+                      device=X.device)
+    _library()
+    build.launch("sdr_channelizer_at_halo", X.device, X.data_ptr(),
+                 Hs.data_ptr(), window2d.data_ptr(), F1.data_ptr(),
+                 G.data_ptr(), out.data_ptr(), X.shape[0], idx, nframes, n1,
+                 n2, avg, int(bool(valid)))
+    channelizer_at_halo.launches += 1
+    return out
+
+
+channelizer_at_halo.launches = 0
 
 
 def channelizer_frames(consts, spare: torch.Tensor, x: torch.Tensor,

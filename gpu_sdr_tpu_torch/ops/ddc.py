@@ -188,13 +188,11 @@ def launch_ddc(x: torch.Tensor, hist, hmod: torch.Tensor,
     x, hmod, ramp, phase = (t.contiguous() for t in (x, hmod, ramp, phase))
     hist = None if hist is None else hist.contiguous()
     out = torch.empty((nb, C), dtype=torch.complex64, device=x.device)
-    rc = build.load().sdr_ddc(
-        x.data_ptr(), None if hist is None else hist.data_ptr(),
-        hmod.data_ptr(), ramp.data_ptr(), phase.data_ptr(), out.data_ptr(),
-        x.numel() // M, base, nb, M, f, C, int(bool(valid)),
-        float(np.float32(2.0 * np.pi / W)), int(row_mode),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "sdr_ddc")
+    build.launch("sdr_ddc", x.device, x.data_ptr(),
+                 None if hist is None else hist.data_ptr(), hmod.data_ptr(),
+                 ramp.data_ptr(), phase.data_ptr(), out.data_ptr(),
+                 x.numel() // M, base, nb, M, f, C, int(bool(valid)),
+                 float(np.float32(2.0 * np.pi / W)), int(row_mode))
     return out
 
 

@@ -31,7 +31,7 @@ kernel masks its last tile).
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,11 +106,10 @@ def fold(P1: torch.Tensor, G2: torch.Tensor, crot: torch.Tensor,
                                  for t in (P1, G2, crot, qrot, ramp1))
     Ct, Cp = G2.shape
     out = torch.empty((nb, Cp), dtype=torch.complex64, device=P1.device)
-    rc = _library().sdr_fold(
-        P1.data_ptr(), G2.data_ptr(), crot.data_ptr(), qrot.data_ptr(),
-        ramp1.data_ptr(), out.data_ptr(), nb, Ct, Cp, crot.shape[0],
-        torch.cuda.current_stream(P1.device).cuda_stream)
-    build.check(rc, "sdr_fold")
+    _library()
+    build.launch("sdr_fold", P1.device, P1.data_ptr(), G2.data_ptr(),
+                 crot.data_ptr(), qrot.data_ptr(), ramp1.data_ptr(),
+                 out.data_ptr(), nb, Ct, Cp, crot.shape[0])
     fold.launches += 1
     return out
 
@@ -129,13 +128,20 @@ class TonesDirectFold:
 
     def __init__(self, rate: int, tx_freqs: Tuple[int, ...],
                  tx_ampls: Tuple[float, ...], cfg: DirectDDCConfig,
-                 block_len: int, device):
+                 block_len: int, device,
+                 rows: Optional[Tuple[int, int]] = None):
+        """`rows` = (row0, nb): only the block's rows [row0, row0 + nb),
+        one time shard's (parallel/fused_sharded.ShardedFusedDirect);
+        P and the ramp are exponentials in the row, so the shard's tables
+        are the block's rows from row0 and the tile factors are the
+        same.  The startup correction belongs to the rows from 0."""
         W, L, M, f = int(rate), int(block_len), cfg.M, cfg.f
         if cfg.decim <= 0 or L % M or not tx_freqs:
             raise ValueError("the fold needs a decimating receiver, whole "
                              "rows per block and at least one TX tone")
         self.rate, self.cfg, self.device = W, cfg, device
-        nb = L // M
+        row0, nb = rows if rows is not None else (0, L // M)
+        self.row0 = row0
         Ct, Cp = len(tx_freqs), cfg.n_channels
         self.nb, self.Ct, self.Cp = nb, Ct, Cp
         fr = np.asarray(tx_freqs, dtype=np.int64) % W
@@ -154,11 +160,11 @@ class TonesDirectFold:
             for r in range(f - 1)]) if f > 1 else np.zeros((0, Ct, Cp))
         R = FOLD_TILE
         n_tiles = -(-nb // R)
-        rows = np.arange(max(R, f - 1), dtype=np.int64)
+        rows = np.arange(row0, row0 + max(R, f - 1), dtype=np.int64)
         P = _expi((fr[None, :] * ((rows[:, None] * M) % W)) % W, W)
-        ramp = cfg.carrier_ramp_np(len(rows))
-        b = np.arange(n_tiles, dtype=np.int64)
         frx = np.asarray(cfg.freqs, dtype=np.int64) % W
+        ramp = _expi((frx[None, :] * ((rows[:, None] * M) % W)) % W, W, -1.0)
+        b = np.arange(n_tiles, dtype=np.int64)
         PB = _expi((fr[None, :] * ((b[:, None] * R * M) % W)) % W, W)
         RB = _expi((frx[None, :] * ((b[:, None] * R * M) % W)) % W, W, -1.0)
         self.P1 = from_np(P[:R], device)
@@ -179,8 +185,11 @@ class TonesDirectFold:
         """Per-tile rotation rows: crot = srot * PB[b] (synthesis) and
         qrot = drot * RB[b] (mix-down), (tiles, Ct) and (tiles, Cp)."""
         sph, dph, _ = state
-        srot = phase_rotation(sph, self.rate, 1.0)
-        drot = phase_rotation(dph, self.rate, -1.0)
+        return self.tile_rotations(phase_rotation(sph, self.rate, 1.0),
+                                   phase_rotation(dph, self.rate, -1.0))
+
+    def tile_rotations(self, srot: torch.Tensor, drot: torch.Tensor):
+        """(crot, qrot) from the block's rotations srot (Ct,), drot (Cp,)."""
         return self.PB * srot[None, :], self.RB * drot[None, :]
 
     def startup_correction(self, state, y: torch.Tensor) -> torch.Tensor:
@@ -189,7 +198,7 @@ class TonesDirectFold:
         its first f-1 rows, in place."""
         sph, dph, pv = state
         k = min(self.cfg.f - 1, y.shape[0])
-        if pv or k == 0:
+        if pv or k == 0 or self.row0:
             return y
         srot0 = phase_rotation(sph, self.rate, 1.0)
         drot0 = phase_rotation(dph, self.rate, -1.0)

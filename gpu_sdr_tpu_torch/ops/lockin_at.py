@@ -24,6 +24,7 @@ import torch
 from ..kernels import build
 from . import chirp as chirp_ops
 from .chirp import M32, ChirpConfig
+from .lockin import profile_sum
 
 
 def lockin_at_plain(cfg: ChirpConfig, profile: torch.Tensor, last: int,
@@ -37,7 +38,7 @@ def lockin_at_plain(cfg: ChirpConfig, profile: torch.Tensor, last: int,
     cr, ci, xr, xi = c.real, c.imag, x.real, x.imag
     zr = cr * xr + ci * xi
     zi = cr * xi - ci * xr
-    return torch.complex(zr @ profile, zi @ profile)
+    return torch.complex(profile_sum(zr, profile), profile_sum(zi, profile))
 
 
 def lockin_at(cfg: ChirpConfig, profile: torch.Tensor, last: int,
@@ -63,12 +64,10 @@ def lockin_at(cfg: ChirpConfig, profile: torch.Tensor, last: int,
         raise ValueError(f"lockin_at: unsupported device {X.device}")
     X, profile = X.contiguous(), profile.contiguous()
     out = torch.empty(nseg, dtype=torch.complex64, device=X.device)
-    rc = build.load().sdr_lockin_at(
-        X.data_ptr(), profile.data_ptr(), out.data_ptr(), idx * nseg, nseg,
-        ppt, cfg.period, cfg.length, cfg.chirpness & M32, cfg.f0 & M32,
-        int(last) % cfg.period, chirp_ops.PI_F32, chirp_ops.INV_2_31_5,
-        torch.cuda.current_stream(X.device).cuda_stream)
-    build.check(rc, "sdr_lockin_at")
+    build.launch("sdr_lockin_at", X.device, X.data_ptr(), profile.data_ptr(),
+                 out.data_ptr(), idx * nseg, nseg, ppt, cfg.period, cfg.length,
+                 cfg.chirpness & M32, cfg.f0 & M32, int(last) % cfg.period,
+                 chirp_ops.PI_F32, chirp_ops.INV_2_31_5)
     lockin_at.launches += 1
     return new_last, out
 

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..kernels import build
+from .lockin import profile_sum
 
 
 def _rows(t: torch.Tensor, blk: int, nseg: int) -> torch.Tensor:
@@ -41,7 +42,7 @@ def lockin_table_plain(profile: torch.Tensor, table: torch.Tensor,
     cr, ci, xr, xi = c.real, c.imag, s.real, s.imag
     zr = cr * xr + ci * xi
     zi = cr * xi - ci * xr
-    return torch.complex(zr @ profile, zi @ profile)
+    return torch.complex(profile_sum(zr, profile), profile_sum(zi, profile))
 
 
 def lockin_self_plain(profile: torch.Tensor, table: torch.Tensor, o: int,
@@ -52,7 +53,7 @@ def lockin_self_plain(profile: torch.Tensor, table: torch.Tensor, o: int,
     cr, ci = c.real, c.imag
     zr = cr * cr + ci * ci
     zi = cr * ci - ci * cr
-    return torch.complex(zr @ profile, zi @ profile)
+    return torch.complex(profile_sum(zr, profile), profile_sum(zi, profile))
 
 
 def _check(profile, table, x, o, i, nseg):
@@ -83,11 +84,9 @@ def _launch(profile, table, x: Optional[torch.Tensor], o, i, nseg):
         raise ValueError("lock-in kernel: operands must be contiguous")
     ppt = profile.shape[0]
     out = torch.empty(nseg, dtype=torch.complex64, device=profile.device)
-    rc = build.load().sdr_lockin(
-        table.data_ptr(), None if x is None else x.data_ptr(),
-        profile.data_ptr(), out.data_ptr(), o * nseg, i * nseg, nseg, ppt,
-        torch.cuda.current_stream(profile.device).cuda_stream)
-    build.check(rc, "sdr_lockin")
+    build.launch("sdr_lockin", profile.device, table.data_ptr(),
+                 None if x is None else x.data_ptr(), profile.data_ptr(),
+                 out.data_ptr(), o * nseg, i * nseg, nseg, ppt)
     return out
 
 

@@ -44,6 +44,34 @@ def recording_rows(X: torch.Tensor, idx: int, nbr: int, lead: int,
     return torch.cat([recording_halo(X, base, lead, valid), body])
 
 
+def shard_spans(X: torch.Tensor, nblk: int, T: int) -> list:
+    """A recording X (nblk*T*span, M) of rows in stream order, laid out
+    per time shard: shard t's span of every block, block after block,
+    (nblk*span, M) each, the JAX package's shard-major layout
+    (pallas_replay.ShardedReplayDDC, sharded_replay._try_channelizer_
+    replay)."""
+    M = X.shape[1]
+    g = X.reshape(nblk, T, -1, M)
+    return [g[:, t].reshape(-1, M) for t in range(T)]
+
+
+def staged_halos(X: torch.Tensor, nblk: int, T: int,
+                 lead: int) -> list:
+    """The `lead` rows before each time shard's span of each block, in
+    stream order, wrapped mod the recording (the loop seam), staged per
+    shard as (nblk, lead, M): the rows a shard's first output needs that
+    lie on the previous shard or in the previous block."""
+    rows, M = X.shape
+    span = rows // (nblk * T)
+    p = torch.arange(nblk * T, device=X.device).reshape(nblk, T) * span
+    out = []
+    for t in range(T):
+        idx = (p[:, t, None] - lead +
+               torch.arange(lead, device=X.device)[None, :]) % rows
+        out.append(X[idx.reshape(-1)].reshape(nblk, lead, M))
+    return out
+
+
 def presum_plain(window2d: torch.Tensor, spare: torch.Tensor,
                  X: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch pre-sum.  window2d (avg, nfft) float32; spare
@@ -84,12 +112,9 @@ def presum(window2d: torch.Tensor, spare: torch.Tensor,
     out = torch.empty_like(X)
     if X.shape[0] == 0:
         return out
-    lib = build.load()
-    rc = lib.sdr_presum(X.data_ptr(), spare.data_ptr(), window2d.data_ptr(),
-                        out.data_ptr(), X.shape[0], X.shape[1],
-                        window2d.shape[0],
-                        torch.cuda.current_stream(X.device).cuda_stream)
-    build.check(rc, "sdr_presum")
+    build.launch("sdr_presum", X.device, X.data_ptr(), spare.data_ptr(),
+                 window2d.data_ptr(), out.data_ptr(), X.shape[0], X.shape[1],
+                 window2d.shape[0])
     presum.launches += 1
     return out
 
@@ -129,11 +154,9 @@ def presum_at(window2d: torch.Tensor, X: torch.Tensor, idx: int, valid: int,
         raise ValueError(f"presum_at: unsupported device {X.device}")
     X, window2d = X.contiguous(), window2d.contiguous()
     out = torch.empty((frames, nfft), dtype=torch.complex64, device=X.device)
-    rc = build.load().sdr_presum_at(
-        X.data_ptr(), window2d.data_ptr(), out.data_ptr(), X.shape[0],
-        idx * frames, frames, nfft, avg, int(bool(valid)),
-        torch.cuda.current_stream(X.device).cuda_stream)
-    build.check(rc, "sdr_presum_at")
+    build.launch("sdr_presum_at", X.device, X.data_ptr(), window2d.data_ptr(),
+                 out.data_ptr(), X.shape[0], idx * frames, frames, nfft, avg,
+                 int(bool(valid)))
     presum_at.launches += 1
     return out
 

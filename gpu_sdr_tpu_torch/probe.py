@@ -151,9 +151,23 @@ def receiver_only(p):
     return p
 
 
+SHARDED_SHAPES = ((1, 1), (2, 1))    # meshes of one card: virtual shards
+SHARDED_CELLS = ("TONES fused", "DIRECT config 3 fused", "TONES replay",
+                 "DIRECT config 3 replay")
+
+
 def cells():
     """(name, params(n_blocks), host-fed, blocks per run, block length,
-    blocks of the looped recording a replay cell reads, else None)."""
+    blocks of the looped recording a replay cell reads, else None, mesh
+    shape or None): the single-device cells, then SHARDED_CELLS again
+    through run_measurement(mesh=...) on each of SHARDED_SHAPES."""
+    base = [c + (None,) for c in _cells()]
+    return tuple(base) + tuple(
+        (f"{c[0]} on {shape}",) + c[1:6] + (shape,)
+        for shape in SHARDED_SHAPES for c in base if c[0] in SHARDED_CELLS)
+
+
+def _cells():
     def config3(n):
         return direct_params(CONFIG3, 0.01, n)
     return (
@@ -175,10 +189,12 @@ def cells():
     )
 
 
-def run_once(dev, params, host_fed: bool, window=None, source=None):
+def run_once(dev, params, host_fed: bool, window=None, source=None,
+             mesh=None):
     """One run_measurement into a dropping sink, fed from `source` when
-    given: (dispatch, packets, set-up s, streaming s).  With `window`, a
-    profiler span of that name covers the sink's start to its end."""
+    given, on `mesh` when given: (dispatch, packets, set-up s, streaming
+    s).  With `window`, a profiler span of that name covers the sink's
+    start to its end."""
     import torch
     from . import measure
     from .engine.channel import IdealChannel
@@ -206,7 +222,7 @@ def run_once(dev, params, host_fed: bool, window=None, source=None):
     t0 = time.perf_counter()
     measure.run_measurement(params, extra_sinks=[sink], device=dev,
                             channel=IdealChannel() if host_fed else None,
-                            source=source)
+                            source=source, mesh=mesh)
     return (measure.last_dispatch(), sink.packets, stamps[0] - t0,
             stamps[1] - stamps[0])
 
@@ -257,9 +273,13 @@ def device_breakdown(trace_path: str, n_blocks: int):
     return busy / (hi - lo), top
 
 
-def probe_cell(dev, name, params, host_fed, n_blocks, block, rec_blocks):
+def probe_cell(dev, name, params, host_fed, n_blocks, block, rec_blocks,
+               shape=None):
     from torch.profiler import ProfilerActivity, profile
     from .engine.sources import ReplaySource
+    from .parallel import make_mesh
+    mesh = None if shape is None else make_mesh(
+        shape, devices=[dev] * int(np.prod(shape)))
     with tempfile.TemporaryDirectory() as tmp:
         path = None
         if rec_blocks:          # the loopback's TX signal, recorded
@@ -272,11 +292,12 @@ def probe_cell(dev, name, params, host_fed, n_blocks, block, rec_blocks):
 
         def source():
             return ReplaySource(path, loop=True) if path else None
-        run_once(dev, params(2), host_fed, source=source())   # warm-up
+        run_once(dev, params(2), host_fed, source=source(),
+                 mesh=mesh)                                    # warm-up
         setup, msps, disp = [], [], None
         for _ in range(RUNS):
             disp, n, s, t = run_once(dev, params(n_blocks), host_fed,
-                                     source=source())
+                                     source=source(), mesh=mesh)
             if n != n_blocks:
                 raise RuntimeError(f"{name}: {n} of {n_blocks} packets")
             setup.append(s)
@@ -284,7 +305,7 @@ def probe_cell(dev, name, params, host_fed, n_blocks, block, rec_blocks):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, _, _, t = run_once(dev, params(PROFILE_BLOCKS), host_fed,
-                                  window=WINDOW, source=source())
+                                  window=WINDOW, source=source(), mesh=mesh)
         trace = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace)
         busy, top = device_breakdown(trace, PROFILE_BLOCKS)
@@ -318,6 +339,16 @@ def main() -> int:
         except RuntimeError as e:       # the next cells still run
             print(f"{c[0]}: FAILED: {e}", flush=True)
             out.append(dict(cell=c[0], error=str(e)))
+    # the sharded layer's cost on one card: each sharded cell's median
+    # rate over its single-device cell's
+    median = {c["cell"]: float(np.median(c["msps"])) for c in out
+              if "msps" in c}
+    for c in out:
+        base = c["cell"].split(" on (")[0]
+        if base != c["cell"] and c["cell"] in median and base in median:
+            c["ratio_to_unsharded"] = median[c["cell"]] / median[base]
+            print(f"{c['cell']}: {c['ratio_to_unsharded']:.3f} of "
+                  f"{base}'s median rate", flush=True)
     print(json.dumps({"card": card, "cells": out}))
     return 1 if any("error" in c for c in out) else 0
 

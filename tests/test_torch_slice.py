@@ -29,6 +29,7 @@ from gpu_sdr_tpu_torch.engine.channel import IdealChannel
 from gpu_sdr_tpu_torch.engine.sinks import MemorySink
 from gpu_sdr_tpu_torch.ops.channelizer import channelizer
 from gpu_sdr_tpu_torch.ops.presum import presum
+from gpu_sdr_tpu_torch.parallel import make_mesh
 
 torch.set_num_threads(2)
 
@@ -211,8 +212,9 @@ def test_slice_runs_with_jax_blocked():
     """The port imports nothing of JAX or of the JAX package: with both
     unimportable it still runs both branches of the slice, through both
     kernel wrappers, the CHIRP readout fused and host-fed (its table
-    step), and a device replay (engine/replay.py) directly and through
-    run_measurement, and loads no module of either."""
+    step), a device replay (engine/replay.py) directly and through
+    run_measurement, and both again on a (2, 1) mesh of the CPU
+    (parallel/), and loads no module of either."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -276,6 +278,26 @@ def test_slice_runs_with_jax_blocked():
         measure.run_measurement(p, source=ArraySource(x[:100_000]),
                                 extra_sinks=[s], device="cpu")
         print(":".join(map(str, measure.last_dispatch()[0][1:])))
+        # the sharded layer: a (2, 1) mesh of the CPU, fused and host-fed
+        from gpu_sdr_tpu_torch.parallel import make_mesh
+        mesh = make_mesh((2, 1), devices=["cpu"] * 2)
+        for ch in (None, IdealChannel()):
+            p = UsrpParams()
+            p.A_TXRX = AntennaParams(mode=AntMode.TX, rate=1_000_000,
+                                     buffer_len=64_000, freq=freqs,
+                                     ampl=[0.125] * 8,
+                                     wave_type=[WaveType.TONES] * 8)
+            p.A_RX2 = AntennaParams(mode=AntMode.RX, rate=1_000_000,
+                                    fft_tones=1000, pf_average=4,
+                                    buffer_len=64_000, samples=128_000,
+                                    freq=freqs,
+                                    wave_type=[WaveType.TONES] * 8)
+            s = MemorySink()
+            measure.run_measurement(p, channel=ch, extra_sinks=[s],
+                                    mesh=mesh)
+            assert s.data.shape == (128, 8), s.data.shape
+            np.testing.assert_allclose(abs(s.data[3:]), 0.125, rtol=1e-2)
+            print(":".join(map(str, measure.last_dispatch()[0][1:])))
         assert sys.modules["jax"] is None
         assert sys.modules["gpu_sdr_tpu"] is None
         assert not [m for m in sys.modules
@@ -288,7 +310,9 @@ def test_slice_runs_with_jax_blocked():
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.split() == ["fused_loopback", "host_pipeline",
                                   "chirp_wavetable", "None",
-                                  "channelizer_at", "device_replay:scan"]
+                                  "channelizer_at", "device_replay:scan",
+                                  "sharded_fused:channelizer_wavetable",
+                                  "host_pipeline:None"]
 
 
 def test_kernel_wrappers_count_no_cpu_launch():
@@ -329,7 +353,7 @@ def _mixed(p):
 
 @pytest.mark.parametrize("case, edit, kwargs", [
     ("hdf5", None, dict(filename="out.h5")),
-    ("mesh", None, dict(mesh=object())),
+    ("mesh", _dual, dict(mesh=make_mesh((2, 1), devices=["cpu"] * 2))),
     ("dual", _dual, {}),
     ("chirp_tx", _chirp_tx, dict(channel=IdealChannel())),
     ("mixed", _mixed, {}),
