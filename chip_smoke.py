@@ -94,9 +94,34 @@ and exits non-zero at the first phase that fails:
    (``chirp_table``), the TONES and config-3 replays (``channelizer_at``,
    ``replay_kernel``), a not-looped config-3 replay (``scan``) and
    ``ShardedSegmentedReplay``; each held against the port's unsharded
-   run of the same measurement at >= 90 dB SNR.
+   run of the same measurement at >= 90 dB SNR;
+14. the deep FIR: the DDC and chain kernels' shared-memory staging plans
+   (csrc/ddc.cu, csrc/chain.cu) against their Python mirrors for every f
+   up to 4096; at decimation 10 and 40,000 rows a block, #7 and #8 in
+   channel mode at 100 channels, pf_average 400 and 1000, #9 in row
+   mode at one channel, 800 and 2000, #10 on shard 1 of a (time=2) mesh
+   at 400, #15 at 1000, each at the stream's start against its plain
+   version and the float64 oracle, timed on the next block;
+15. config 3 host-fed at pf_average 400 through ``run_measurement`` (the
+   DDC kernel), held against the plain DDC over the same TX blocks;
+16. the five kernels no engine path takes, at full width against their
+   plain versions and float64 oracles: #12 and #13 at config 3, also
+   against #11; #14 at block_len 4,096,000 against #11 transposed; #3
+   at nfft 1000, avg 4, 4,000,000 samples against #1 permuted; #19 at
+   config 2 from the stream's start and across the period seam, on the
+   chirp and a down-chirp, against #18 on the same samples, its integer
+   phases exactly the oracle's; each timed, with its bound;
+17. those five through the ops-level entry points that run them, as in
+   the JAX package: ``TonesDirectFold.multi_step`` with
+   ``time_shards=2`` (#12) and ``rotg=True`` (#13) and
+   ``TonesDirectFoldT.multi_step`` (#14) at config 3, each against #11's
+   ``multi_step`` over the same blocks; ``channelizer_frames_scrambled``
+   (#3) over blocks of the TONES comb, each tone at its scrambled bin
+   within 1%, and at nfft 1018, where #3's kernel refuses the split,
+   through the pre-sum kernel #2; ``fused_chirp_lockin`` (#19) over 30 blocks of the config-2
+   chirp made on the card, every point within 1e-5 of 1.
 
-Phases 4, 5, 7, 9, 11 and 13 are the main path.  Their CallbackSink checks rows
+Phases 4, 5, 7, 9, 11, 13, 15 and 17 are the main path.  Their CallbackSink checks rows
 ::97 of every packet (finite; PFB tones within 1% of their amplitude;
 DIRECT rows within 2.5% of the TX amplitude, the sum of the other tones'
 leakage through the 400-tap FIR's stopband at config 3, and each
@@ -104,14 +129,15 @@ channel's mean over the rows within 1%; every CHIRP row) and drops the
 packet, and their rates are host-clock Msamples/s from the sink's start
 to its end, after a warm-up of each branch.  Every kernel launch
 counter is set to 0 just before each run and read just after it.
-The line before the last is a JSON object with one entry per kernel
-(the channelizer's times are const-frame mode, the main path's; its
-``stream_*`` fields are stream mode), each with its bound: the larger
-of its bytes over 3.35 TB/s and its FP32 operations over 67 TFLOP/s,
-counted from this run's shapes; ``library_ms`` is one PyTorch call
-computing the same function where there is one (the lock-in modes:
-``torch.einsum``), else null.  The last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel,
+all 19 (the channelizer's times are const-frame mode, the main path's;
+its ``stream_*`` fields are stream mode; the DDC-family kernels carry
+their deep-FIR rows in ``deep``), each with its bound: the larger of its
+bytes over 3.35 TB/s and its FP32 operations over 67 TFLOP/s, counted
+from this run's shapes; ``library_ms`` is one PyTorch call computing the
+same function where there is one (the lock-in modes: ``torch.einsum``;
+the folds and the chain: ``torch.matmul`` of their rotated rows), else
+null.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -181,6 +207,28 @@ R_SCAN = (5.5, 8)                   # config 3, not looped: scan
 R_SEGMENTED = ((6, False), (3, True))   # recordings over 16 blocks
 R_SEG_BLOCKS, R_SEG_ACQ = 2, 16
 S_BLOCKS, S_HOST = 10, 4            # blocks of the sharded main path's runs
+
+# the deep FIR: decimation 10 keeps the oracle and the plain versions
+# cheap at f up to 2000; 40,000 rows a block, as config 3
+DEEP_DECIM, DEEP_BLOCK = 10, 400_000
+DEEP_ROWS = DEEP_BLOCK // DEEP_DECIM
+DEEP_CHANNEL_F = (400, 1000)        # #7, #8: channel mode, 100 channels
+DEEP_ROW_F = (800, 2000)            # #9: row mode, one channel
+DEEP_SHARD_F, DEEP_CHAIN_F = 400, 1000      # #10 on shard 1 of 2; #15
+DEEP_RUN_F, DEEP_RUN_BLOCKS = 400, 4        # config 3 host-fed, run_measurement
+DEEP_TIMED_RUNS = 5
+F_PLAN = 4096                       # staging plans compared for f 1..F_PLAN
+
+# the kernels no engine path takes, driven through their entry points
+T_BLOCK = 4_096_000                 # #14: JAX's channel-major geometry
+NK_CALLS, NK_K = 5, 2               # #12-#14: calls of multi_step, blocks each
+SC_BLOCK = 4_000_000                # #3: tools/perf_fused_channelizer.py:30-31
+SC_FRAMES, SC_BLOCKS = SC_BLOCK // NFFT, 3
+SC_REFUSED_FRAMES = 5893            # #3's entry at nfft R_NFFT (pfb_at's)
+CL_POSITIONS = (0, 98_000_000)      # #19: the start; across the period seam
+CL_BLOCKS = 30                      # #19's run: past the period (25 blocks)
+
+N_KERNELS = 19                      # the repo's pl.pallas_call sites
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -471,13 +519,19 @@ def kernel_counters():
     from gpu_sdr_tpu_torch.ops.channelizer import channelizer_at_halo
     from gpu_sdr_tpu_torch.ops.replay_ddc import (ReplayDDC, ReplayDDCT,
                                                   ShardedReplayDDC)
+    from gpu_sdr_tpu_torch.ops.channelizer import channelizer_scrambled
+    from gpu_sdr_tpu_torch.ops.fold import fold_rotg, fold_streamed, fold_t
+    from gpu_sdr_tpu_torch.ops.lockin_at import fused_chirp_lockin
     return {"channelizer": channelizer, "presum": presum, "ddc": ddc_fused,
             "replay_ddc": ReplayDDC, "replay_ddc_t": ReplayDDCT,
             "fold": fold, "lockin_self": lockin_self,
             "lockin_table": lockin_table, "channelizer_at": channelizer_at,
             "presum_at": presum_at, "lockin_at": lockin_at,
             "channelizer_at_halo": channelizer_at_halo,
-            "replay_ddc_sharded": ShardedReplayDDC, "chain": chain}
+            "replay_ddc_sharded": ShardedReplayDDC, "chain": chain,
+            "fold_streamed": fold_streamed, "fold_rotg": fold_rotg,
+            "fold_t": fold_t, "channelizer_scrambled": channelizer_scrambled,
+            "chirp_lockin": fused_chirp_lockin}
 
 
 def counted(run):
@@ -522,18 +576,20 @@ def comb(freqs, ampl, n: int) -> np.ndarray:
     return x
 
 
-def direct_oracle(x: np.ndarray, freqs) -> np.ndarray:
+def direct_oracle(x: np.ndarray, freqs, M: int = D_DECIM,
+                  taps: int = D_AVG) -> np.ndarray:
     """Float64 DIRECT readout of a stream that starts at sample 0 with
-    zero FIR history: integer-phase mix-down, then the decimating FIR,
-    y[n] = sum_i h[i] * z[(n - f + 1)*M + i].  (ORACLE_ROWS, C)."""
-    h = sinc_taps(D_DECIM * D_AVG, 0.75 / (2.0 * D_DECIM))
+    zero FIR history: integer-phase mix-down, then the decimating FIR of
+    decimation M and `taps` taps per arm, y[n] = sum_i h[i] * z[(n - taps
+    + 1)*M + i].  (ORACLE_ROWS, C)."""
+    h = sinc_taps(M * taps, 0.75 / (2.0 * M))
     t = np.arange(len(x), dtype=np.int64)
     out = np.empty((ORACLE_ROWS, len(freqs)), dtype=np.complex128)
     for c, f in enumerate(freqs):
         z = x * np.exp(-2j * np.pi * (((f % D_RATE) * t) % D_RATE) / D_RATE)
-        ze = np.concatenate([np.zeros((D_AVG - 1) * D_DECIM), z])
+        ze = np.concatenate([np.zeros((taps - 1) * M), z])
         win = np.lib.stride_tricks.sliding_window_view(ze, len(h))
-        out[:, c] = win[::D_DECIM][:ORACLE_ROWS] @ h
+        out[:, c] = win[::M][:ORACLE_ROWS] @ h
     return out
 
 
@@ -648,7 +704,21 @@ def phase_direct_kernels(dev):
            times=(time_ms(lambda: fold(*fargs)),
                   time_ms(lambda: fold_plain(*fargs))), rows=rows,
            cost=(nbytes(*fargs[:5], yk), D_ROWS * Cp * (8 * Ct + 12)))
+    rows["fold"]["library_ms"] = fold_library_ms(chain, crot)
     return rows
+
+
+def fold_library_ms(chain, crot) -> float:
+    """The fold's yardstick: one torch.matmul of its (nb, Ct) rotated
+    comb rows P * srot by G2, complex64 (cuBLAS, FP32)."""
+    import torch
+    R, Ct = chain.P1.shape
+    A = (chain.P1[None] * crot[:chain.PB.shape[0], None, :]).reshape(
+        -1, Ct)[:chain.nb].contiguous()
+    ms = time_ms(lambda: torch.matmul(A, chain.G2))
+    print(f"fold yardstick: torch.matmul ({chain.nb}, {Ct}) x ({Ct}, "
+          f"{chain.G2.shape[1]}) complex64 {ms:.4f} ms")
+    return ms
 
 
 class DirectCheck:
@@ -658,10 +728,13 @@ class DirectCheck:
     startup); keeps those rows of the first `keep` packets."""
 
     def __init__(self, channels: int, ampl: float, keep: int = 0,
-                 seam: int = 0):
+                 seam: int = 0, start_rows: int = 1):
         self.channels, self.ampl, self.keep = channels, ampl, keep
         self.seam = seam        # a looped recording's blocks: row 0 of
         self.kept, self.n = [], 0   # each packet after its seam mixes both
+        # the checked rows of the stream's first packet that lie in the
+        # FIR's startup (its first f - 1 rows)
+        self.skip = -(-start_rows // ROWS.step)
 
     def __call__(self, meta, d):
         check(meta.packet_number == self.n, "packet order")
@@ -670,8 +743,12 @@ class DirectCheck:
               f"{d.dtype}")
         sub = d[ROWS]
         check(bool(np.isfinite(sub).all()), f"packet {self.n}: non-finite")
-        start = self.n == 0 or (self.seam and self.n % self.seam == 0)
-        dev = np.abs(sub[1:] if start else sub) / self.ampl - 1.0
+        held = sub
+        if self.n == 0:
+            held = sub[self.skip:]
+        elif self.seam and self.n % self.seam == 0:
+            held = sub[1:]
+        dev = np.abs(held) / self.ampl - 1.0
         check(float(np.abs(dev).max()) <= D_ROW_TOL,
               f"packet {self.n}: |y| off the TX amplitude by "
               f"{np.abs(dev).max():.4f}")
@@ -726,12 +803,22 @@ def phase_direct_main_path(dev):
     return launches
 
 
-def chirp_oracle(start: int, n: int) -> np.ndarray:
-    """Float64 config-2 chirp at stream positions start .. start+n-1: the
-    reference's quantized descriptor and uint64 phase accumulator
-    (chirp_parameter, cpp/USRP_demodulator.cpp:192-221; chirp_gen,
-    cpp/kernels.cu:335-372), the sin/cos in float64."""
+def chirp_oracle(start: int, n: int, down: bool = False) -> np.ndarray:
+    """Float64 config-2 chirp (or, with `down`, its sweep reversed) at
+    stream positions start .. start+n-1: chirp_index_oracle's phases, the
+    sin/cos in float64."""
+    th = np.pi * (chirp_index_oracle(start, n, down) / 2147483647.5)
+    return np.sin(th) - 1j * np.cos(th)
+
+
+def chirp_index_oracle(start: int, n: int, down: bool = False) -> np.ndarray:
+    """The int32 phase indices of chirp_oracle: the reference's
+    quantized descriptor and uint64 phase accumulator (chirp_parameter,
+    cpp/USRP_demodulator.cpp:192-221; chirp_gen, cpp/kernels.cu:
+    335-372), truncated to 32 bits."""
     f_start, f_end = CONFIG2["freq"][0], CONFIG2["chirp_f"][0]
+    if down:
+        f_start, f_end = f_end, f_start
     steps, t = CONFIG2["swipe_s"][0], CONFIG2["chirp_t"][0]
     length = int(t * C_RATE / steps)
     u = np.uint64
@@ -743,8 +830,7 @@ def chirp_oracle(start: int, n: int) -> np.ndarray:
         fi = eff // u(length)
         q = (fi // u(2)) * (fi + u(1)) + (fi % u(2)) * ((fi + u(1)) // u(2))
         idx = eff * (f0 + fi * chirpness) - chirpness * (u(length) * q)
-    th = np.pi * (idx.astype(np.uint32).astype(np.int32) / 2147483647.5)
-    return np.sin(th) - 1j * np.cos(th)
+    return idx.astype(np.uint32).astype(np.int32)
 
 
 def phase_chirp_kernels(dev):
@@ -1075,20 +1161,21 @@ def comb_at(freqs, ampl, a0: int, n: int) -> np.ndarray:
     return x
 
 
-def direct_oracle_at(x: np.ndarray, freqs) -> np.ndarray:
+def direct_oracle_at(x: np.ndarray, freqs, M: int = D_DECIM,
+                     taps: int = D_AVG) -> np.ndarray:
     """direct_oracle of rows from absolute sample a0 on, x holding
-    samples a0 - (f-1)*M .. of the stream (its history first) and the
+    samples a0 - (taps-1)*M .. of the stream (its history first) and the
     carrier at their absolute index: x = (samples, a0)."""
     xs, a0 = x
-    h = sinc_taps(D_DECIM * D_AVG, 0.75 / (2.0 * D_DECIM))
-    t = np.arange(a0 - (D_AVG - 1) * D_DECIM,
-                  a0 - (D_AVG - 1) * D_DECIM + len(xs), dtype=np.int64)
+    h = sinc_taps(M * taps, 0.75 / (2.0 * M))
+    t = np.arange(a0 - (taps - 1) * M, a0 - (taps - 1) * M + len(xs),
+                  dtype=np.int64)
     out = np.empty((ORACLE_ROWS, len(freqs)), dtype=np.complex128)
     for c, f in enumerate(freqs):
         z = xs * np.exp(-2j * np.pi * (((f % D_RATE) * (t % D_RATE)) %
                                        D_RATE) / D_RATE)
         win = np.lib.stride_tricks.sliding_window_view(z, len(h))
-        out[:, c] = win[::D_DECIM][:ORACLE_ROWS] @ h
+        out[:, c] = win[::M][:ORACLE_ROWS] @ h
     return out
 
 
@@ -1702,6 +1789,621 @@ def phase_sharded_main_path(dev, meshes=None):
                                      "replay_ddc_sharded", "chain")}
 
 
+def deep_row(deep, tmp, name, f, entry):
+    """Move report()'s row `entry` of `tmp` into deep[name], as f's."""
+    deep.setdefault(name, []).append(dict(f=f, **tmp.pop(entry)))
+
+
+def phase_deep_fir_kernels(dev):
+    """The DDC-family kernels at a deep FIR, where a tile's rows no longer
+    fit one block's shared memory at once: the C and Python staging
+    plans compared for every f up to F_PLAN; #7 and #8 in channel mode
+    at 100 channels (config 3's tones), #9 in row mode at one channel
+    (config 1's), #10 on shard 1 of a (time=2) mesh, #15 at f 1000; at
+    decimation 10, 40,000 rows a block.  Each at the stream's start
+    against its plain version and the float64 oracle, then timed on the
+    next block (and #8 / #9 after the loop seam).  Returns {kernel: [its
+    rows at each f]}."""
+    import torch
+    from gpu_sdr_tpu_torch.kernels import build
+    from gpu_sdr_tpu_torch.ops import chain as chain_ops
+    from gpu_sdr_tpu_torch.ops import ddc
+    from gpu_sdr_tpu_torch.ops.chain import (TonesDirectChain, chain,
+                                             chain_plain)
+    from gpu_sdr_tpu_torch.ops.replay_ddc import (ReplayDDC, ReplayDDCT,
+                                                  ShardedReplayDDC)
+    lib = build.load()
+    plans = {"ddc channel mode": (lambda f: lib.sdr_ddc_smem_bytes(f, 0),
+                                  lambda f: ddc.smem_bytes(f, False)),
+             "ddc row mode": (lambda f: lib.sdr_ddc_smem_bytes(f, 1),
+                              lambda f: ddc.smem_bytes(f, True)),
+             "chain": (lib.sdr_chain_smem_bytes, chain_ops.smem_bytes)}
+    for name, (c_plan, py_plan) in plans.items():
+        sizes = [c_plan(f) for f in range(1, F_PLAN + 1)]
+        check(sizes == [py_plan(f) for f in range(1, F_PLAN + 1)],
+              f"{name}: the C and Python staging plans differ")
+        check(max(sizes) <= 48 * 1024,
+              f"{name}: a block over the default 48 KB ({max(sizes)} bytes)")
+        print(f"staging plan, {name}: C and Python agree for f 1..{F_PLAN}; "
+              f"at most {max(sizes)} bytes a block")
+    gen = torch.Generator(device=dev).manual_seed(86420)
+    rng = np.random.default_rng(8642)
+    M, nb = DEEP_DECIM, DEEP_ROWS
+    prefix = ORACLE_ROWS * M
+    deep, tmp = {}, {}
+
+    def cfg_of(freqs, f):
+        return ddc.DirectDDCConfig(D_RATE, M, f, tuple(freqs),
+                                   (0,) * len(freqs))
+
+    def timed(fn):
+        return time_ms(fn, DEEP_TIMED_RUNS)
+
+    # #7: streamed blocks, block 0 with zero history against the oracle
+    for f in DEEP_CHANNEL_F:
+        cfg = cfg_of(CONFIG3, f)
+        hmod, ramp = cfg.modulated_taps(dev), cfg.carrier_ramp(nb, dev)
+        args = (hmod, ramp, ddc.ddc_carrier_step(cfg, DEEP_BLOCK, dev),
+                D_RATE, M, f)
+        x0_np = crandn(rng, DEEP_BLOCK)
+        x0 = torch.from_numpy(x0_np).to(dev)
+        x1 = torch.randn(DEEP_BLOCK, dtype=torch.complex64, device=dev,
+                         generator=gen)
+        st = (ddc.ddc_carrier_init(cfg, dev),
+              torch.zeros((f - 1) * M, dtype=torch.complex64, device=dev))
+        ph, hist, yk = via_kernel("ddc", lambda: ddc.ddc_fused(*args, *st,
+                                                                x0))
+        report(f"ddc [f {f}, block 0]", yk,
+               ddc.direct_ddc_fir(*args, *st, x0)[2],
+               direct_oracle(x0_np[:prefix].astype(np.complex128), CONFIG3,
+                             M, f))
+        yk = via_kernel("ddc", lambda: ddc.ddc_fused(*args, ph, hist, x1))[2]
+        report(f"ddc [f {f}]", yk, ddc.direct_ddc_fir(*args, ph, hist, x1)[2],
+               times=(timed(lambda: ddc.ddc_fused(*args, ph, hist, x1)),
+                      timed(lambda: ddc.direct_ddc_fir(*args, ph, hist, x1))),
+               rows=tmp, cost=(nbytes(x1, hist, hmod, ramp, ph, yk),
+                               ddc_flops(nb, len(CONFIG3), M * f)))
+        deep_row(deep, tmp, "ddc", f, f"ddc [f {f}]")
+        del x0, x1, hist
+
+    # #8 (channel mode) and #9 (row mode) on a random two-block recording:
+    # block 0 at the stream's start against the oracle, block 1 timed,
+    # block 0 again after the loop seam (its history the recording's end)
+    for name, cls, freqs, fs in (
+            ("replay_ddc", ReplayDDC, CONFIG3, DEEP_CHANNEL_F),
+            ("replay_ddc_t", ReplayDDCT, CONFIG1, DEEP_ROW_F)):
+        for f in fs:
+            cfg = cfg_of(freqs, f)
+            rec = torch.randn(2 * DEEP_BLOCK, dtype=torch.complex64,
+                              device=dev, generator=gen)
+            rk = cls(cfg, rec, DEEP_BLOCK, dev)
+            st0 = rk.init_state()
+            st1, yk = via_kernel(name, lambda: rk.step(st0))
+            report(f"{name} [f {f}, block 0]", yk, rk.block_plain(st0),
+                   direct_oracle(rec[:prefix].cpu().numpy().astype(
+                       np.complex128), freqs, M, f))
+            st2, yk = via_kernel(name, lambda: rk.step(st1))
+            tag = f"{name} [f {f}]"
+            report(tag, yk, rk.block_plain(st1), times=(
+                timed(lambda: rk.step(st1)),
+                timed(lambda: rk.block_plain(st1))), rows=tmp,
+                cost=((DEEP_BLOCK + (f - 1) * M) * 8 +
+                      nbytes(rk._hmod, rk._ramp, st1[1], yk),
+                      ddc_flops(nb, len(freqs), M * f)))
+            deep_row(deep, tmp, name, f, tag)
+            report(f"{name} [f {f}, block 0 after the seam]",
+                   via_kernel(name, lambda: rk.step(st2))[1],
+                   rk.block_plain(st2))
+            del rk, rec
+
+    # #10: shard 1 of a (time=2) mesh at the stream's first block (its
+    # history shard 0's rows) and the next block
+    f = DEEP_SHARD_F
+    cfg = cfg_of(CONFIG3, f)
+    rec = torch.randn(2 * DEEP_BLOCK, dtype=torch.complex64, device=dev,
+                      generator=gen)
+    rk = ShardedReplayDDC(cfg, rec, DEEP_BLOCK, [dev] * 2)
+    rec_np, H, nbt = rec.cpu().numpy(), (f - 1) * M, rk.nbr_t
+    st0 = rk.init_state()
+    st1 = (1, rk.advance(st0)[1], 1)
+    for idx, st in ((0, st0), (1, st1)):
+        yk = via_kernel("replay_ddc_sharded", lambda: rk.local(st, 1))
+        a0 = idx * DEEP_BLOCK + DEEP_BLOCK // 2      # shard 1's first sample
+        xs = rec_np[np.arange(a0 - H, a0 + prefix)].astype(np.complex128)
+        report(f"replay_ddc_sharded [f {f}, block {idx}, shard 1]", yk,
+               rk.local_plain(st, 1),
+               direct_oracle_at((xs, a0), CONFIG3, M, f))
+    tag = f"replay_ddc_sharded [f {f}]"
+    report(tag, yk, rk.local_plain(st1, 1), times=(
+        timed(lambda: rk.local(st1, 1)), timed(lambda: rk.local_plain(st1, 1))),
+        rows=tmp, cost=((nbt + f - 1) * M * 8 + nbytes(
+            rk._hmod[1], rk._ramp[1], st1[1], yk),
+            ddc_flops(nbt, len(CONFIG3), M * f)))
+    deep_row(deep, tmp, "replay_ddc_sharded", f, tag)
+    del rk, rec
+
+    # #15 at f 1000: shard 0 and 1 of the stream's first block, shard 0 of
+    # the next (its halo the first block's tail)
+    f = DEEP_CHAIN_F
+    ch = TonesDirectChain(D_RATE, tuple(CONFIG3), (0.01,) * 100,
+                          cfg_of(CONFIG3, f), DEEP_BLOCK, time_shards=2)
+    check(ch.ok, "deep chain geometry")
+    nbt, H = ch.nb // 2, (f - 1) * M
+    Pt = [ch.P[t * nbt:(t + 1) * nbt].to(dev) for t in range(2)]
+    hPt = [ch.halo_rows(t * nbt).to(dev) for t in range(2)]
+    Gd, ramp = ch.G.to(dev), ch.ramp.to(dev)
+    st0 = ch.init_state(dev)
+    st1 = ch.block_rotations(st0)[0]
+    for blk, st, t in ((0, st0, 0), (0, st0, 1), (1, st1, 0)):
+        _, srot, hrot0, drot = ch.block_rotations(st)
+        args = (Pt[t], hPt[t], Gd, ramp[t * nbt:(t + 1) * nbt], srot,
+                hrot0 if t == 0 else srot, drot)
+        yk = via_kernel("chain", lambda: chain(*args))
+        a0 = blk * DEEP_BLOCK + t * (DEEP_BLOCK // 2)
+        xs = comb_at(CONFIG3, 0.01, a0 - H, H + prefix)
+        report(f"chain [f {f}, block {blk}, shard {t}]", yk,
+               chain_plain(*args), direct_oracle_at((xs, a0), CONFIG3, M, f))
+    tag = f"chain [f {f}]"
+    Ct, Cp = Gd.shape[1], Gd.shape[2]
+    report(tag, yk, chain_plain(*args), times=(
+        timed(lambda: chain(*args)), timed(lambda: chain_plain(*args))),
+        rows=tmp, cost=(nbytes(*args) + nbt * Cp * 8,
+                        nbt * Cp * (8 * f * Ct + 12)))
+    deep_row(deep, tmp, "chain", f, tag)
+    return deep
+
+
+def phase_deep_fir_main_path(dev):
+    """Config 3 host-fed at pf_average DEEP_RUN_F through run_measurement
+    (the DDC kernel, #7), its rows held against the plain DDC over the
+    same TX blocks; the FIR's startup rows of the first packet are not
+    held to the amplitude."""
+    import torch
+    from gpu_sdr_tpu_torch.engine.channel import IdealChannel
+    from gpu_sdr_tpu_torch.engine.demodulator import direct_config
+    from gpu_sdr_tpu_torch.ops import ddc
+
+    def params(k):
+        p = direct_params(CONFIG3, 0.01, k)
+        p.A_RX2.pf_average = DEEP_RUN_F
+        return p
+
+    def run(k, keep=0):
+        return run_path(dev, params(k), IdealChannel(),
+                        DirectCheck(100, 0.01, keep=keep,
+                                    start_rows=DEEP_RUN_F - 1),
+                        k, D_BLOCK, 100)
+    n = DEEP_RUN_BLOCKS
+    run(1)                                                   # warm-up
+    (pkt, disp, msps, wall), counts = counted(lambda: run(n, keep=n))
+    print(f"DIRECT config 3 host-fed at pf_average {DEEP_RUN_F}: {disp}, "
+          f"{n} blocks, {counts['ddc']} ddc launches; {msps:.1f} Msps "
+          f"streaming, {wall:.3f} s with set-up")
+    check(disp == (("A_RX2", "host_pipeline", None),),
+          f"deep host-fed dispatch {disp}")
+    check(counts["ddc"] == n and
+          all(v == 0 for k, v in counts.items() if k != "ddc"),
+          f"deep host-fed launches {counts}")
+    cfg = direct_config(params(n).A_RX2)
+    rec = tx_recording(params, n, D_BLOCK, dev)
+    args = (cfg.modulated_taps(dev), cfg.carrier_ramp(D_ROWS, dev),
+            ddc.ddc_carrier_step(cfg, D_BLOCK, dev), D_RATE, cfg.M, cfg.f)
+    st = (ddc.ddc_carrier_init(cfg, dev),
+          torch.zeros((cfg.f - 1) * cfg.M, dtype=torch.complex64, device=dev))
+    plain = []
+    for b in range(n):
+        x = torch.from_numpy(rec[b * D_BLOCK:(b + 1) * D_BLOCK]).to(dev)
+        ph, hist, y = ddc.direct_ddc_fir(*args, *st, x)
+        st = (ph, hist)
+        plain.append(y[ROWS].cpu().numpy())
+    snr = snr_db(np.stack(plain), np.stack(pkt.kept))
+    print(f"DIRECT config 3 host-fed at pf_average {DEEP_RUN_F} vs the plain "
+          f"DDC over the same blocks (rows ::97): SNR {snr:.1f} dB")
+    check(snr >= SNR_BAR_DB, f"deep host-fed vs plain {snr:.1f} dB")
+    return counts["ddc"]
+
+
+def phase_new_kernels(dev):
+    """The five kernels that no engine path takes, each against its plain
+    version and a float64 oracle at full width: #12 (fold_streamed) and
+    #13 (fold_rotg) at config 3, each also against #11 (fold) as the
+    JAX package's tests hold them (tests/test_pallas_chain.py:213-269);
+    #14 (fold_t) at block_len 4,096,000 against #11 transposed; #3
+    (channelizer_scrambled) at nfft 1000, avg 4, 4,000,000 samples
+    against #1's stream mode permuted; #19 (chirp_lockin) at config 2
+    from the stream's start and across the period seam, on the chirp and
+    on a down-chirp, against #18 (lockin_at) on the same samples, its
+    integer phases against the oracle's exactly.  Times from CUDA events
+    (#19: queued over rotating blocks), each with its bound and, for the
+    folds, the matmul yardstick."""
+    import torch
+    from gpu_sdr_tpu_torch.ops import ddc
+    from gpu_sdr_tpu_torch.ops.channelizer import (
+        best_split, channelizer, channelizer_consts, channelizer_scrambled,
+        channelizer_scrambled_plain, scramble_index, scrambled)
+    from gpu_sdr_tpu_torch.ops.chirp import (ChirpConfig, chirp_block,
+                                             chirp_phase_index)
+    from gpu_sdr_tpu_torch.ops.fold import (
+        TonesDirectFold, TonesDirectFoldT, fold, fold_rotg, fold_rotg_plain,
+        fold_streamed, fold_streamed_plain, fold_t, fold_t_plain)
+    from gpu_sdr_tpu_torch.ops.lockin import lockin_profile
+    from gpu_sdr_tpu_torch.ops.lockin_at import (
+        fused_chirp_lockin, fused_chirp_lockin_plain, lockin_at)
+    from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
+    rows = {}
+    cfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(CONFIG3),
+                              (0,) * 100)
+    ampl = (0.01,) * 100
+    oracle = direct_oracle(comb(CONFIG3, 0.01, ORACLE_ROWS * D_DECIM),
+                           CONFIG3)
+
+    def folds(L):
+        return (TonesDirectFold(D_RATE, tuple(CONFIG3), ampl, cfg, L, dev),
+                TonesDirectFold(D_RATE, tuple(CONFIG3), ampl, cfg, L, dev,
+                                time_shards=2),
+                TonesDirectFold(D_RATE, tuple(CONFIG3), ampl, cfg, L, dev,
+                                rotg=True))
+
+    def factored(ch, st):
+        _, srots, drots = ch.rotations(st, 1)
+        return (ch.P1, ch.G2, *ch.tile_rotations(srots, drots), ch.ramp1,
+                ch.nb)
+
+    def streamed(ch, st):
+        _, srots, drots = ch.rotations(st, 1)
+        return (ch.P, ch.G2, srots, drots, ch.ramp, ch.nb)
+
+    # #12 and #13 (and #11 for reference) at config 3
+    f11, f12, f13 = folds(D_BLOCK)
+    st0 = f11.init_state()
+    st1 = f11.advance(st0)
+    ref = via_kernel("fold", lambda: fold(*factored(f11, st1)))
+    lms = fold_library_ms(f11, factored(f11, st1)[2])
+    Ct, Cp = f11.G2.shape
+    for name, ch, kern, plain, argf in (
+            ("fold_streamed", f12, fold_streamed, fold_streamed_plain,
+             streamed),
+            ("fold_rotg", f13, fold_rotg, fold_rotg_plain, factored)):
+        a0 = argf(ch, st0)
+        report(f"{name} [stream start]", ch.startup_correction(
+            st0, via_kernel(name, lambda: kern(*a0))),
+            ch.startup_correction(st0, plain(*a0)), oracle)
+        a1 = argf(ch, st1)
+        yk = via_kernel(name, lambda: kern(*a1))
+        s = snr_db(ref.cpu().numpy(), yk.cpu().numpy())
+        print(f"{name} vs fold (#11), block 1: SNR {s:.1f} dB")
+        check(s >= SNR_BAR_DB, f"{name} vs fold {s:.1f} dB")
+        report(name, yk, plain(*a1), times=(
+            time_ms(lambda: kern(*a1)), time_ms(lambda: plain(*a1))),
+            rows=rows, cost=(nbytes(*a1[:5], yk), D_ROWS * Cp * (8 * Ct + 12)))
+        rows[name]["library_ms"] = lms
+    del f11, f12, f13, ref
+
+    # #14 at block_len 4,096,000 (nb 40,960), against #11 transposed
+    fT = TonesDirectFoldT(D_RATE, tuple(CONFIG3), ampl, cfg, T_BLOCK, dev)
+    base = fT.base
+
+    def transposed(st):
+        a = factored(base, st)
+        return (*a[:4], fT.ramp1T, a[5])
+    a0 = transposed(st0)
+    yk = base.startup_correction(st0, via_kernel("fold_t", lambda: fold_t(
+        *a0)), transposed=True)
+    report("fold_t [stream start]", yk.T,
+           base.startup_correction(st0, fold_t_plain(*a0), transposed=True).T,
+           oracle)
+    a1 = transposed(st1)
+    yk = via_kernel("fold_t", lambda: fold_t(*a1))
+    ref = via_kernel("fold", lambda: fold(*factored(base, st1)))
+    same = torch.equal(ref.T, yk)
+    s = snr_db(ref.cpu().numpy().T, yk.cpu().numpy())
+    print(f"fold_t vs fold (#11) transposed, block 1: SNR {s:.1f} dB"
+          + (", bit-identical" if same else ""))
+    check(s >= SNR_BAR_DB, f"fold_t vs fold {s:.1f} dB")
+    report("fold_t", yk.T, fold_t_plain(*a1).T, times=(
+        time_ms(lambda: fold_t(*a1)), time_ms(lambda: fold_t_plain(*a1))),
+        rows=rows, cost=(nbytes(*a1[:5], yk), fT.nb * Cp * (8 * Ct + 12)))
+    rows["fold_t"]["library_ms"] = fold_library_ms(base, a1[2])
+    del fT, base, ref
+
+    # #3: nfft 1000, avg 4, 4,000,000 samples; its 16 first frames
+    # against a float64 oracle, the whole block against #1 permuted
+    rng = np.random.default_rng(97531)
+    pcfg = PFBConfig(nfft=NFFT, avg=AVG, rate=RATE)
+    w2, F1, G = channelizer_consts(pcfg, dev)
+    n1, n2 = best_split(NFFT)
+    spare_np, x_np = crandn(rng, AVG - 1, NFFT), crandn(rng, SC_FRAMES, NFFT)
+    spare, x = torch.from_numpy(spare_np).to(dev), torch.from_numpy(x_np).to(
+        dev)
+    k = via_kernel("channelizer_scrambled",
+                   lambda: channelizer_scrambled(w2, F1, G, spare, x))
+    p = channelizer_scrambled_plain(w2, F1, G, spare, x)
+    nat = via_kernel("channelizer", lambda: channelizer(w2, F1, G, spare, x))
+    torch.cuda.synchronize(dev)
+    kn, pn = k.cpu().numpy(), p.cpu().numpy()
+    check(kn.shape == (SC_FRAMES, NFFT) and np.isfinite(kn).all(),
+          "channelizer_scrambled: shape or non-finite")
+    w = w2.cpu().numpy().astype(np.float64)
+    ext = np.concatenate([spare_np, x_np[:16]]).astype(np.complex128)
+    spec = np.fft.fft(sum(w[i] * ext[i:i + 16] for i in range(AVG)), axis=-1)
+    spec64 = np.empty_like(spec)
+    spec64[:, scramble_index(np.arange(NFFT), n1, n2)] = spec
+    s_plain, s_gold = snr_db(pn, kn), snr_db(spec64, kn[:16])
+    same = torch.equal(scrambled(nat, n1, n2), k)
+    s_nat = snr_db(scrambled(nat, n1, n2).cpu().numpy(), kn)
+    err = float(np.abs(kn - pn).max())
+    ms, pms, nms = (time_ms(fn) for fn in (
+        lambda: channelizer_scrambled(w2, F1, G, spare, x),
+        lambda: channelizer_scrambled_plain(w2, F1, G, spare, x),
+        lambda: channelizer(w2, F1, G, spare, x)))
+    b = bound(nbytes(w2, F1, G, spare, x, k),
+              SC_FRAMES * (4 * AVG * NFFT + 5 * NFFT * np.log2(NFFT)))
+    print(f"channelizer_scrambled {SC_FRAMES}x{NFFT}: SNR {s_plain:.1f} dB vs "
+          f"plain, {s_gold:.1f} dB vs float64 (16 frames), {s_nat:.1f} dB vs "
+          f"#1 permuted" + (" (bit-identical)" if same else "") +
+          f", max |err| {err:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"#1 stream mode (natural order) {nms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    check(min(s_plain, s_gold, s_nat) >= SNR_BAR_DB,
+          f"channelizer_scrambled under {SNR_BAR_DB} dB")
+    rows["channelizer_scrambled"] = dict(max_abs_err=err, ms=ms,
+                                         plain_ms=pms, library_ms=None,
+                                         natural_order_ms=nms, **b)
+    del x, k, p, nat
+
+    # #19 at config 2: a random block from the stream's start and across
+    # the period seam, for the chirp and its reversed sweep
+    steps, chirp_t = CONFIG2["swipe_s"][0], CONFIG2["chirp_t"][0]
+    f_lo, f_hi = CONFIG2["freq"][0], CONFIG2["chirp_f"][0]
+    wp_np = lockin_profile(20_000)
+    wp, wp64 = torch.from_numpy(wp_np).to(dev), wp_np.astype(np.float64)
+    gen = torch.Generator(device=dev).manual_seed(13579)
+    Xc = torch.randn((R_BLOCKS, C_BLOCK), dtype=torch.complex64, device=dev,
+                     generator=gen)
+    err = 0.0
+    for down in (False, True):
+        ccfg = ChirpConfig.from_params(f_hi if down else f_lo,
+                                       f_lo if down else f_hi, C_RATE, steps,
+                                       chirp_t)
+        ppt, nseg = ccfg.length, C_BLOCK // ccfg.length
+        check((ppt, nseg) == (20_000, C_ROWS), f"chirp geometry {ppt}, {nseg}")
+        for pos, blk in zip(CL_POSITIONS, (0, 5)):
+            tag = (f"chirp_lockin [{'down-chirp' if down else 'chirp'}, "
+                   f"position {pos}]")
+            x = Xc[blk]
+            new, yk = via_kernel("chirp_lockin", lambda: fused_chirp_lockin(
+                ccfg, wp, pos, x))
+            pnew, yp = fused_chirp_lockin_plain(ccfg, wp, pos, x)
+            y18 = via_kernel("lockin_at", lambda: lockin_at(
+                ccfg, wp, pos, x.view(nseg, ppt), 0, nseg))[1]
+            idx = chirp_phase_index(ccfg, pos, torch.arange(
+                C_BLOCK, dtype=torch.int64, device=dev))
+            exact = np.array_equal(idx.cpu().numpy(), chirp_index_oracle(
+                pos, C_BLOCK, down).astype(np.int64))
+            y64 = (np.conj(chirp_oracle(pos, C_BLOCK, down)).reshape(
+                nseg, ppt) * x.cpu().numpy().reshape(nseg, ppt)) @ wp64
+            torch.cuda.synchronize(dev)
+            kn, pn = yk.cpu().numpy(), yp.cpu().numpy()
+            check(kn.shape == (nseg,) and np.isfinite(kn).all(),
+                  f"{tag}: shape or non-finite")
+            s_plain, s_gold = snr_db(pn, kn), snr_db(y64, kn)
+            same = torch.equal(yk, y18)
+            err = max(err, float(np.abs(kn - pn).max()))
+            print(f"{tag}: SNR {s_plain:.1f} dB vs plain, {s_gold:.1f} dB vs "
+                  f"float64, " + ("bit-identical to" if same else "differs "
+                                  "from") + " #18 on the same samples; "
+                  "integer phases " + ("exactly" if exact else "NOT") +
+                  " the oracle's")
+            check(new == pnew == (pos + C_BLOCK) % ccfg.period,
+                  f"{tag}: new position {new}")
+            check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB and same and
+                  exact, f"{tag} failed")
+    # fed the chirp itself across the seam, every point is 1
+    pos = CL_POSITIONS[-1]
+    chirp = chirp_block(ccfg, pos, C_BLOCK, device=dev)[1]
+    off = float((via_kernel("chirp_lockin", lambda: fused_chirp_lockin(
+        ccfg, wp, pos, chirp))[1] - 1).abs().max())
+    print(f"chirp_lockin [the down-chirp from position {pos}]: max |y - 1| "
+          f"{off:.2e}")
+    check(off <= C_TOL, f"chirp_lockin on the chirp: |y - 1| {off:.2e}")
+    rot = itertools.count()
+
+    def blk_args():
+        i = next(rot)
+        return ccfg, wp, (i * C_BLOCK) % ccfg.period, Xc[i % R_BLOCKS]
+    ms, pms = (time_ms_queued(lambda: fn(*blk_args()), 2 * R_BLOCKS)
+               for fn in (fused_chirp_lockin, fused_chirp_lockin_plain))
+    b = bound(nbytes(Xc[0], wp) + nseg * 8, CHIRP_AT_OPS * C_BLOCK)
+    print(f"chirp_lockin {nseg}x{ppt}: kernel {ms:.4f} ms, plain {pms:.4f} "
+          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    rows["chirp_lockin"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                library_ms=None, **b)
+    return rows
+
+
+def phase_new_main_path(dev):
+    """The five kernels through the ops-level entry points that run them
+    (no engine path does, in either package), each run counted: #12 and
+    #13 as TonesDirectFold.multi_step with time_shards=2 / rotg=True, and
+    #14 as TonesDirectFoldT.multi_step, NK_CALLS calls of NK_K blocks at
+    config 3, each against #11's multi_step over the same blocks (run
+    first) and its rows ::97 within D_ROW_TOL of the TX amplitude; #3 as
+    channelizer_frames_scrambled over SC_BLOCKS blocks of the TONES comb,
+    its tones at their scrambled bins within 1% and the rows against #1's
+    natural-order route permuted, and at nfft 1018, where #3's kernel
+    refuses the split, through the pre-sum kernel #2 (its launches
+    checked, not recorded) against the plain PFB frames permuted; #19 as fused_chirp_lockin over
+    CL_BLOCKS config-2 chirp blocks made on the card (past the period's
+    end), every point within C_TOL of 1."""
+    import torch
+    from gpu_sdr_tpu_torch.ops import ddc
+    from gpu_sdr_tpu_torch.ops.channelizer import (
+        best_split, can_fuse_channelizer, channelizer_consts,
+        channelizer_frames, channelizer_frames_scrambled, scramble_index,
+        scrambled)
+    from gpu_sdr_tpu_torch.ops.chirp import ChirpConfig, chirp_block
+    from gpu_sdr_tpu_torch.ops.fold import TonesDirectFold, TonesDirectFoldT
+    from gpu_sdr_tpu_torch.ops.lockin import lockin_profile
+    from gpu_sdr_tpu_torch.ops.lockin_at import fused_chirp_lockin
+    from gpu_sdr_tpu_torch.ops.pfb import PFBConfig, pfb_frames, tone_bins
+    from gpu_sdr_tpu_torch.ops.tonegen import tone_comb_wavetable_block
+    launches = {}
+
+    def entry(name, kernel, run, n, record=True):
+        t0 = time.perf_counter()
+        out, counts = counted(run)
+        torch.cuda.synchronize(dev)
+        print(f"{name}: {counts[kernel]} {kernel} launches, "
+              f"{time.perf_counter() - t0:.3f} s")
+        check(counts[kernel] == n and
+              all(v == 0 for k, v in counts.items() if k != kernel),
+              f"{name} launches {counts}")
+        if record:
+            launches[kernel] = counts[kernel]
+        return out
+
+    def held(name, ref, got, ampl=None, skip=1):
+        ref, got = np.stack(ref), np.stack(got)
+        check(ref.shape == got.shape, f"{name}: {got.shape} vs {ref.shape}")
+        snr = snr_db(ref, got)
+        print(f"{name} vs its reference route: SNR {snr:.1f} dB" +
+              (", bit-identical" if np.array_equal(ref, got) else ""))
+        check(snr >= SNR_BAR_DB and np.isfinite(got).all(),
+              f"{name} vs its reference {snr:.1f} dB")
+        if ampl is not None:
+            a = np.abs(got.reshape(-1, got.shape[-1])[skip:]) / ampl - 1.0
+            check(float(np.abs(a).max()) <= D_ROW_TOL,
+                  f"{name}: |y| off the TX amplitude by "
+                  f"{np.abs(a).max():.4f}")
+
+    cfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(CONFIG3),
+                              (0,) * 100)
+    ampl = (0.01,) * 100
+
+    def fold_run(ch, transposed=False):
+        st, out = ch.init_state(), []
+        for _ in range(NK_CALLS):
+            st, y = ch.multi_step(st, NK_K)
+            out.append((y.T if transposed else y)[ROWS].cpu().numpy())
+        return out
+
+    for L, opts in ((D_BLOCK, (("TonesDirectFold(time_shards=2)",
+                                "fold_streamed", dict(time_shards=2)),
+                               ("TonesDirectFold(rotg=True)", "fold_rotg",
+                                dict(rotg=True)))),
+                    (T_BLOCK, (("TonesDirectFoldT", "fold_t", None),))):
+        ref = fold_run(TonesDirectFold(D_RATE, tuple(CONFIG3), ampl, cfg, L,
+                                       dev))
+        for name, kernel, opt in opts:
+            ch = (TonesDirectFoldT(D_RATE, tuple(CONFIG3), ampl, cfg, L, dev)
+                  if opt is None else
+                  TonesDirectFold(D_RATE, tuple(CONFIG3), ampl, cfg, L, dev,
+                                  **opt))
+            got = entry(f"{name}.multi_step, {NK_CALLS} calls of {NK_K} "
+                        f"blocks of {L} samples", kernel,
+                        lambda: fold_run(ch, opt is None), NK_CALLS)
+            held(name, ref, got, ampl=0.01)
+
+    # #3: the TONES comb (1000 bin-quantized tones) in 4,000,000-sample
+    # blocks, the spare carried from the zero spare
+    freqs = [k * (RATE // NFFT) for k in range(-NFFT // 2, NFFT // 2)]
+    pcfg = PFBConfig(nfft=NFFT, avg=AVG, rate=RATE)
+    window = pcfg.window(dev)
+    x = torch.from_numpy(tone_comb_wavetable_block(
+        freqs, [1.0 / NFFT] * NFFT, RATE, SC_BLOCK)).to(dev)
+    n1, n2 = best_split(NFFT)
+    pos = torch.from_numpy(scramble_index(tone_bins(freqs, RATE, NFFT), n1,
+                                          n2)).to(dev)
+    consts = channelizer_consts(pcfg, dev)
+    spare, ref = torch.zeros(AVG - 1, NFFT, dtype=torch.complex64,
+                             device=dev), []
+    for _ in range(SC_BLOCKS):
+        spare, fr = channelizer_frames(consts, spare, x.view(SC_FRAMES, NFFT))
+        ref.append(scrambled(fr, n1, n2)[ROWS].cpu().numpy())
+
+    def scrambled_run():
+        sp, out = torch.zeros((AVG - 1) * NFFT, dtype=torch.complex64,
+                              device=dev), []
+        for _ in range(SC_BLOCKS):
+            sp, fr = channelizer_frames_scrambled(pcfg, window, sp, x)
+            out.append(fr[ROWS].cpu().numpy())
+        return out
+    got = entry(f"channelizer_frames_scrambled, {SC_BLOCKS} blocks of "
+                f"{SC_BLOCK} samples", "channelizer_scrambled", scrambled_run,
+                SC_BLOCKS)
+    held("channelizer_frames_scrambled", ref, got)
+    amp = np.abs(np.stack(got)[:, :, pos.cpu().numpy()]).reshape(-1, NFFT)
+    off = float(np.abs(amp[1:] * NFFT - 1.0).max())   # row 0: the startup
+    print(f"channelizer_frames_scrambled: tones at their scrambled bins, "
+          f"max |amplitude - 1| {off:.2e}")
+    check(off <= 1e-2, f"channelizer_frames_scrambled: a tone off by {off}")
+    del x
+
+    # #3's entry point where its kernel refuses the geometry (nfft 1018,
+    # split 2 x 509): the pre-sum kernel #2, as the JAX package leaves
+    # its kernel for XLA, against the plain PFB frames permuted
+    rcfg = PFBConfig(nfft=R_NFFT, avg=AVG, rate=RATE)
+    check(not can_fuse_channelizer(rcfg, SC_REFUSED_FRAMES * R_NFFT),
+          "channelizer_frames_scrambled: nfft 1018 fuses")
+    rwin = rcfg.window(dev)
+    gen = torch.Generator(device=dev).manual_seed(9753)
+    xs = [torch.randn(SC_REFUSED_FRAMES * R_NFFT, dtype=torch.complex64,
+                      device=dev, generator=gen) for _ in range(SC_BLOCKS)]
+    r1, r2 = best_split(R_NFFT)
+
+    def refused_run(plain=False):
+        sp, out = torch.zeros((AVG - 1) * R_NFFT, dtype=torch.complex64,
+                              device=dev), []
+        for xb in xs:
+            if plain:
+                sp, fr = pfb_frames(rcfg, rwin, sp, xb)
+                fr = scrambled(fr, r1, r2)
+            else:
+                sp, fr = channelizer_frames_scrambled(rcfg, rwin, sp, xb)
+            out.append(fr[ROWS].cpu().numpy())
+        return out
+    ref = refused_run(plain=True)
+    got = entry(f"channelizer_frames_scrambled at nfft {R_NFFT}, "
+                f"{SC_BLOCKS} blocks", "presum", refused_run, SC_BLOCKS,
+                record=False)
+    held(f"channelizer_frames_scrambled at nfft {R_NFFT}", ref, got)
+    del xs
+
+    # #19: config 2's chirp looped back, CL_BLOCKS blocks
+    ccfg = ChirpConfig.from_params(
+        CONFIG2["freq"][0], CONFIG2["chirp_f"][0], C_RATE,
+        CONFIG2["swipe_s"][0], CONFIG2["chirp_t"][0])
+    wp = torch.from_numpy(lockin_profile(ccfg.length)).to(dev)
+
+    def lockin_run():
+        last, offs = 0, []
+        for _ in range(CL_BLOCKS):
+            _, c = chirp_block(ccfg, last, C_BLOCK, device=dev)
+            last, y = fused_chirp_lockin(ccfg, wp, last, c)
+            offs.append(float((y.abs() - C_AMPL).abs().max()))
+        return offs
+    offs = entry(f"fused_chirp_lockin, {CL_BLOCKS} blocks of {C_BLOCK} "
+                 "samples", "chirp_lockin", lockin_run, CL_BLOCKS)
+    print(f"fused_chirp_lockin: every lock-in point within {max(offs):.2e} "
+          "of the TX amplitude")
+    check(max(offs) <= C_TOL, f"fused_chirp_lockin off by {max(offs):.2e}")
+    return launches
+
+
+def check_line(kernels) -> None:
+    """Every kernel of the repo is in the kernels line once, launched
+    by its main path's run, with every key of the line."""
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    names = [k["name"] for k in kernels]
+    check(len(kernels) == N_KERNELS and len(set(names)) == N_KERNELS,
+          f"{len(kernels)} kernels in the line, expected {N_KERNELS}")
+    for k in kernels:
+        check(all(key in k for key in keys) and k["launches"] > 0,
+              f"kernels line: {k['name']} lacks a key or a launch")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1739,6 +2441,12 @@ def main() -> int:
         rows.update(timed("sharded kernels", phase_sharded_kernels, dev))
         launches.update(timed("sharded main path", phase_sharded_main_path,
                               dev))
+        deep = timed("deep-FIR kernels", phase_deep_fir_kernels, dev)
+        deep_launches = timed("deep-FIR main path", phase_deep_fir_main_path,
+                              dev)
+        rows.update(timed("new kernels", phase_new_kernels, dev))
+        launches.update(timed("new kernels' entry points",
+                              phase_new_main_path, dev))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1774,7 +2482,21 @@ def main() -> int:
              "gpu_sdr_tpu/ops/pallas_channelizer.py:622"),
             ("replay_ddc_sharded", "ddc.cu",
              "gpu_sdr_tpu/ops/pallas_replay.py:222"),
-            ("chain", "chain.cu", "gpu_sdr_tpu/ops/pallas_chain.py:253"))]
+            ("chain", "chain.cu", "gpu_sdr_tpu/ops/pallas_chain.py:253"),
+            ("fold_streamed", "fold.cu",
+             "gpu_sdr_tpu/ops/pallas_chain.py:606"),
+            ("fold_rotg", "fold.cu", "gpu_sdr_tpu/ops/pallas_chain.py:715"),
+            ("fold_t", "fold.cu", "gpu_sdr_tpu/ops/pallas_chain.py:938"),
+            ("channelizer_scrambled", "channelizer.cu",
+             "gpu_sdr_tpu/ops/pallas_channelizer.py:213"),
+            ("chirp_lockin", "lockin.cu",
+             "gpu_sdr_tpu/ops/pallas_lockin.py:67"))]
+    for k in kernels:           # the deep-FIR rows, f in the hundreds
+        if k["name"] in deep:
+            k["deep"] = deep[k["name"]]
+    kernels[[k["name"] for k in kernels].index("ddc")]["deep_launches"] = \
+        deep_launches
+    check_line(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,9 @@ def complex_from_pair(pair, device) -> torch.Tensor:
 
 def host_spare(pair, avg: int, nfft: int, device) -> torch.Tensor:
     """The host-fed PFB demodulator's flat ((avg-1)*nfft,) spare
-    (gpu_sdr_tpu/ops/pfb.pfb_spare_init) -> the port's, same layout."""
+    (gpu_sdr_tpu/ops/pfb.pfb_spare_init), or the one
+    pallas_channelizer.channelizer_frames carries -> the port's, same
+    layout (ops/channelizer.channelizer_frames_scrambled takes it)."""
     s = complex_from_pair(pair, device)
     if tuple(s.shape) != ((avg - 1) * nfft,):
         raise ValueError(f"host spare shape {tuple(s.shape)}, expected "

@@ -30,12 +30,15 @@
 // rule and the K blocks per launch have no counterpart.
 //
 // Design: as the DDC kernel's channel mode (ddc.cu).  Grid (tile of 64
-// rows, 32-channel chunk).  A block stages the tile's extended rows
-// (64 + f - 1, a chunk of 32 tones), rotated, in shared memory with an
-// odd pitch; lanes run over channels with 8 rows each in registers;
-// G[j, t, c] is read coalesced once per 8 rows, every staged value is a
-// shared-memory broadcast to the warp.  The last tile is masked.
-// Accumulation is FP32 FFMA in order j, then t.
+// rows, 32-channel chunk).  A block stages the tile's extended rows,
+// rotated, in shared memory with an odd pitch, a chunk of taps and a
+// chunk of 32 tones at a time: for taps [j0, j0 + J) the rows from
+// j0 on, 64 + J - 1 of them, J the most that keep a block within the
+// default 48 KB (123), so any f runs.  Lanes run over channels with 8
+// rows each in registers; G[j, t, c] is read coalesced once per 8 rows,
+// every staged value is a shared-memory broadcast to the warp.  The last
+// tile is masked.  Accumulation is FP32 FFMA in order: chunks of J taps,
+// then chunks of tones, then j, then t.
 
 #include <cuda_runtime.h>
 
@@ -47,6 +50,17 @@ constexpr int kRowsPerThread = 8;
 constexpr int kTile = kGroups * kRowsPerThread;   // 64 rows per tile
 constexpr int kChunk = 32;        // tones staged per pass
 constexpr int kPitch = kChunk + 1;
+constexpr int kSmemDefault = 48 * 1024;   // a block's shared memory, no opt-in
+// taps staged per pass: the most whose kTile + taps - 1 rows fit (123)
+constexpr int kTaps = kSmemDefault / (kPitch * (int)sizeof(float2)) - kTile + 1;
+static_assert((kTile + kTaps - 1) * kPitch * sizeof(float2) <= kSmemDefault,
+              "chain block over 48 KB");
+
+// A block's dynamic shared memory for f taps (ops/chain.py smem_bytes
+// mirrors it), at most kSmemDefault for any f.
+int smem_bytes(int f) {
+    return (kTile + (f < kTaps ? f : kTaps) - 1) * kPitch * (int)sizeof(float2);
+}
 
 __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
     acc.x = fmaf(a.x, b.x, acc.x);
@@ -59,6 +73,9 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
     return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
+// kDeep: f > kTaps, passes of kTaps taps; else one pass of all f taps,
+// the j0 loop gone at compile time (the main path's f 4).
+template <bool kDeep>
 __global__ void __launch_bounds__(kLanes * kGroups)
 chain_kernel(const float2* __restrict__ P, const float2* __restrict__ hP,
              const float2* __restrict__ G, const float2* __restrict__ ramp,
@@ -72,36 +89,39 @@ chain_kernel(const float2* __restrict__ P, const float2* __restrict__ hP,
     const int n0 = blockIdx.x * kTile;
     const int c = blockIdx.y * kLanes + tx;
     const int cl = c < Cp ? c : Cp - 1;           // dead lanes load a live column
-    const int ext = kTile + lead;
     float2 acc[kRowsPerThread];
 #pragma unroll
     for (int k = 0; k < kRowsPerThread; ++k) acc[k] = make_float2(0.f, 0.f);
 
-    for (int t0 = 0; t0 < Ct; t0 += kChunk) {
-        const int tc = min(kChunk, Ct - t0);
-        __syncthreads();
-        // extended row q of the tile is shard row n0 - lead + q: a halo
-        // row below 0, a P row up to nbt, zero past the end
-        for (int e = tid; e < ext * tc; e += kLanes * kGroups) {
-            const int q = e / tc;
-            const int t = e - q * tc;
-            const int r = n0 - lead + q;
-            float2 v = make_float2(0.f, 0.f);
-            if (r < 0)
-                v = cmul(hP[(r + lead) * Ct + t0 + t], hrot[t0 + t]);
-            else if (r < nbt)
-                v = cmul(P[(long long)r * Ct + t0 + t], srot[t0 + t]);
-            as[q * kPitch + t] = v;
-        }
-        __syncthreads();
-        for (int j = 0; j < f; ++j) {
-            const float2* g = G + ((long long)j * Ct + t0) * Cp + cl;
-            const float2* a = as + (ty + j) * kPitch;
-            for (int t = 0; t < tc; ++t) {
-                const float2 gv = __ldg(g + (long long)t * Cp);
+    for (int j0 = 0; j0 < (kDeep ? f : 1); j0 += kTaps) {
+        const int jc = kDeep ? min(kTaps, f - j0) : f;
+        const int ext = kTile + jc - 1;
+        for (int t0 = 0; t0 < Ct; t0 += kChunk) {
+            const int tc = min(kChunk, Ct - t0);
+            __syncthreads();
+            // staged row q of this pass is shard row n0 - lead + j0 + q: a
+            // halo row below 0, a P row up to nbt, zero past the end
+            for (int e = tid; e < ext * tc; e += kLanes * kGroups) {
+                const int q = e / tc;
+                const int t = e - q * tc;
+                const int r = n0 - lead + j0 + q;
+                float2 v = make_float2(0.f, 0.f);
+                if (r < 0)
+                    v = cmul(hP[(r + lead) * Ct + t0 + t], hrot[t0 + t]);
+                else if (r < nbt)
+                    v = cmul(P[(long long)r * Ct + t0 + t], srot[t0 + t]);
+                as[q * kPitch + t] = v;
+            }
+            __syncthreads();
+            for (int j = 0; j < jc; ++j) {
+                const float2* g = G + ((long long)(j0 + j) * Ct + t0) * Cp + cl;
+                const float2* a = as + (ty + j) * kPitch;
+                for (int t = 0; t < tc; ++t) {
+                    const float2 gv = __ldg(g + (long long)t * Cp);
 #pragma unroll
-                for (int k = 0; k < kRowsPerThread; ++k)
-                    cmac(acc[k], a[k * kGroups * kPitch + t], gv);
+                    for (int k = 0; k < kRowsPerThread; ++k)
+                        cmac(acc[k], a[k * kGroups * kPitch + t], gv);
+                }
             }
         }
     }
@@ -119,6 +139,12 @@ chain_kernel(const float2* __restrict__ P, const float2* __restrict__ hP,
 
 }  // namespace
 
+// The launch's shared memory for f taps, the plan ops/chain.py
+// smem_bytes mirrors; -1 for f < 1.
+extern "C" int sdr_chain_smem_bytes(int f) {
+    return f < 1 ? -1 : smem_bytes(f);
+}
+
 // P (nbt, Ct), hP (f-1, Ct), G (f, Ct, Cp), ramp (nbt, Cp), srot and
 // hrot (Ct,), drot (Cp,) -> out (nbt, Cp).
 extern "C" int sdr_chain(const void* P, const void* hP, const void* G,
@@ -127,15 +153,11 @@ extern "C" int sdr_chain(const void* P, const void* hP, const void* G,
                          int Cp, int f, void* stream) {
     if (nbt <= 0 || Ct <= 0 || Cp <= 0 || f < 2 || f - 1 > nbt)
         return (int)cudaErrorInvalidValue;
-    const int smem = (kTile + f - 1) * kPitch * (int)sizeof(float2);
-    if (smem > 48 * 1024) {     // an f too deep fails here
-        const cudaError_t e = cudaFuncSetAttribute(
-            chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const int smem = smem_bytes(f);
     const dim3 grid((unsigned)((nbt + kTile - 1) / kTile),
                     (unsigned)((Cp + kLanes - 1) / kLanes));
-    chain_kernel<<<grid, dim3(kLanes, kGroups), smem, (cudaStream_t)stream>>>(
+    const auto kernel = f > kTaps ? chain_kernel<true> : chain_kernel<false>;
+    kernel<<<grid, dim3(kLanes, kGroups), smem, (cudaStream_t)stream>>>(
         (const float2*)P, (const float2*)hP, (const float2*)G,
         (const float2*)ramp, (const float2*)srot, (const float2*)hrot,
         (const float2*)drot, (float2*)out, nbt, Ct, Cp, f);

@@ -4,6 +4,9 @@
 //   channelizer_frames_t  (_kernel_t): a streamed block, or one frame in
 //                         const-frame mode; the fused-loopback TONES /
 //                         NOISE chain (engine/fused._ChannelizerWavetableChain);
+//   channelizer_frames    (_kernel): a streamed block, its spectra stored
+//                         in the scrambled order k1*n2 + k2 (bin k at
+//                         (k % n1)*n2 + k / n1); sdr_channelizer_scrambled;
 //   channelizer_frames_at (_kernel_t_at): block `idx` of a resident
 //                         (total_frames, nfft) recording, read in place;
 //                         the device replay's channelizer_at sub-path;
@@ -18,7 +21,10 @@
 //   out[t, k]     = sum_{b<n2} z_k1[t, b] * G[k1, b, k2]             stage 2
 // with F1[a, k1] = exp(-2 pi i a k1 / n1) and the twiddle folded into
 // G[k1, b, k2] = exp(-2 pi i b k1 / nfft) * exp(-2 pi i b k2 / n2).
-// Output is (T, nfft) in natural bin order.  The extended block (avg-1
+// Output is (T, nfft) in natural bin order (or, for channelizer_frames,
+// scrambled: each (tile, k1) block then writes its n2 bins of a frame as
+// one contiguous run, where the natural order strides them by n1; no
+// separate permutation pass).  The extended block (avg-1
 // halo rows, then the block's T frames) is read in place from one of three
 // sources, a template parameter of the kernel so that each mode's
 // addressing costs what it needs in the pre-sum's inner loop:
@@ -56,7 +62,7 @@
 // card's FP32-to-bandwidth ratio (~20), so plain FFMA, not memory, sets
 // the time.  The TPU kernels' layout artifacts are dropped: no
 // (n1, T, n2) transpose (of the block, or of the whole recording at
-// upload), no scrambled order, no 8-frame halo units, no bf16 hi/lo
+// upload), no 8-frame halo units, no bf16 hi/lo
 // split, no bt % 8 or total_frames % 8 rule.  Tensor cores (wgmma with a
 // 3xbf16 or 3xTF32 split to hold 90 dB) are later work.
 
@@ -134,7 +140,7 @@ struct RecordedShort {
     }
 };
 
-template <class Src>
+template <class Src, bool kScrambled>
 __global__ void __launch_bounds__(NTHREADS)
 channelizer_kernel(Src src, const float* __restrict__ w,
                    const float2* __restrict__ F1,
@@ -217,27 +223,31 @@ channelizer_kernel(Src src, const float* __restrict__ w,
             const int t = t0 + fbase + r;
             if (t >= T) continue;
 #pragma unroll
-            for (int j = 0; j < RK; ++j)
+            for (int j = 0; j < RK; ++j) {
+                const int k2 = kb + lane + 32 * j;
                 if (ok[j])
-                    out[(size_t)t * nfft + k1 + n1 * (kb + lane + 32 * j)] =
+                    out[(size_t)t * nfft +
+                        (kScrambled ? k1 * n2 + k2 : k1 + n1 * k2)] =
                         make_float2(ar[r][j], ai[r][j]);
+            }
         }
     }
 }
 
-template <class Src>
+template <class Src, bool kScrambled = false>
 int launch(const Src& src, const void* w, const void* F1, const void* G,
            void* out, int n1, int n2, int avg, void* stream) {
     // the same size as smem_bytes() in ops/channelizer.py
     const size_t smem = (size_t)(n2 * n2 + FT * n2) * sizeof(float2);
     cudaError_t e = cudaFuncSetAttribute(
-        channelizer_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        channelizer_kernel<Src, kScrambled>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((src.T + FT - 1) / FT, n1);
-    channelizer_kernel<Src><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-        src, (const float*)w, (const float2*)F1, (const float2*)G,
-        (float2*)out, n1, n2, avg);
+    channelizer_kernel<Src, kScrambled>
+        <<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+            src, (const float*)w, (const float2*)F1, (const float2*)G,
+            (float2*)out, n1, n2, avg);
     return (int)cudaGetLastError();
 }
 
@@ -256,6 +266,20 @@ extern "C" int sdr_channelizer(const void* x, const void* spare,
     const Streamed src{(const float2*)x, (const float2*)spare, T, avg - 1,
                        n1 * n2, const_x};
     return launch(src, w, F1, G, out, n1, n2, avg, stream);
+}
+
+// Streamed block x (T, nfft) after the spare (avg-1, nfft), spectra in
+// the scrambled order k1*n2 + k2.
+extern "C" int sdr_channelizer_scrambled(const void* x, const void* spare,
+                                         const void* w, const void* F1,
+                                         const void* G, void* out, int T,
+                                         int n1, int n2, int avg,
+                                         void* stream) {
+    if ((long long)(T + avg - 1) * n1 * n2 >= (1LL << 31))   // int offsets
+        return (int)cudaErrorInvalidValue;
+    const Streamed src{(const float2*)x, (const float2*)spare, T, avg - 1,
+                       n1 * n2, 0};
+    return launch<Streamed, true>(src, w, F1, G, out, n1, n2, avg, stream);
 }
 
 // Frames [base, base + T) of a (total_frames, nfft) recording.

@@ -28,9 +28,13 @@
 // bar rules out TF32) and the halo is read where it lies.
 //
 // Design: a block owns a tile of output rows and stages the tile's
-// extended rows in shared memory, a chunk of samples of each row at a
-// time, so any M fits; the row pitch is odd so that row-strided reads
-// hit distinct banks.  Two thread mappings:
+// extended rows in shared memory, a chunk of taps and a chunk of samples
+// of each row at a time, so any M and any f fit: for taps [j0, j0 + J)
+// the tile's rows [n0 + j0, n0 + j0 + tile + J - 1) are staged and
+// accumulated, J the most taps whose rows keep a block within the
+// default 48 KB (31 in channel mode, 59 in row mode), so shared memory
+// is bounded by J and not by f.  The row pitch is odd so that row-strided
+// reads hit distinct banks.  Two thread mappings:
 //   channel mode (many channels, config 3): lanes over 32 channels, each
 //     thread 8 rows in registers; hmod[i, c] is read through L1/L2,
 //     coalesced, once per 8 rows, and every staged sample is a shared-
@@ -38,7 +42,8 @@
 //   row mode (at most 8 channels, config 1 has 1): one thread per output
 //     row looping over the channels in registers, so no lane idles at
 //     C = 1; hmod reads are warp-uniform broadcasts.
-// Accumulation is FP32 FFMA, taps in order j, then m.
+// Accumulation is FP32 FFMA, taps in order: chunks of J taps, then
+// chunks of samples, then j, then m.
 
 #include <cuda_runtime.h>
 
@@ -54,6 +59,19 @@ constexpr int kChunkC = 64;       // channel mode: staged samples per row
 constexpr int kTileR = 128;       // row mode: rows (threads) per block
 constexpr int kChunkR = 32;       // row mode: staged samples per row
 constexpr int kMaxRowChannels = 8;
+constexpr int kSmemDefault = 48 * 1024;   // a block's shared memory, no opt-in
+
+// Taps staged per pass: the most whose tile + taps - 1 rows of a chunk
+// fit kSmemDefault (31 in channel mode, 59 in row mode).
+constexpr int taps_per_pass(int tile, int chunk) {
+    return kSmemDefault / ((chunk + 1) * (int)sizeof(float2)) - tile + 1;
+}
+constexpr int kTapsC = taps_per_pass(kTileC, kChunkC);
+constexpr int kTapsR = taps_per_pass(kTileR, kChunkR);
+static_assert((kTileC + kTapsC - 1) * (kChunkC + 1) * sizeof(float2) <=
+              kSmemDefault, "channel mode over 48 KB");
+static_assert((kTileR + kTapsR - 1) * (kChunkR + 1) * sizeof(float2) <=
+              kSmemDefault, "row mode over 48 KB");
 
 // Stage extended rows [g0, g0 + nrows), columns [m0, m0 + mc).
 __device__ __forceinline__ void stage(float2* xs, const Rows& in,
@@ -85,6 +103,9 @@ __device__ __forceinline__ float2 rotation(const long long* phase, int c,
     return make_float2(co, -s);
 }
 
+// kDeep: f > kTapsC, passes of kTapsC taps; else one pass of all f taps,
+// the j0 loop gone at compile time.
+template <bool kDeep>
 __global__ void __launch_bounds__(kLanes * kGroups)
 ddc_channel_kernel(Rows in, const float2* __restrict__ hmod,
                    const float2* __restrict__ ramp,
@@ -100,20 +121,24 @@ ddc_channel_kernel(Rows in, const float2* __restrict__ hmod,
 #pragma unroll
     for (int k = 0; k < kRowsPerThread; ++k) acc[k] = make_float2(0.f, 0.f);
 
-    for (int m0 = 0; m0 < in.M; m0 += kChunkC) {
-        const int mc = min(kChunkC, in.M - m0);
-        __syncthreads();
-        stage(xs, in, n0, kTileC + in.lead, m0, mc, pitch,
-              ty * kLanes + tx, kLanes * kGroups);
-        __syncthreads();
-        for (int j = 0; j < f; ++j) {
-            const float2* h = hmod + ((long long)j * in.M + m0) * C + cl;
-            const float2* xr = xs + (ty + j) * pitch;
-            for (int m = 0; m < mc; ++m) {
-                const float2 hv = __ldg(h + (long long)m * C);
+    for (int j0 = 0; j0 < (kDeep ? f : 1); j0 += kTapsC) {
+        const int jc = kDeep ? min(kTapsC, f - j0) : f;
+        for (int m0 = 0; m0 < in.M; m0 += kChunkC) {
+            const int mc = min(kChunkC, in.M - m0);
+            __syncthreads();
+            stage(xs, in, n0 + j0, kTileC + jc - 1, m0, mc, pitch,
+                  ty * kLanes + tx, kLanes * kGroups);
+            __syncthreads();
+            for (int j = 0; j < jc; ++j) {
+                const float2* h = hmod + ((long long)(j0 + j) * in.M + m0) * C
+                                  + cl;
+                const float2* xr = xs + (ty + j) * pitch;
+                for (int m = 0; m < mc; ++m) {
+                    const float2 hv = __ldg(h + (long long)m * C);
 #pragma unroll
-                for (int k = 0; k < kRowsPerThread; ++k)
-                    cmac(acc[k], xr[k * kGroups * pitch + m], hv);
+                    for (int k = 0; k < kRowsPerThread; ++k)
+                        cmac(acc[k], xr[k * kGroups * pitch + m], hv);
+                }
             }
         }
     }
@@ -129,6 +154,7 @@ ddc_channel_kernel(Rows in, const float2* __restrict__ hmod,
     }
 }
 
+template <bool kDeep>             // as ddc_channel_kernel's, at kTapsR
 __global__ void __launch_bounds__(kTileR)
 ddc_row_kernel(Rows in, const float2* __restrict__ hmod,
                const float2* __restrict__ ramp,
@@ -142,19 +168,23 @@ ddc_row_kernel(Rows in, const float2* __restrict__ hmod,
 #pragma unroll
     for (int c = 0; c < kMaxRowChannels; ++c) acc[c] = make_float2(0.f, 0.f);
 
-    for (int m0 = 0; m0 < in.M; m0 += kChunkR) {
-        const int mc = min(kChunkR, in.M - m0);
-        __syncthreads();
-        stage(xs, in, n0, kTileR + in.lead, m0, mc, pitch, t, kTileR);
-        __syncthreads();
-        for (int j = 0; j < f; ++j) {
-            const float2* h = hmod + ((long long)j * in.M + m0) * C;
-            const float2* xr = xs + (t + j) * pitch;
-            for (int m = 0; m < mc; ++m) {
-                const float2 xv = xr[m];
+    for (int j0 = 0; j0 < (kDeep ? f : 1); j0 += kTapsR) {
+        const int jc = kDeep ? min(kTapsR, f - j0) : f;
+        for (int m0 = 0; m0 < in.M; m0 += kChunkR) {
+            const int mc = min(kChunkR, in.M - m0);
+            __syncthreads();
+            stage(xs, in, n0 + j0, kTileR + jc - 1, m0, mc, pitch, t, kTileR);
+            __syncthreads();
+            for (int j = 0; j < jc; ++j) {
+                const float2* h = hmod + ((long long)(j0 + j) * in.M + m0) * C;
+                const float2* xr = xs + (t + j) * pitch;
+                for (int m = 0; m < mc; ++m) {
+                    const float2 xv = xr[m];
 #pragma unroll
-                for (int c = 0; c < kMaxRowChannels; ++c)
-                    if (c < C) cmac(acc[c], xv, __ldg(h + (long long)m * C + c));
+                    for (int c = 0; c < kMaxRowChannels; ++c)
+                        if (c < C)
+                            cmac(acc[c], xv, __ldg(h + (long long)m * C + c));
+                }
             }
         }
     }
@@ -169,9 +199,14 @@ ddc_row_kernel(Rows in, const float2* __restrict__ hmod,
     }
 }
 
-int smem_bytes(int lead, int row_mode) {
-    return row_mode ? (kTileR + lead) * (kChunkR + 1) * (int)sizeof(float2)
-                    : (kTileC + lead) * (kChunkC + 1) * (int)sizeof(float2);
+// A block's dynamic shared memory: tile + min(f, taps) - 1 staged rows
+// (ops/ddc.py smem_bytes mirrors it), at most kSmemDefault for any f.
+int smem_bytes(int f, int row_mode) {
+    return row_mode
+        ? (kTileR + (f < kTapsR ? f : kTapsR) - 1) * (kChunkR + 1) *
+              (int)sizeof(float2)
+        : (kTileC + (f < kTapsC ? f : kTapsC) - 1) * (kChunkC + 1) *
+              (int)sizeof(float2);
 }
 
 int launch(const Rows& in, const void* hmod, const void* ramp,
@@ -181,28 +216,20 @@ int launch(const Rows& in, const void* hmod, const void* ramp,
     if (nb <= 0 || in.M <= 0 || f <= 0 || C <= 0 ||
         (row_mode && C > kMaxRowChannels))
         return (int)cudaErrorInvalidValue;
-    // an f too deep for shared memory fails here, cudaErrorInvalidValue
-    const int smem = smem_bytes(f - 1, row_mode);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = row_mode
-            ? cudaFuncSetAttribute(ddc_row_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem)
-            : cudaFuncSetAttribute(ddc_channel_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const int smem = smem_bytes(f, row_mode);
     const cudaStream_t s = (cudaStream_t)stream;
     if (row_mode) {
-        ddc_row_kernel<<<(unsigned)((nb + kTileR - 1) / kTileR), kTileR,
-                         smem, s>>>(
+        const auto kernel = f > kTapsR ? ddc_row_kernel<true>
+                                       : ddc_row_kernel<false>;
+        kernel<<<(unsigned)((nb + kTileR - 1) / kTileR), kTileR, smem, s>>>(
             in, (const float2*)hmod, (const float2*)ramp,
             (const long long*)phase, (float2*)out, f, C, two_pi_w);
     } else {
         const dim3 grid((unsigned)((nb + kTileC - 1) / kTileC),
                         (unsigned)((C + kLanes - 1) / kLanes));
-        ddc_channel_kernel<<<grid, dim3(kLanes, kGroups), smem, s>>>(
+        const auto kernel = f > kTapsC ? ddc_channel_kernel<true>
+                                       : ddc_channel_kernel<false>;
+        kernel<<<grid, dim3(kLanes, kGroups), smem, s>>>(
             in, (const float2*)hmod, (const float2*)ramp,
             (const long long*)phase, (float2*)out, f, C, two_pi_w);
     }
@@ -210,6 +237,12 @@ int launch(const Rows& in, const void* hmod, const void* ramp,
 }
 
 }  // namespace
+
+// The launch's shared memory for f taps (row_mode 1: row mode), the
+// plan ops/ddc.py smem_bytes mirrors; -1 for f < 1.
+extern "C" int sdr_ddc_smem_bytes(int f, int row_mode) {
+    return f < 1 ? -1 : smem_bytes(f, row_mode);
+}
 
 // (a) a streamed block after its history (`hist` of (f-1)*M samples), or
 // (b) block rows [base, base + nb) of an x_rows-row recording (`hist`

@@ -118,6 +118,9 @@ def _bind(lib) -> None:
     lib.sdr_channelizer_at_halo.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll,
                                             ci, ci, ci, ci, ci, vp]
     lib.sdr_channelizer_at_halo.restype = ci
+    lib.sdr_channelizer_scrambled.argtypes = [vp, vp, vp, vp, vp, vp,
+                                              ci, ci, ci, ci, vp]
+    lib.sdr_channelizer_scrambled.restype = ci
     lib.sdr_channelizer_frame_tile.argtypes = []
     lib.sdr_channelizer_frame_tile.restype = ci
     lib.sdr_ddc.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ci, ci, ci, ci,
@@ -126,10 +129,16 @@ def _bind(lib) -> None:
     lib.sdr_ddc_staged.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ci, ci,
                                    ci, ci, ci, fl, ci, vp]
     lib.sdr_ddc_staged.restype = ci
-    lib.sdr_fold.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-    lib.sdr_fold.restype = ci
+    lib.sdr_ddc_smem_bytes.argtypes = [ci, ci]
+    lib.sdr_ddc_smem_bytes.restype = ci
+    for name in ("sdr_fold", "sdr_fold_streamed", "sdr_fold_rotg",
+                 "sdr_fold_t"):
+        getattr(lib, name).argtypes = [vp] * 6 + [ci, ci, ci, ci, vp]
+        getattr(lib, name).restype = ci
     lib.sdr_chain.argtypes = [vp] * 8 + [ci, ci, ci, ci, vp]
     lib.sdr_chain.restype = ci
+    lib.sdr_chain_smem_bytes.argtypes = [ci]
+    lib.sdr_chain_smem_bytes.restype = ci
     lib.sdr_fold_tile.argtypes = []
     lib.sdr_fold_tile.restype = ci
     lib.sdr_lockin.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, vp]

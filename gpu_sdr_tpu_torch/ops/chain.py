@@ -21,6 +21,8 @@ shard t's rows of P and of the ramp, its halo the f-1 rows before them
 (zero ahead of the stream's first block), the current block's on the
 others (``block_rotations`` gives both).
 
+The kernel stages a tile's extended rows a chunk of taps at a time, so
+its shared memory is bounded for any f (``smem_bytes`` mirrors its plan).
 Not ported: the bf16 hi/lo split of G, the lP halo units padded to 8
 rows, the rep8 rotation rows, the tile rule (tiles dividing the shard's
 rows) and the K blocks per launch.
@@ -36,7 +38,16 @@ import torch
 from ..kernels import build
 from . import ddc as ddc_ops
 from .cplx import advance_phase, from_np, phase_rotation
-from .ddc import DirectDDCConfig
+from .ddc import DirectDDCConfig, staged_smem_bytes
+
+# csrc/chain.cu: rows per tile, tones staged per pass
+CHAIN_TILE, CHAIN_CHUNK = 64, 32
+
+
+def smem_bytes(f: int) -> int:
+    """The chain kernel's shared memory for f taps, the plan of
+    csrc/chain.cu (sdr_chain_smem_bytes): at most 48 KB for any f."""
+    return staged_smem_bytes(CHAIN_TILE, CHAIN_CHUNK, f)
 
 
 def _expi(ph: np.ndarray, W: int, sign: float = 1.0) -> np.ndarray:

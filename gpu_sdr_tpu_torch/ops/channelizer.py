@@ -17,8 +17,15 @@ upload (the sharded replay, parallel/sharded_replay.py).  The output is
 tone selection is ops/pfb.select_tones (a plain ``index_select``) where
 the JAX package needed select_tones_t; the TPU layout artifacts
 (transposed (n1, T, n2) blocks and the recording transposed at upload,
-scrambled bins, 8-frame halo units, bf16 hi/lo constants, the bt % 8
-tiling rule) have no counterpart here.
+8-frame halo units, bf16 hi/lo constants, the bt % 8 tiling rule) have
+no counterpart here.
+
+``channelizer_frames_scrambled`` is the port of the JAX package's
+``channelizer_frames`` (kernel #3): a streamed block in the JAX layout
+(flat spare and block), its spectra in the scrambled Cooley-Tukey order
+frames[t, k1*n2 + k2] (bin k at ``scramble_index(k)``), stored so by the
+kernel itself (``channelizer_scrambled``).  No engine path takes it, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import torch
 
 from ..kernels import build
 from .pfb import PFBConfig
-from .presum import presum_plain, recording_halo
+from .presum import pfb_frames_fused, presum_plain, recording_halo
 
 FRAME_TILE = 32                     # frames per CUDA block (csrc FT)
 SMEM_LIMIT = 232_448                # bytes of shared memory a block may use
@@ -156,28 +163,37 @@ def channelizer(window2d: torch.Tensor, F1: torch.Tensor, G: torch.Tensor,
     _check(window2d, F1, G, spare, x, nframes)
     if x.device.type == "cpu":
         return channelizer_plain(window2d, F1, G, spare, x, nframes)
-    if x.device.type != "cuda":
-        raise ValueError(f"channelizer: unsupported device {x.device}")
-    n1, n2 = G.shape[0], G.shape[1]
-    avg, nfft = window2d.shape
-    if smem_bytes(n2) > SMEM_LIMIT:
-        raise ValueError(f"channelizer: split ({n1}, {n2}) does not fit "
-                         "one block's shared memory")
     T = int(nframes) if nframes is not None else x.shape[0]
-    x, spare, window2d, F1, G = (t.contiguous() for t in
-                                 (x, spare, window2d, F1, G))
-    out = torch.empty((T, nfft), dtype=torch.complex64, device=x.device)
-    if T == 0:
-        return out
-    _library()
-    build.launch("sdr_channelizer", x.device, x.data_ptr(), spare.data_ptr(),
-                 window2d.data_ptr(), F1.data_ptr(), G.data_ptr(),
-                 out.data_ptr(), T, n1, n2, avg, int(nframes is not None))
-    channelizer.launches += 1
+    out = _launch_streamed("sdr_channelizer", window2d, F1, G, spare, x, T,
+                           int(nframes is not None))
+    if T:
+        channelizer.launches += 1
     return out
 
 
 channelizer.launches = 0
+
+
+def _launch_streamed(entry: str, window2d, F1, G, spare, x, T: int, *flags):
+    """Launch the C entry `entry` of csrc/channelizer.cu's stream source
+    (#1, or #3's scrambled store) on CUDA operands: (T, nfft) spectra,
+    no launch when T is 0."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {x.device}")
+    n1, n2 = G.shape[0], G.shape[1]
+    avg, nfft = window2d.shape
+    if smem_bytes(n2) > SMEM_LIMIT:
+        raise ValueError(f"{entry}: split ({n1}, {n2}) does not fit one "
+                         "block's shared memory")
+    x, spare, window2d, F1, G = (t.contiguous() for t in
+                                 (x, spare, window2d, F1, G))
+    out = torch.empty((T, nfft), dtype=torch.complex64, device=x.device)
+    if T:
+        _library()
+        build.launch(entry, x.device, x.data_ptr(), spare.data_ptr(),
+                     window2d.data_ptr(), F1.data_ptr(), G.data_ptr(),
+                     out.data_ptr(), T, n1, n2, avg, *flags)
+    return out
 
 
 def channelizer_at_plain(window2d: torch.Tensor, F1: torch.Tensor,
@@ -307,3 +323,91 @@ def channelizer_frames(consts, spare: torch.Tensor, x: torch.Tensor,
     body = x if nframes is None else x.expand(T, x.shape[1])
     tail = body[T - lead:] if T >= lead else torch.cat([spare, body])[T:]
     return tail.contiguous(), frames
+
+
+def scramble_index(bins, n1: int, n2: int) -> np.ndarray:
+    """The position of each bin k in the scrambled order (k % n1)*n2 +
+    k // n1 (gpu_sdr_tpu/ops/cplx.DFT.scramble_index), int64."""
+    b = np.asarray(bins, dtype=np.int64)
+    return (b % n1) * n2 + b // n1
+
+
+def scrambled(frames: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """(T, nfft) spectra in natural order -> scrambled order: position
+    k1*n2 + k2 holds bin k1 + n1*k2."""
+    T = frames.shape[0]
+    return frames.reshape(T, n2, n1).transpose(1, 2).reshape(T, n1 * n2)
+
+
+def channelizer_scrambled_plain(window2d: torch.Tensor, F1: torch.Tensor,
+                                G: torch.Tensor, spare: torch.Tensor,
+                                x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel #3: the channelizer's plain version, then
+    the permutation to the scrambled order.  (T, nfft) complex64."""
+    return scrambled(channelizer_plain(window2d, F1, G, spare, x),
+                     G.shape[0], G.shape[1])
+
+
+def channelizer_scrambled(window2d: torch.Tensor, F1: torch.Tensor,
+                          G: torch.Tensor, spare: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """The channelizer of a streamed block x (T, nfft) after its spare
+    (avg-1, nfft), spectra in the scrambled order (kernel #3,
+    gpu_sdr_tpu/ops/pallas_channelizer.channelizer_frames): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.  Counts
+    its kernel launches in ``channelizer_scrambled.launches``."""
+    _check(window2d, F1, G, spare, x, None)
+    if x.device.type == "cpu":
+        return channelizer_scrambled_plain(window2d, F1, G, spare, x)
+    out = _launch_streamed("sdr_channelizer_scrambled", window2d, F1, G,
+                           spare, x, x.shape[0])
+    if x.shape[0]:
+        channelizer_scrambled.launches += 1
+    return out
+
+
+channelizer_scrambled.launches = 0
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_consts(nfft: int, device: torch.device):
+    """(F1, G) of nfft's split on `device`, built once."""
+    n1, n2 = best_split(nfft)
+    return stage1_matrix(n1, device), stage2_consts(nfft, n1, n2, device)
+
+
+def channelizer_frames_scrambled(cfg: PFBConfig, window: torch.Tensor,
+                                 spare: torch.Tensor, x: torch.Tensor):
+    """One streamed block through the channelizer, in the JAX package's
+    layout and bin order (gpu_sdr_tpu/ops/pallas_channelizer.
+    channelizer_frames, without its `dft`: the split is best_split's,
+    the JAX package's two-stage one): (new_spare, frames).
+
+    window (nfft*avg,) float32; spare ((avg-1)*nfft,) carried samples; x
+    (L,), L % nfft == 0.  frames (L//nfft, nfft) complex64 in the
+    scrambled order, bin k at scramble_index(k); new_spare the last
+    (avg-1)*nfft samples of spare ++ x.  Where the kernel takes the
+    geometry (can_fuse_channelizer) it runs kernel #3; elsewhere, as the
+    JAX package falls back to its XLA route, the engine's host-fed PFB
+    route (ops/presum.pfb_frames_fused: the pre-sum kernel #2, then
+    torch.fft) put in the same order.  On CPU tensors both are their
+    plain versions."""
+    nfft, avg = cfg.nfft, cfg.avg
+    L = x.shape[0]
+    if L % nfft or tuple(spare.shape) != ((avg - 1) * nfft,) or \
+            tuple(window.shape) != (avg * nfft,):
+        raise ValueError(f"channelizer_frames_scrambled: block {L}, spare "
+                         f"{tuple(spare.shape)}, window "
+                         f"{tuple(window.shape)} for nfft {nfft}, avg {avg}")
+    n1, n2 = best_split(nfft)
+    if can_fuse_channelizer(cfg, L):
+        F1, G = _dft_consts(nfft, x.device)
+        frames = channelizer_scrambled(
+            window.reshape(avg, nfft), F1, G, spare.reshape(avg - 1, nfft),
+            x.reshape(L // nfft, nfft))
+    else:
+        frames = scrambled(pfb_frames_fused(cfg, window, spare, x)[1], n1,
+                           n2)
+    H = spare.shape[0]
+    new_spare = x[L - H:] if H <= L else torch.cat([spare, x])[L:]
+    return new_spare, frames

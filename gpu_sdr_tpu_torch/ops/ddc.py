@@ -16,7 +16,9 @@ package's int32 values convert exactly, see convert.ddc_state).
 ``direct_ddc_fir`` is the plain version (f complex matmuls); ``ddc_fused``
 launches the kernel for CUDA tensors.  The kernel's second input mode (a
 block of a resident recording, read by block index) serves
-ops/replay_ddc.py.  The TPU kernel's bf16 hi/lo split, its 8-row halo
+ops/replay_ddc.py.  The kernel stages a tile's extended rows a chunk of
+taps at a time, so its shared memory is bounded for any f (``smem_bytes``
+mirrors its plan).  The TPU kernel's bf16 hi/lo split, its 8-row halo
 units and its fallback for untileable geometries have no counterpart.
 """
 
@@ -33,6 +35,27 @@ from .cplx import advance_phase, from_np, phase_rotation
 from .fir import fir_taps_direct
 
 ROW_MODE_MAX_CHANNELS = 8   # csrc/ddc.cu kMaxRowChannels
+SMEM_DEFAULT = 48 * 1024    # a block's shared memory without the opt-in
+# csrc/ddc.cu: (rows per block, staged samples per row) in channel mode
+# and in row mode
+DDC_TILES = {False: (64, 64), True: (128, 32)}
+
+
+def taps_per_pass(tile: int, chunk: int) -> int:
+    """Taps a block stages per pass: the most whose tile + taps - 1 rows
+    of `chunk` samples (odd pitch chunk + 1) fit SMEM_DEFAULT."""
+    return SMEM_DEFAULT // ((chunk + 1) * 8) - tile + 1
+
+
+def staged_smem_bytes(tile: int, chunk: int, f: int) -> int:
+    """Shared memory of a block staging tile + min(f, taps) - 1 rows."""
+    return (tile + min(f, taps_per_pass(tile, chunk)) - 1) * (chunk + 1) * 8
+
+
+def smem_bytes(f: int, row_mode: bool) -> int:
+    """The DDC kernel's shared memory for f taps, the plan of csrc/ddc.cu
+    (sdr_ddc_smem_bytes): at most SMEM_DEFAULT for any f."""
+    return staged_smem_bytes(*DDC_TILES[bool(row_mode)], f)
 
 
 def few_channels(n_channels: int) -> bool:

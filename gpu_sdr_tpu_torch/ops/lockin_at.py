@@ -15,6 +15,14 @@ table does not fit (ops/chirp.chirp_table_fits), where ``lockin_table``
 (kernel #17) reads the oscillator instead.  The stream position `last`
 is a Python int the caller carries; the block index becomes a row
 offset, so nothing waits for the host.
+
+``fused_chirp_lockin`` (``pallas_chirp_lockin`` is the same function, the
+name of kernel #19, gpu_sdr_tpu/ops/pallas_lockin.pallas_chirp_lockin)
+is the streamed form: a block x of nseg*ppt samples, the same kernel on
+x viewed as (nseg, ppt) rows at row offset 0.  Its plain version is the
+JAX package's XLA route, chirp_demod_block then lockin_decimate.  No
+engine path takes it, as in the JAX package; the JAX kernel's 8-segment
+tile has no counterpart (ROADMAP Queue 3, divergence 20).
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch
 from ..kernels import build
 from . import chirp as chirp_ops
 from .chirp import M32, ChirpConfig
-from .lockin import profile_sum
+from .lockin import lockin_decimate, profile_sum
 
 
 def lockin_at_plain(cfg: ChirpConfig, profile: torch.Tensor, last: int,
@@ -73,3 +81,47 @@ def lockin_at(cfg: ChirpConfig, profile: torch.Tensor, last: int,
 
 
 lockin_at.launches = 0
+
+
+def fused_chirp_lockin_plain(cfg: ChirpConfig, profile: torch.Tensor,
+                             last: int, x: torch.Tensor):
+    """Plain version of kernel #19, the JAX package's XLA route
+    (gpu_sdr_tpu/ops/pallas_lockin.py:115-118): the block mixed down
+    against the chirp (ops/chirp, bit-exact phase), then the lock-in.
+    (new_last, y (nseg,))."""
+    new_last, z = chirp_ops.chirp_demod_block(cfg, last, x)
+    return new_last, lockin_decimate(profile, z)
+
+
+def fused_chirp_lockin(cfg: ChirpConfig, profile: torch.Tensor, last: int,
+                       x: torch.Tensor):
+    """Chirp demodulation and lock-in of a streamed block x (nseg*ppt,)
+    at stream position `last` (kernel #19): (new_last, y (nseg,)), the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Counts its kernel launches in ``fused_chirp_lockin.launches``."""
+    ppt = profile.shape[0] if profile.ndim == 1 else -1
+    if profile.dtype != torch.float32 or x.dtype != torch.complex64:
+        raise TypeError("fused_chirp_lockin wants a float32 profile and a "
+                        "complex64 block")
+    if x.ndim != 1 or ppt <= 0 or x.shape[0] % ppt or x.shape[0] == 0:
+        raise ValueError(f"fused_chirp_lockin: block {tuple(x.shape)} is "
+                         f"not whole segments of {ppt}")
+    if x.device != profile.device:
+        raise ValueError("fused_chirp_lockin operands on different devices")
+    if x.device.type == "cpu":
+        return fused_chirp_lockin_plain(cfg, profile, last, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_chirp_lockin: unsupported device {x.device}")
+    nseg = x.shape[0] // ppt
+    x, profile = x.contiguous(), profile.contiguous()
+    out = torch.empty(nseg, dtype=torch.complex64, device=x.device)
+    build.launch("sdr_lockin_at", x.device, x.data_ptr(), profile.data_ptr(),
+                 out.data_ptr(), 0, nseg, ppt, cfg.period, cfg.length,
+                 cfg.chirpness & M32, cfg.f0 & M32, int(last) % cfg.period,
+                 chirp_ops.PI_F32, chirp_ops.INV_2_31_5)
+    fused_chirp_lockin.launches += 1
+    return chirp_ops.advance(cfg, last, x.shape[0]), out
+
+
+fused_chirp_lockin.launches = 0
+pallas_chirp_lockin = fused_chirp_lockin
