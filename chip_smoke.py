@@ -97,7 +97,8 @@ and exits non-zero at the first phase that fails:
    run of the same measurement at >= 90 dB SNR;
 14. the deep FIR: the DDC and chain kernels' shared-memory staging plans
    (csrc/ddc.cu, csrc/chain.cu) against their Python mirrors for every f
-   up to 4096; at decimation 10 and 40,000 rows a block, #7 and #8 in
+   up to 4096 (the DDC's within 48 KB, the chain's, at 100 tones and
+   channels and at 1000 tones and 300 channels, within 227 KB); at decimation 10 and 40,000 rows a block, #7 and #8 in
    channel mode at 100 channels, pf_average 400 and 1000, #9 in row
    mode at one channel, 800 and 2000, #10 on shard 1 of a (time=2) mesh
    at 400, #15 at 1000, each at the stream's start against its plain
@@ -134,10 +135,15 @@ all 19 (the channelizer's times are const-frame mode, the main path's;
 its ``stream_*`` fields are stream mode; the DDC-family kernels carry
 their deep-FIR rows in ``deep``), each with its bound: the larger of its
 bytes over 3.35 TB/s and its FP32 operations over 67 TFLOP/s, counted
-from this run's shapes; ``library_ms`` is one PyTorch call computing the
-same function where there is one (the lock-in modes: ``torch.einsum``;
-the folds and the chain: ``torch.matmul`` of their rotated rows), else
-null.  The last line is ``{"ok": true, "device": {...}}``.
+from this run's shapes; for the folds and the chain (#11-#15), which run
+on the tensor cores with a three-pass TF32 split, three times their
+operations over the dense TF32 peak of 495 TFLOP/s in place of the FP32
+term, the FP32 bound beside it (``bound_fp32_ms``), and their SNR
+against the float64 product at full width (``snr_db``); ``library_ms``
+is one PyTorch call computing the same function where there is one (the
+lock-in modes: ``torch.einsum``; the folds and the chain:
+``torch.matmul`` of their rotated rows), else null.  The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -233,6 +239,8 @@ N_KERNELS = 19                      # the repo's pl.pallas_call sites
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12            # dense, tensor cores
+TC_PASSES = 3                       # the folds' and the chain's TF32 split
 
 
 class SmokeFailure(Exception):
@@ -308,6 +316,32 @@ def bound(n_bytes: int, flops: float) -> dict:
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_tc(n_bytes: int, flops: float) -> dict:
+    """bound() for the tensor-core kernels (#11-#15): the operations
+    TC_PASSES times over at the dense TF32 peak, and the FP32 bound
+    beside it as ``bound_fp32_ms``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = TC_PASSES * flops / TF32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_fp32_ms=bound(n_bytes, flops)["bound_ms"])
+
+
+def snr64(name: str, k, plain, *args) -> float:
+    """The SNR of a tensor-core kernel's output `k` against its plain
+    version evaluated in float64 (complex128) on the same operands, at
+    full width; checked against the bar."""
+    import torch
+    ref = plain(*(t.to(torch.complex128)
+                  if torch.is_tensor(t) and t.is_complex() else t
+                  for t in args))
+    s = snr_db(ref.cpu().numpy(), k.cpu().numpy())
+    print(f"{name} {tuple(k.shape)}: {s:.1f} dB vs float64 (its plain "
+          "version in complex128)")
+    check(s >= SNR_BAR_DB, f"{name} {s:.1f} dB vs float64")
+    return s
 
 
 def ddc_flops(rows: int, channels: int, taps: int) -> int:
@@ -593,12 +627,13 @@ def direct_oracle(x: np.ndarray, freqs, M: int = D_DECIM,
     return out
 
 
-def report(name, k, p, oracle=None, times=None, rows=None, cost=None):
+def report(name, k, p, oracle=None, times=None, rows=None, cost=None,
+           tc=False):
     """Print and check one DIRECT kernel's output `k` against its plain
     version's `p` and, when given, the float64 oracle of its first
     ORACLE_ROWS rows; with `times` (kernel ms, plain ms) and `cost`
     (bytes in and out, operations), keep its row of the kernels line in
-    `rows`."""
+    `rows`, its bound the tensor cores' with `tc`."""
     import torch
     torch.cuda.synchronize()
     kn, pn = k.cpu().numpy(), p.cpu().numpy()
@@ -619,7 +654,8 @@ def report(name, k, p, oracle=None, times=None, rows=None, cost=None):
           f"{name} {s_gold} dB vs float64")
     if times:
         rows[name] = dict(max_abs_err=err, ms=times[0], plain_ms=times[1],
-                          library_ms=None, **bound(*cost))
+                          library_ms=None,
+                          **(bound_tc if tc else bound)(*cost))
 
 
 def phase_direct_kernels(dev):
@@ -703,7 +739,9 @@ def phase_direct_kernels(dev):
     report("fold", yk, fold_plain(*fargs),
            times=(time_ms(lambda: fold(*fargs)),
                   time_ms(lambda: fold_plain(*fargs))), rows=rows,
-           cost=(nbytes(*fargs[:5], yk), D_ROWS * Cp * (8 * Ct + 12)))
+           cost=(nbytes(*fargs[:5], yk), D_ROWS * Cp * (8 * Ct + 12)),
+           tc=True)
+    rows["fold"]["snr_db"] = snr64("fold", yk, fold_plain, *fargs)
     rows["fold"]["library_ms"] = fold_library_ms(chain, crot)
     return rows
 
@@ -1329,6 +1367,8 @@ def phase_sharded_kernels(dev):
         err = max(err, float((yk - chain_plain(*args)).abs().max()))
     _, srot, hrot0, drot = ch.block_rotations(states[1])
     args = (Pt[1], hPt[1], Gd, rampt[1], srot, srot, drot)
+    s64 = snr64("chain [block 1, shard 1]",
+                via_kernel("chain", lambda: chain(*args)), chain_plain, *args)
     f = Gd.shape[0]
     E = torch.cat([hPt[1] * srot, Pt[1] * srot])
     A = torch.cat([E[j:j + nbt] for j in range(f)], dim=1)   # (nbt, f*Ct)
@@ -1336,12 +1376,13 @@ def phase_sharded_kernels(dev):
     ms, pms, lms = (time_ms(fn) for fn in (
         lambda: chain(*args), lambda: chain_plain(*args), lambda: A @ Gr))
     Ct, Cp = Gd.shape[1], Gd.shape[2]
-    b = bound(nbytes(*args) + nbt * Cp * 8, nbt * Cp * (8 * f * Ct + 12))
+    b = bound_tc(nbytes(*args) + nbt * Cp * 8, nbt * Cp * (8 * f * Ct + 12))
     print(f"chain {nbt}x{Cp}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
           f"library (matmul of the stacked rows) {lms:.4f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; FP32 "
+          f"{b['bound_fp32_ms']:.4f})")
     rows["chain"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                         library_ms=lms, **b)
+                         library_ms=lms, snr_db=s64, **b)
     return rows
 
 
@@ -1814,18 +1855,24 @@ def phase_deep_fir_kernels(dev):
                                                   ShardedReplayDDC)
     lib = build.load()
     plans = {"ddc channel mode": (lambda f: lib.sdr_ddc_smem_bytes(f, 0),
-                                  lambda f: ddc.smem_bytes(f, False)),
+                                  lambda f: ddc.smem_bytes(f, False),
+                                  ddc.SMEM_DEFAULT),
              "ddc row mode": (lambda f: lib.sdr_ddc_smem_bytes(f, 1),
-                              lambda f: ddc.smem_bytes(f, True)),
-             "chain": (lib.sdr_chain_smem_bytes, chain_ops.smem_bytes)}
-    for name, (c_plan, py_plan) in plans.items():
+                              lambda f: ddc.smem_bytes(f, True),
+                              ddc.SMEM_DEFAULT)}
+    for Ct, Cp in ((100, 100), (1000, 300)):
+        plans[f"chain, {Ct} tones, {Cp} channels"] = (
+            lambda f, a=(Ct, Cp): lib.sdr_chain_smem_bytes(f, *a),
+            lambda f, a=(Ct, Cp): chain_ops.smem_bytes(f, *a),
+            chain_ops.SMEM_MAX)
+    for name, (c_plan, py_plan, limit) in plans.items():
         sizes = [c_plan(f) for f in range(1, F_PLAN + 1)]
         check(sizes == [py_plan(f) for f in range(1, F_PLAN + 1)],
               f"{name}: the C and Python staging plans differ")
-        check(max(sizes) <= 48 * 1024,
-              f"{name}: a block over the default 48 KB ({max(sizes)} bytes)")
+        check(max(sizes) <= limit,
+              f"{name}: a block over {limit} bytes ({max(sizes)})")
         print(f"staging plan, {name}: C and Python agree for f 1..{F_PLAN}; "
-              f"at most {max(sizes)} bytes a block")
+              f"at most {max(sizes)} bytes a block (limit {limit})")
     gen = torch.Generator(device=dev).manual_seed(86420)
     rng = np.random.default_rng(8642)
     M, nb = DEEP_DECIM, DEEP_ROWS
@@ -1948,7 +1995,8 @@ def phase_deep_fir_kernels(dev):
     report(tag, yk, chain_plain(*args), times=(
         timed(lambda: chain(*args)), timed(lambda: chain_plain(*args))),
         rows=tmp, cost=(nbytes(*args) + nbt * Cp * 8,
-                        nbt * Cp * (8 * f * Ct + 12)))
+                        nbt * Cp * (8 * f * Ct + 12)), tc=True)
+    tmp[tag]["snr_db"] = snr64(tag, yk, chain_plain, *args)
     deep_row(deep, tmp, "chain", f, tag)
     return deep
 
@@ -2075,7 +2123,9 @@ def phase_new_kernels(dev):
         check(s >= SNR_BAR_DB, f"{name} vs fold {s:.1f} dB")
         report(name, yk, plain(*a1), times=(
             time_ms(lambda: kern(*a1)), time_ms(lambda: plain(*a1))),
-            rows=rows, cost=(nbytes(*a1[:5], yk), D_ROWS * Cp * (8 * Ct + 12)))
+            rows=rows, cost=(nbytes(*a1[:5], yk), D_ROWS * Cp * (8 * Ct + 12)),
+            tc=True)
+        rows[name]["snr_db"] = snr64(name, yk, plain, *a1)
         rows[name]["library_ms"] = lms
     del f11, f12, f13, ref
 
@@ -2102,7 +2152,9 @@ def phase_new_kernels(dev):
     check(s >= SNR_BAR_DB, f"fold_t vs fold {s:.1f} dB")
     report("fold_t", yk.T, fold_t_plain(*a1).T, times=(
         time_ms(lambda: fold_t(*a1)), time_ms(lambda: fold_t_plain(*a1))),
-        rows=rows, cost=(nbytes(*a1[:5], yk), fT.nb * Cp * (8 * Ct + 12)))
+        rows=rows, cost=(nbytes(*a1[:5], yk), fT.nb * Cp * (8 * Ct + 12)),
+        tc=True)
+    rows["fold_t"]["snr_db"] = snr64("fold_t", yk, fold_t_plain, *a1)
     rows["fold_t"]["library_ms"] = fold_library_ms(base, a1[2])
     del fT, base, ref
 

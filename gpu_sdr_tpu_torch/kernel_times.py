@@ -1,6 +1,7 @@
-"""Device times of the DDC (#7, channel and row mode), fold (#11) and
-chain (#15) kernels at the main path's shapes, for comparing two
-checkouts of the port on one card.
+"""Device times of the DDC (#7, channel and row mode), fold (#11-#14) and
+chain (#15) kernels at the main path's shapes, and of the one-call
+yardsticks of the folds and the chain, for comparing two checkouts of
+the port on one card.
 
     python -m gpu_sdr_tpu_torch.kernel_times
         one JSON line: the card, ptxas's register and spill lines for the
@@ -10,13 +11,26 @@ checkouts of the port on one card.
         the line above from checkout A, then B, B and A, each in its own
         process with that checkout first on PYTHONPATH (each builds its
         own sources), then each kernel's times side by side
+    python -m gpu_sdr_tpu_torch.kernel_times --cells A B [RUNS]
+        the same order for the probe's cells that run the fold, DIRECT
+        config 3 fused, unsharded and on a (2, 1) mesh (``E2E_CELLS``):
+        each cell's RUNS rates (default 10; host clock) and profiled run
+        (device busy share, device ms per block) from each checkout's
+        own ``probe.probe_cell``, and the host's ms a block in the
+        output fetch and the kernel's launch call, then the medians side
+        by side
 
-Only wrappers that the port has had since its sharded layer are called
-(``ddc_fused``, ``fold`` with one block, ``chain``), so an older
-checkout runs this file too.  Shapes: config 3 (4,000,000 samples,
-decimation 100, pf_average 4, 100 tones) for #7 channel mode, #11 and
-#15 (shard 1 of 2, 20,000 rows); config 1's one channel for #7's row
-mode.
+Only wrappers that the port has had since its last five kernels
+(``ddc_fused``, ``fold``, ``fold_streamed``, ``fold_rotg``, ``fold_t``
+with one block, ``chain``) are called, so an older checkout runs this
+file too.  Shapes: config 3 (4,000,000 samples, decimation 100,
+pf_average 4, 100 tones) for #7 channel mode, #11-#13 and #15 (shard 1
+of 2, 20,000 rows); #14 at 4,096,000 samples (nb 40,960), as the smoke;
+config 1's one channel for #7's row mode.  The yardsticks, timed the
+same way: ``torch.matmul`` of the fold's (40,000, 100) rotated rows by
+G2 (cuBLAS FP32, as ``chip_smoke.fold_library_ms`` forms it;
+``fold_matmul``) and of the chain's stacked (20,000, 400) rows by G
+reshaped (400, 100) (``chain_matmul``).
 """
 
 from __future__ import annotations
@@ -29,6 +43,8 @@ import sys
 import numpy as np
 
 RUNS, CALLS = 7, 20
+E2E_CELLS = ("DIRECT config 3 fused", "DIRECT config 3 fused on (2, 1)")
+T_BLOCK = 4_096_000        # #14: JAX's channel-major geometry (nb 40,960)
 
 
 def time_ms(fn, runs: int = RUNS, n: int = CALLS) -> list:
@@ -54,23 +70,30 @@ def time_ms(fn, runs: int = RUNS, n: int = CALLS) -> list:
     return out
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
 def measure() -> dict:
     import torch
     from gpu_sdr_tpu_torch.kernels import build
     from gpu_sdr_tpu_torch.ops import ddc
     from gpu_sdr_tpu_torch.ops.chain import TonesDirectChain, chain
-    from gpu_sdr_tpu_torch.ops.fold import TonesDirectFold, fold
+    from gpu_sdr_tpu_torch.ops.fold import (TonesDirectFold,
+                                            TonesDirectFoldT, fold,
+                                            fold_rotg, fold_streamed, fold_t)
     from gpu_sdr_tpu_torch.probe import (CONFIG1, CONFIG3, D_AVG, D_BLOCK,
                                          D_DECIM, D_RATE)
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
     build.load()
     ptxas = [line.split("info    :")[-1].strip()
              for line in build.build_log.splitlines()
              if ("ddc" in line or "chain" in line or "fold" in line or
-                 "registers" in line or "spill" in line) and
+                 "registers" in line or "spill" in line or
+                 "smem" in line) and
              "info" in line and "Function properties" not in line]
     gen = torch.Generator(device=dev).manual_seed(1234)
     times = {}
@@ -88,11 +111,32 @@ def measure() -> dict:
         times[name] = time_ms(lambda: ddc.ddc_fused(*args))
     cfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(CONFIG3),
                               (0,) * len(CONFIG3))
-    fch = TonesDirectFold(D_RATE, tuple(CONFIG3), (0.01,) * 100, cfg,
-                          D_BLOCK, dev)
-    crot, qrot = fch.block_rotations_factored(fch.init_state())
-    fargs = (fch.P1, fch.G2, crot, qrot, fch.ramp1, fch.nb)
+    ampl = (0.01,) * 100
+
+    def factored(ch):
+        crot, qrot = ch.block_rotations_factored(ch.init_state())
+        return (ch.P1, ch.G2, crot, qrot, ch.ramp1, ch.nb)
+    fch = TonesDirectFold(D_RATE, tuple(CONFIG3), ampl, cfg, D_BLOCK, dev)
+    fargs = factored(fch)
     times["fold"] = time_ms(lambda: fold(*fargs))
+    sch = TonesDirectFold(D_RATE, tuple(CONFIG3), ampl, cfg, D_BLOCK, dev,
+                          time_shards=2)
+    _, srots, drots = sch.rotations(sch.init_state(), 1)
+    sargs = (sch.P, sch.G2, srots, drots, sch.ramp, sch.nb)
+    times["fold_streamed"] = time_ms(lambda: fold_streamed(*sargs))
+    del sch, sargs
+    rch = TonesDirectFold(D_RATE, tuple(CONFIG3), ampl, cfg, D_BLOCK, dev,
+                          rotg=True)
+    rargs = factored(rch)
+    times["fold_rotg"] = time_ms(lambda: fold_rotg(*rargs))
+    tch = TonesDirectFoldT(D_RATE, tuple(CONFIG3), ampl, cfg, T_BLOCK, dev)
+    targs = factored(tch.base)
+    targs = (*targs[:4], tch.ramp1T, targs[5])
+    times["fold_t"] = time_ms(lambda: fold_t(*targs))
+    crot = fargs[2]
+    A = (fch.P1[None] * crot[:, None, :]).reshape(-1, fch.Ct)[:fch.nb]
+    A = A.contiguous()
+    times["fold_matmul"] = time_ms(lambda: torch.matmul(A, fch.G2))
     T = 2
     ch = TonesDirectChain(D_RATE, tuple(CONFIG3), (0.01,) * 100, cfg,
                           D_BLOCK, time_shards=T)
@@ -101,18 +145,75 @@ def measure() -> dict:
     cargs = (ch.P[nbt:].to(dev), ch.halo_rows(nbt).to(dev), ch.G.to(dev),
              ch.ramp[nbt:].to(dev), srot, srot, drot)
     times["chain"] = time_ms(lambda: chain(*cargs))
-    return dict(card=smi, torch=torch.__version__, ptxas=ptxas,
+    E = torch.cat([cargs[1] * srot, cargs[0] * srot])
+    f = ch.G.shape[0]
+    Ac = torch.cat([E[j:j + nbt] for j in range(f)], dim=1)   # (nbt, f*Ct)
+    Gr = cargs[2].reshape(-1, ch.Cp)
+    times["chain_matmul"] = time_ms(lambda: torch.matmul(Ac, Gr))
+    return dict(card=card(), torch=torch.__version__, ptxas=ptxas,
                 ms={k: dict(median=float(np.median(v)), min=float(min(v)),
                             max=float(max(v))) for k, v in times.items()})
 
 
-def compare(trees) -> int:
-    """Run measure() from each checkout in the order A B B A."""
+def measure_cells(runs: int) -> dict:
+    """E2E_CELLS through this checkout's probe, `runs` rates each, with
+    the host's ms a block over those runs (medians): in the fetch's
+    start (the gather, the pinned buffer, the copy queued), in its wait
+    for the copy, and in the fold's or chain's C launch call."""
+    import time
+
+    import torch
+    from gpu_sdr_tpu_torch import probe
+    from gpu_sdr_tpu_torch.engine import pipeline
+    from gpu_sdr_tpu_torch.kernels import build
+    probe.RUNS = runs
+    acc, host = {}, []
+
+    def timed(key, fn):
+        def wrapped(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
+        return wrapped
+    fetch, launch, run_once = pipeline._HostFetch, build.launch, \
+        probe.run_once
+    fetch.start = timed("start", fetch.start)
+    fetch.result = staticmethod(timed("wait", fetch.result))
+    timed_launch = timed("launch", launch)
+    build.launch = lambda name, *args: (
+        timed_launch if name.startswith(("sdr_fold", "sdr_chain"))
+        else launch)(name, *args)
+
+    def counted(*args, **kw):               # the timed runs only
+        acc.clear()
+        out = run_once(*args, **kw)
+        if kw.get("window") is None and out[1] > 2:
+            host.append({k: v / out[1] * 1e3 for k, v in acc.items()})
+        return out
+    probe.run_once = counted
+    dev = torch.device("cuda", 0)
+    cells = []
+    for c in probe.cells():
+        if c[0] in E2E_CELLS:
+            host.clear()
+            cells.append(probe.probe_cell(dev, *c))
+            cells[-1]["host_ms_per_block"] = {
+                k: float(np.median([h.get(k, 0.0) for h in host]))
+                for k in ("start", "wait", "launch")}
+    return dict(card=card(), cells=cells)
+
+
+def compare(trees, args=()) -> int:
+    """Run this file with `args` from each checkout in the order A B B A;
+    each run's JSON line, then side by side: each kernel's median ms
+    or, with --cells, each cell's median Msps and busy share."""
     runs = []
     for tree in (trees[0], trees[1], trees[1], trees[0]):
         env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-        p = subprocess.run([sys.executable, os.path.abspath(__file__)],
-                           env=env, cwd=os.path.abspath(tree),
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            *args], env=env, cwd=os.path.abspath(tree),
                            capture_output=True, text=True, timeout=600)
         if p.returncode:
             print(p.stdout, p.stderr, file=sys.stderr)
@@ -120,6 +221,16 @@ def compare(trees) -> int:
         runs.append((tree, json.loads(p.stdout.strip().splitlines()[-1])))
         print(json.dumps({"tree": tree, **runs[-1][1]}), flush=True)
     print(runs[0][1]["card"])
+    if args:
+        for i, c in enumerate(runs[0][1]["cells"]):
+            print(f"{c['cell']}: " + ", ".join(
+                f"{t} {np.median(r['cells'][i]['msps']):.1f} Msps "
+                f"({100 * r['cells'][i]['device_busy']:.1f}% busy; host ms "
+                "a block: " + " / ".join(
+                    f"{k} {v:.3f}" for k, v in
+                    r['cells'][i]['host_ms_per_block'].items()) + ")"
+                for t, r in runs))
+        return 0
     for k in runs[0][1]["ms"]:
         print(f"{k}: " + ", ".join(
             f"{t} {r['ms'][k]['median']:.4f}" for t, r in runs) + " ms")
@@ -129,4 +240,10 @@ def compare(trees) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--trees":
         sys.exit(compare(sys.argv[2:]))
-    print(json.dumps(measure()))
+    if len(sys.argv) in (4, 5) and sys.argv[1] == "--cells":
+        sys.exit(compare(sys.argv[2:4], ("--cells-here",
+                                         *sys.argv[4:5])))
+    if len(sys.argv) in (2, 3) and sys.argv[1] == "--cells-here":
+        print(json.dumps(measure_cells(int((sys.argv[2:] or [10])[0]))))
+    else:
+        print(json.dumps(measure()))

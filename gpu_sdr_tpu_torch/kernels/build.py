@@ -29,7 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("presum.cu", "channelizer.cu", "ddc.cu", "fold.cu",
            "lockin.cu", "chain.cu")
-HEADERS = ("rows.cuh",)               # included by the sources
+HEADERS = ("rows.cuh", "tc.cuh")      # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -137,7 +137,7 @@ def _bind(lib) -> None:
         getattr(lib, name).restype = ci
     lib.sdr_chain.argtypes = [vp] * 8 + [ci, ci, ci, ci, vp]
     lib.sdr_chain.restype = ci
-    lib.sdr_chain_smem_bytes.argtypes = [ci]
+    lib.sdr_chain_smem_bytes.argtypes = [ci, ci, ci]
     lib.sdr_chain_smem_bytes.restype = ci
     lib.sdr_fold_tile.argtypes = []
     lib.sdr_fold_tile.restype = ci

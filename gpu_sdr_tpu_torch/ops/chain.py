@@ -21,11 +21,14 @@ shard t's rows of P and of the ramp, its halo the f-1 rows before them
 (zero ahead of the stream's first block), the current block's on the
 others (``block_rotations`` gives both).
 
-The kernel stages a tile's extended rows a chunk of taps at a time, so
-its shared memory is bounded for any f (``smem_bytes`` mirrors its plan).
-Not ported: the bf16 hi/lo split of G, the lP halo units padded to 8
-rows, the rep8 rotation rows, the tile rule (tiles dividing the shard's
-rows) and the K blocks per launch.
+The kernel runs the product on the tensor cores (TF32, a three-pass
+split: csrc/tc.cuh, ``cplx.tf32_cmatmul`` emulates it), stages a tile's
+extended rows once per pass of taps, double-buffered, and streams G
+through a two-slot ring of items (a tap's chunk of tones each), so its
+shared memory is bounded for any f (``plan`` mirrors it).  Not ported:
+the bf16 hi/lo split of G, the lP halo units padded to 8 rows, the rep8
+rotation rows, the tile rule (tiles dividing the shard's rows) and the K
+blocks per launch.
 """
 
 from __future__ import annotations
@@ -38,16 +41,53 @@ import torch
 from ..kernels import build
 from . import ddc as ddc_ops
 from .cplx import advance_phase, from_np, phase_rotation
-from .ddc import DirectDDCConfig, staged_smem_bytes
+from .ddc import DirectDDCConfig
 
-# csrc/chain.cu: rows per tile, tones staged per pass
-CHAIN_TILE, CHAIN_CHUNK = 64, 32
+# csrc/tc.cuh and csrc/chain.cu: rows per tile, channels per block (more
+# go to further blocks), fewest taps a pass is cut to, and a block's
+# shared memory with the opt-in (the H100's 227 KB)
+CHAIN_TILE, CHAIN_MAX_CHANNELS, CHAIN_MIN_TAPS = 64, 112, 8
+SMEM_MAX = 232_448
 
 
-def smem_bytes(f: int) -> int:
-    """The chain kernel's shared memory for f taps, the plan of
-    csrc/chain.cu (sdr_chain_smem_bytes): at most 48 KB for any f."""
-    return staged_smem_bytes(CHAIN_TILE, CHAIN_CHUNK, f)
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def plan(f: int, Ct: int, Cp: int) -> dict:
+    """The chain kernel's staging plan, csrc/chain.cu ``plan``: channel
+    chunks (CN channels, pitch CNs = 4 mod 16, nc of them) of at most
+    CHAIN_MAX_CHANNELS; then the fewest chunks of tones of the staged rows
+    (nke of KE, pitch AS floats) and, for them, the fewest G items a chunk
+    (nsub of KG tones) that leave room, beside the ring's two items, for
+    two buffers of the rows of ``taps`` = J taps (at least min(f,
+    CHAIN_MIN_TAPS)), J the most that fit.  ``smem`` is the block's
+    bytes."""
+    nc = -(-Cp // CHAIN_MAX_CHANNELS)
+    CN = _round_up(-(-Cp // nc), 4)
+    CNs = CN + (4 - CN) % 16
+    avail = SMEM_MAX // 4
+    nke = 0
+    while True:
+        nke += 1
+        KE = _round_up(-(-(_round_up(Ct, 4) // 4) // nke) * 4, 4)
+        AS = 2 * KE + 4
+        for d in range(1, KE // 4 + 1):
+            KG = -(-(KE // 4) // d) * 4
+            ring = 2 * KG * CNs * 2
+            # C's division truncates: a negative room fails either way
+            J = min(f, int((avail - ring) / (2 * AS)) - CHAIN_TILE + 1)
+            if J >= min(f, CHAIN_MIN_TAPS):
+                return dict(CN=CN, CNs=CNs, nc=nc, KE=KE, nke=nke, AS=AS,
+                            KG=KG, nsub=-(-KE // KG), taps=J,
+                            smem=(ring + 2 * (CHAIN_TILE + J - 1) * AS) * 4)
+
+
+def smem_bytes(f: int, Ct: int = 100, Cp: int = 100) -> int:
+    """The chain kernel's shared memory for f taps at Ct tones and Cp
+    channels (csrc/chain.cu sdr_chain_smem_bytes), within SMEM_MAX and
+    flat once the taps run in passes."""
+    return plan(f, Ct, Cp)["smem"]
 
 
 def _expi(ph: np.ndarray, W: int, sign: float = 1.0) -> np.ndarray:

@@ -24,6 +24,10 @@ that reach before the stream (zero history); ``startup_correction``
 restores that transient with partial folds G2p, in plain PyTorch on f-1
 rows, as the JAX package does it outside its kernel.
 
+All four run one kernel template of csrc/fold.cu on the tensor cores:
+the complex product in TF32 with a three-pass split (csrc/tc.cuh;
+``cplx.tf32_cmatmul`` emulates it), the plain versions in exact FP32.
+
 The engine's fused path runs #11 (``step``); #12, #13 and #14 sit
 behind the same ops-level entry points as in the JAX package
 (``multi_step`` with ``time_shards`` > 1 or ``rotg``; TonesDirectFoldT),

@@ -2,9 +2,10 @@
 kernels stage a tile's extended rows a chunk of taps at a time, so their
 shared memory is bounded for any f.  On the CPU: the staging plan that
 ops/ddc.py and ops/chain.py mirror from csrc/ddc.cu and csrc/chain.cu
-fits one block's default 48 KB (the launch size, no opt-in) and the
-H100's 227 KB for every f up to 4096, its constants those of the CUDA
-sources; and the port's host-fed DIRECT readout at pf_average 400
+fits for every f up to 4096, the DDC's one block's default 48 KB (the
+launch size, no opt-in), the chain's (its ring of G items beside two
+buffers of rows, at config 3's widths) the H100's 227 KB, its constants
+those of the CUDA sources; and the port's host-fed DIRECT readout at pf_average 400
 matches the JAX package's direct_ddc_fir route and the float64 oracle
 at 90 dB SNR.  The kernels themselves run at such
 depths only on the card (chip_smoke.py, its deep-FIR phase).
@@ -37,16 +38,19 @@ FREQS = [100_003, -250_001, 333_333]
 
 @pytest.mark.parametrize("kernel", ["ddc_channel", "ddc_row", "chain"])
 def test_staging_plan_fits_for_every_f(kernel):
-    """Every f in 1..4096: within the launch size and the card's limit,
-    growing with f only up to one pass of taps, then flat."""
-    plan = {"ddc_channel": lambda f: ddc.smem_bytes(f, False),
-            "ddc_row": lambda f: ddc.smem_bytes(f, True),
-            "chain": chain.smem_bytes}[kernel]
+    """Every f in 1..4096: within the launch size (the DDC: the default
+    48 KB; the chain at config 3's 100 tones and channels: the card's
+    limit), growing with f only up to one pass of taps, then flat."""
+    plan, limit = {
+        "ddc_channel": (lambda f: ddc.smem_bytes(f, False),
+                        ddc.SMEM_DEFAULT),
+        "ddc_row": (lambda f: ddc.smem_bytes(f, True), ddc.SMEM_DEFAULT),
+        "chain": (lambda f: chain.smem_bytes(f, 100, 100), H100_SMEM)}[kernel]
     sizes = np.array([plan(f) for f in range(1, F_MAX + 1)])
-    assert sizes.max() <= ddc.SMEM_DEFAULT <= H100_SMEM
+    assert sizes.max() <= limit <= H100_SMEM
     assert np.all(np.diff(sizes) >= 0)
-    taps = int(np.argmax(sizes))            # f - 1 of the first flat size
-    assert 8 <= taps and sizes[taps] == sizes[-1]
+    flat = int(np.flatnonzero(sizes != sizes[-1])[-1]) + 1   # f - 1
+    assert 8 <= flat < 100 and np.all(sizes[flat:] == sizes[-1])
 
 
 def source_constants(name):
@@ -63,21 +67,35 @@ def source_constants(name):
 def test_taps_per_pass_mirror_the_sources():
     """The mirrored constants, read from the CUDA sources: 31 taps a pass
     in the DDC's channel mode (64 rows x 65 samples), 59 in row mode
-    (128 x 33), 123 in the chain (64 x 33), the most that fit 48 KB."""
+    (128 x 33), the most that fit 48 KB; 28 in the chain at config 3's
+    widths, the most whose two buffers of 64 + J - 1 rows of 204 floats
+    fit beside its ring of two G items (52 tones x 100 channels, complex)
+    in 227 KB; at f 4, the main path's, two items a tap."""
     d, c = source_constants("ddc.cu"), source_constants("chain.cu")
+    t = source_constants("tc.cuh")
     assert ddc.DDC_TILES == {False: (d["kTileC"], d["kChunkC"]),
                              True: (d["kTileR"], d["kChunkR"])}
-    assert (chain.CHAIN_TILE, chain.CHAIN_CHUNK) == (c["kTile"], c["kChunk"])
-    assert ddc.SMEM_DEFAULT == d["kSmemDefault"] == c["kSmemDefault"]
+    assert (chain.CHAIN_TILE, chain.CHAIN_MAX_CHANNELS, chain.SMEM_MAX) == \
+        (t["kRows"], c["kChanMax"], t["kSmemMax"]) == (64, 112, H100_SMEM)
+    assert chain.CHAIN_MIN_TAPS == c["kMinTaps"]
+    assert ddc.SMEM_DEFAULT == d["kSmemDefault"]
     assert ddc.ROW_MODE_MAX_CHANNELS == d["kMaxRowChannels"]
     assert [ddc.taps_per_pass(*ddc.DDC_TILES[m]) for m in (False, True)] == \
         [31, 59]
-    assert ddc.taps_per_pass(chain.CHAIN_TILE, chain.CHAIN_CHUNK) == 123
-    for tile, chunk in (*ddc.DDC_TILES.values(),
-                        (chain.CHAIN_TILE, chain.CHAIN_CHUNK)):
+    for tile, chunk in ddc.DDC_TILES.values():
         J = ddc.taps_per_pass(tile, chunk)
         assert (tile + J - 1) * (chunk + 1) * 8 <= ddc.SMEM_DEFAULT < \
             (tile + J) * (chunk + 1) * 8
+    ring, row = 2 * 52 * 100 * 8, (2 * 100 + 4) * 4
+    p = chain.plan(4, 100, 100)             # config 3
+    assert (p["nc"], p["CN"], p["nke"], p["KE"], p["KG"], p["nsub"],
+            p["taps"]) == (1, 100, 1, 100, 52, 2, 4)
+    assert p["smem"] == ring + 2 * (chain.CHAIN_TILE + 3) * row
+    p = chain.plan(F_MAX, 100, 100)
+    J = p["taps"]
+    assert (J, p["KE"], p["KG"], p["nc"]) == (28, 100, 52, 1)
+    assert ring + 2 * (chain.CHAIN_TILE + J - 1) * row == p["smem"] <= \
+        H100_SMEM < ring + 2 * (chain.CHAIN_TILE + J) * row
 
 
 def make_params(p_cls, ant_cls, mode, wave):
