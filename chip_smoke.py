@@ -11,10 +11,15 @@ and exits non-zero at the first phase that fails:
    compute capability 9.0;
 2. the nvcc build of the kernels, with ptxas' resource report;
 3. each kernel against its plain PyTorch version on the card at the main
-   path's shape (nfft 1000, avg 4, 6000 frames): the channelizer in both
-   modes at >= 90 dB SNR and its first 16 frames against a float64
-   numpy oracle, the pre-sum at <= 1e-6 relative error; both times from
-   CUDA events, the median of repeated runs;
+   path's shape (nfft 1000, avg 4, 6000 frames): the channelizer (a
+   fused pre-sum and mixed-radix FFT) in both modes at >= 90 dB SNR, its
+   first 16 frames against a float64 numpy oracle and the whole block
+   against a float64 PFB on the card (the pre-sum and torch.fft in
+   complex128), its shared-memory plan in csrc/channelizer.cu and in
+   ops/channelizer.py alike for nfft 1..20,000; the pre-sum at <= 1e-6
+   relative error; both times from CUDA events, the median of repeated
+   runs, beside the host-fed route's two calls on the same block (the
+   pre-sum kernel, then torch.fft);
 4. ``run_measurement`` at the reference's network-stress configuration:
    1000 bin-quantized tones at 100 Msps into a 1000-bin TONES receiver,
    6,000,000-sample blocks, 100 blocks, fused on the card;
@@ -54,17 +59,18 @@ and exits non-zero at the first phase that fails:
    float64 oracle at full width: the channelizer (#4) and the pre-sum
    (#6) reading blocks of a random 8-block (384 MB) recording in place
    at the TONES geometry (blocks 0 at the stream's start, 3, 7, and 0
-   after the loop seam), at >= 90 dB SNR (16 frames against float64) and
-   <= 1e-6 relative error, with the channelizer's stream mode (#1) timed
-   over the same blocks as #4 is; the pre-sum again, and timed, at its
-   main path's shape (NOISE at nfft 1018, blocks of 5893 frames, the
-   same four blocks of an 8-block recording); the in-kernel chirp
-   lock-in (#18) at config 2
-   with 6,000,000-sample blocks (300 segments, the period no multiple of
-   them) from stream positions 0, 37,000,000 and 98,000,000 (across the
-   period's end) at >= 90 dB against plain and float64, and fed the
-   chirp itself, every point within 1e-5 of 1; times as in phase 8,
-   rotating over the recording's blocks;
+   after the loop seam), at >= 90 dB SNR (16 frames and the whole
+   block against float64) and <= 1e-6 relative error, with the
+   channelizer's stream mode (#1) and the host-fed route's two calls
+   timed over the same blocks as #4 is; the pre-sum again, and timed,
+   at its main path's shape (NOISE at nfft 1018, blocks of 5893 frames,
+   the same four blocks of an 8-block recording); the in-kernel chirp
+   lock-in (#18) at config 2 with 6,000,000-sample blocks (300
+   segments, the period no multiple of them) from stream positions 0,
+   37,000,000 and 98,000,000 (across the period's end) at >= 90 dB
+   against plain and float64, and fed the chirp itself, every point
+   within 1e-5 of 1; times as in phase 8, rotating over the recording's
+   blocks;
 11. the device replay through ``run_measurement(source=ReplaySource)``,
    each recording made on the card and saved as a .npy file: the TONES
    comb (8 blocks looped, 20 acquired, ``channelizer_at``) against phase
@@ -81,7 +87,8 @@ and exits non-zero at the first phase that fails:
 12. the sharded layer's kernels against their plain versions and a
    float64 oracle at full width, on the shards of a (time=2) mesh: the
    channelizer after a staged halo (#5) on an 8-block TONES recording
-   (3000 frames a shard), the replay DDC after staged history rows
+   (3000 frames a shard; the whole shard block against float64 too),
+   the replay DDC after staged history rows
    (#10) on an 8-block config-3 recording (20,000 rows a shard), the
    G-fused chain (#15) at config 3 (Ct = Cp = 100, f 4), each at the
    stream's start, inside and at the seam, on shards 0 and 1; times as
@@ -108,7 +115,8 @@ and exits non-zero at the first phase that fails:
 16. the five kernels no engine path takes, at full width against their
    plain versions and float64 oracles: #12 and #13 at config 3, also
    against #11; #14 at block_len 4,096,000 against #11 transposed; #3
-   at nfft 1000, avg 4, 4,000,000 samples against #1 permuted; #19 at
+   at nfft 1000, avg 4, 4,000,000 samples against #1 permuted (and the
+   whole block against float64); #19 at
    config 2 from the stream's start and across the period seam, on the
    chirp and a down-chirp, against #18 on the same samples, its integer
    phases exactly the oracle's; each timed, with its bound;
@@ -133,7 +141,10 @@ counter is set to 0 just before each run and read just after it.
 The line before the last is a JSON object with one entry per kernel,
 all 19 (the channelizer's times are const-frame mode, the main path's;
 its ``stream_*`` fields are stream mode; the DDC-family kernels carry
-their deep-FIR rows in ``deep``), each with its bound: the larger of its
+their deep-FIR rows in ``deep``; the channelizers, #1 and #3-#5, their
+SNR against the float64 PFB over the whole block, ``snr_db``, and the
+host-fed route's time on the same block, ``two_call_ms``: the pre-sum
+kernel #2, then torch.fft), each with its bound: the larger of its
 bytes over 3.35 TB/s and its FP32 operations over 67 TFLOP/s, counted
 from this run's shapes; for the folds and the chain (#11-#15), which run
 on the tensor cores with a three-pass TF32 split, three times their
@@ -224,6 +235,7 @@ DEEP_SHARD_F, DEEP_CHAIN_F = 400, 1000      # #10 on shard 1 of 2; #15
 DEEP_RUN_F, DEEP_RUN_BLOCKS = 400, 4        # config 3 host-fed, run_measurement
 DEEP_TIMED_RUNS = 5
 F_PLAN = 4096                       # staging plans compared for f 1..F_PLAN
+F_PLAN_NFFT = 20_000                # the channelizer's, for nfft 1..
 
 # the kernels no engine path takes, driven through their entry points
 T_BLOCK = 4_096_000                 # #14: JAX's channel-major geometry
@@ -344,6 +356,50 @@ def snr64(name: str, k, plain, *args) -> float:
     return s
 
 
+def pfb64(w2, ext):
+    """The float64 PFB spectra of the extended rows `ext` (T + avg-1,
+    nfft) on the card: the pre-sum and torch.fft in complex128, the
+    oracle of the channelizers (#1, #3-#5) at full width."""
+    import torch
+    avg = w2.shape[0]
+    T = ext.shape[0] - avg + 1
+    w, e = w2.to(torch.float64), ext.to(torch.complex128)
+    pre = sum(w[i] * e[i:i + T] for i in range(avg))
+    return torch.fft.fft(pre, dim=-1)
+
+
+def snr_full(name, ref, k) -> float:
+    """The SNR of a channelizer's whole output `k` against its float64
+    oracle `ref` (pfb64); checked against the bar."""
+    s = snr_db(ref.cpu().numpy(), k.cpu().numpy())
+    print(f"{name} {tuple(k.shape)}: {s:.1f} dB vs float64 (the whole "
+          "block)")
+    check(s >= SNR_BAR_DB, f"{name} {s:.1f} dB vs float64")
+    return s
+
+
+def pfb_flops(frames: int) -> float:
+    """A channelizer's operations on `frames` frames: the pre-sum, then
+    an FFT's 5 N log2 N per frame."""
+    return frames * (4 * AVG * NFFT + 5 * NFFT * np.log2(NFFT))
+
+
+def two_calls(cfg, w2, frames: int, rows):
+    """One call of the host-fed PFB route on `frames` frames of the block
+    `rows()` returns (its first avg-1 rows standing for the spare): the
+    pre-sum kernel #2, then torch.fft.fft (ops/presum.pfb_frames_fused),
+    the yardstick of #1 and #3-#5, no one PyTorch call computing the
+    channelizer."""
+    from gpu_sdr_tpu_torch.ops.presum import pfb_frames_fused
+    window = w2.reshape(-1)
+
+    def call():
+        x = rows()
+        return pfb_frames_fused(cfg, window, x[:AVG - 1].reshape(-1),
+                                x[:frames].reshape(-1))
+    return call
+
+
 def ddc_flops(rows: int, channels: int, taps: int) -> int:
     """A DDC+FIR block: `taps` complex MACs per output, then the two
     complex rotations."""
@@ -383,8 +439,9 @@ def phase_build():
 def phase_kernels(dev):
     """Each kernel against its plain version at the main path's shape."""
     import torch
+    from gpu_sdr_tpu_torch.kernels import build
     from gpu_sdr_tpu_torch.ops.channelizer import (
-        channelizer, channelizer_consts, channelizer_plain)
+        channelizer, channelizer_consts, channelizer_plain, smem_bytes)
     from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
     from gpu_sdr_tpu_torch.ops.presum import presum, presum_plain
     rng = np.random.default_rng(1234)
@@ -415,6 +472,8 @@ def phase_kernels(dev):
         kn, pn = k.cpu().numpy(), p.cpu().numpy()
         check(np.isfinite(kn).all(), f"channelizer {mode}: non-finite")
         s_plain, s_gold = snr_db(pn, kn), snr_db(oracle(body), kn[:16])
+        s64 = snr_full(f"channelizer [{mode}]", pfb64(w2, torch.cat(
+            [spare, args[0].expand(FRAMES, NFFT)])), k)
         ms = time_ms(lambda: channelizer(w2, F1, G, spare, *args))
         pms = time_ms(lambda: channelizer_plain(w2, F1, G, spare, *args))
         err = float(np.abs(kn - pn).max())
@@ -424,12 +483,22 @@ def phase_kernels(dev):
               f"{pms:.4f} ms")
         check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB,
               f"channelizer {mode} under {SNR_BAR_DB} dB")
-        # the function's operations: the pre-sum, then an FFT's
-        # 5 N log2 N per frame (not the kernel's two-stage matmul DFT)
-        flops = FRAMES * (4 * AVG * NFFT + 5 * NFFT * np.log2(NFFT))
+        # the function's bytes (the block's rows, or its one frame, the
+        # spare, the window, the spectra) and operations (pre-sum and
+        # FFT), not the implementation's constants
         rows[f"channelizer_{mode}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
-            **bound(nbytes(w2, F1, G, spare, *args[:1], k), flops))
+            snr_db=s64, **bound(nbytes(w2, spare, args[0], k),
+                                pfb_flops(FRAMES)))
+    rows["channelizer_stream"]["two_call_ms"] = time_ms(
+        two_calls(cfg, w2, FRAMES, lambda: x))
+    lib = build.load()
+    plans = [n for n in range(1, F_PLAN_NFFT + 1)
+             if lib.sdr_channelizer_smem_bytes(n) != smem_bytes(n)]
+    print(f"channelizer shared-memory plan: csrc and ops/channelizer agree "
+          f"for nfft 1..{F_PLAN_NFFT}" if not plans else
+          f"channelizer shared-memory plans differ at nfft {plans[:8]}")
+    check(not plans, "channelizer shared-memory plans differ")
 
     k = presum(w2, spare, x)
     p = presum_plain(w2, spare, x)
@@ -1010,7 +1079,8 @@ def phase_replay_kernels(dev):
     from gpu_sdr_tpu_torch.ops.lockin import lockin_profile
     from gpu_sdr_tpu_torch.ops.lockin_at import lockin_at, lockin_at_plain
     from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
-    from gpu_sdr_tpu_torch.ops.presum import presum_at, presum_at_plain
+    from gpu_sdr_tpu_torch.ops.presum import (presum_at, presum_at_plain,
+                                              recording_halo)
     gen = torch.Generator(device=dev).manual_seed(97531)
     rows, errs = {}, {"channelizer_at": 0.0, "presum_at": 0.0,
                       "lockin_at": 0.0}
@@ -1048,6 +1118,7 @@ def phase_replay_kernels(dev):
     X = torch.randn((R_BLOCKS * FRAMES, NFFT), dtype=torch.complex64,
                     device=dev, generator=gen)
     w = w2.cpu().numpy().astype(np.float64)
+    s64 = float("inf")
     for idx, valid in R_IDX:
         tag = f"block {idx}, valid {valid}"
         spec64 = np.fft.fft(pre64(X, w, FRAMES, idx, valid), axis=-1)
@@ -1063,6 +1134,9 @@ def phase_replay_kernels(dev):
                                      float(np.abs(kn - pn).max()))
         print(f"channelizer_at [{tag}]: SNR {s_plain:.1f} dB vs plain, "
               f"{s_gold:.1f} dB vs float64 (16 frames)")
+        s64 = min(s64, snr_full(f"channelizer_at [{tag}]", pfb64(
+            w2, torch.cat([recording_halo(X, idx * FRAMES, AVG - 1, valid),
+                           X[idx * FRAMES:(idx + 1) * FRAMES]])), k))
         check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB,
               f"channelizer_at [{tag}] under {SNR_BAR_DB} dB")
         held_presum(f"nfft {NFFT}, {tag}", w2, X, FRAMES, idx, valid, False)
@@ -1097,13 +1171,17 @@ def phase_replay_kernels(dev):
                                      FRAMES)))
     stream_ms = time_ms_queued(
         lambda: channelizer(w2, F1, G, spare, block()), 2 * R_BLOCKS)
-    b = bound(2 * FRAMES * NFFT * 8 + nbytes(w2, F1, G),
-              FRAMES * (4 * AVG * NFFT + 5 * NFFT * np.log2(NFFT)))
+    two_ms = time_ms_queued(two_calls(cfg, w2, FRAMES, block), 2 * R_BLOCKS)
+    # the block's rows and its halo read, the window, the spectra written
+    b = bound((2 * FRAMES + AVG - 1) * NFFT * 8 + nbytes(w2),
+              pfb_flops(FRAMES))
     print(f"channelizer_at {FRAMES}x{NFFT}: kernel {ms:.4f} ms, plain "
           f"{pms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
-          f"channelizer stream mode over the same blocks {stream_ms:.4f} ms")
+          f"channelizer stream mode over the same blocks {stream_ms:.4f} "
+          f"ms; pre-sum kernel + torch.fft {two_ms:.4f} ms")
     rows["channelizer_at"] = dict(max_abs_err=errs["channelizer_at"], ms=ms,
-                                  plain_ms=pms, library_ms=None, **b)
+                                  plain_ms=pms, library_ms=None,
+                                  two_call_ms=two_ms, snr_db=s64, **b)
     del X, spare
 
     # #6 at its main path's shape: the pfb_at run's NOISE receiver at nfft
@@ -1233,7 +1311,8 @@ def phase_sharded_kernels(dev):
     from gpu_sdr_tpu_torch.ops.channelizer import (
         channelizer_at_halo, channelizer_at_halo_plain, channelizer_consts)
     from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
-    from gpu_sdr_tpu_torch.ops.presum import shard_spans, staged_halos
+    from gpu_sdr_tpu_torch.ops.presum import (recording_halo, shard_spans,
+                                              staged_halos)
     from gpu_sdr_tpu_torch.ops.replay_ddc import ShardedReplayDDC
     gen = torch.Generator(device=dev).manual_seed(24680)
     rows, T = {}, 2
@@ -1251,7 +1330,7 @@ def phase_sharded_kernels(dev):
     spans = shard_spans(X, R_BLOCKS, T)
     halos = staged_halos(X, R_BLOCKS, T, AVG - 1)
     w = w2.cpu().numpy().astype(np.float64)
-    err = 0.0
+    err, s64 = 0.0, float("inf")
     for idx, valid, t in cases:
         v = valid if t == 0 else 1
         tag = f"block {idx}, shard {t}, valid {v}"
@@ -1275,6 +1354,9 @@ def phase_sharded_kernels(dev):
         err = max(err, float(np.abs(kn - pn).max()))
         print(f"channelizer_at_halo [{tag}]: SNR {s_plain:.1f} dB vs "
               f"plain, {s_gold:.1f} dB vs float64 (16 frames)")
+        s64 = min(s64, snr_full(f"channelizer_at_halo [{tag}]", pfb64(
+            w2, torch.cat([recording_halo(X, base, AVG - 1, v),
+                           X[base:base + ftl]])), k))
         check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB,
               f"channelizer_at_halo [{tag}] under {SNR_BAR_DB} dB")
     rot = itertools.count()
@@ -1286,12 +1368,19 @@ def phase_sharded_kernels(dev):
     ms, pms = (time_ms_queued(lambda: f(w2, F1, G, *nxt(), 1, ftl),
                               2 * R_BLOCKS)
                for f in (channelizer_at_halo, channelizer_at_halo_plain))
-    b = bound(2 * ftl * NFFT * 8 + (AVG - 1) * NFFT * 8 + nbytes(w2, F1, G),
-              ftl * (4 * AVG * NFFT + 5 * NFFT * np.log2(NFFT)))
+    def shard_block():
+        span, _, i = nxt()
+        return span[i * ftl:(i + 1) * ftl]
+    two_ms = time_ms_queued(two_calls(cfg, w2, ftl, shard_block),
+                            2 * R_BLOCKS)
+    # the shard's rows and its staged halo read, the window, the spectra
+    b = bound((2 * ftl + AVG - 1) * NFFT * 8 + nbytes(w2), pfb_flops(ftl))
     print(f"channelizer_at_halo {ftl}x{NFFT}: kernel {ms:.4f} ms, plain "
-          f"{pms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+          f"{pms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+          f"pre-sum kernel + torch.fft {two_ms:.4f} ms")
     rows["channelizer_at_halo"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                       library_ms=None, **b)
+                                       library_ms=None, two_call_ms=two_ms,
+                                       snr_db=s64, **b)
     del X, spans, halos
 
     # #10: config 3, 20,000 rows per shard per block, 8 blocks (256 MB)
@@ -2184,23 +2273,28 @@ def phase_new_kernels(dev):
     same = torch.equal(scrambled(nat, n1, n2), k)
     s_nat = snr_db(scrambled(nat, n1, n2).cpu().numpy(), kn)
     err = float(np.abs(kn - pn).max())
-    ms, pms, nms = (time_ms(fn) for fn in (
+    s64 = snr_full("channelizer_scrambled", scrambled(pfb64(
+        w2, torch.cat([spare, x])), n1, n2), k)
+    ms, pms, nms, two_ms = (time_ms(fn) for fn in (
         lambda: channelizer_scrambled(w2, F1, G, spare, x),
         lambda: channelizer_scrambled_plain(w2, F1, G, spare, x),
-        lambda: channelizer(w2, F1, G, spare, x)))
-    b = bound(nbytes(w2, F1, G, spare, x, k),
-              SC_FRAMES * (4 * AVG * NFFT + 5 * NFFT * np.log2(NFFT)))
+        lambda: channelizer(w2, F1, G, spare, x),
+        two_calls(pcfg, w2, SC_FRAMES, lambda: x)))
+    b = bound(nbytes(w2, spare, x, k), pfb_flops(SC_FRAMES))
     print(f"channelizer_scrambled {SC_FRAMES}x{NFFT}: SNR {s_plain:.1f} dB vs "
           f"plain, {s_gold:.1f} dB vs float64 (16 frames), {s_nat:.1f} dB vs "
           f"#1 permuted" + (" (bit-identical)" if same else "") +
           f", max |err| {err:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"#1 stream mode (natural order) {nms:.4f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+          f"#1 stream mode (natural order) {nms:.4f} ms, pre-sum kernel "
+          f"+ torch.fft {two_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})")
     check(min(s_plain, s_gold, s_nat) >= SNR_BAR_DB,
           f"channelizer_scrambled under {SNR_BAR_DB} dB")
     rows["channelizer_scrambled"] = dict(max_abs_err=err, ms=ms,
                                          plain_ms=pms, library_ms=None,
-                                         natural_order_ms=nms, **b)
+                                         natural_order_ms=nms,
+                                         two_call_ms=two_ms, snr_db=s64,
+                                         **b)
     del x, k, p, nat
 
     # #19 at config 2: a random block from the stream's start and across

@@ -1,7 +1,7 @@
-"""Device times of the DDC (#7, channel and row mode), fold (#11-#14) and
-chain (#15) kernels at the main path's shapes, and of the one-call
-yardsticks of the folds and the chain, for comparing two checkouts of
-the port on one card.
+"""Device times of the channelizer (#1 const and stream, #3, #4, #5),
+DDC (#7, channel and row mode), fold (#11-#14) and chain (#15) kernels
+at the main path's shapes, and of the yardsticks beside them, for
+comparing two checkouts of the port on one card.
 
     python -m gpu_sdr_tpu_torch.kernel_times
         one JSON line: the card, ptxas's register and spill lines for the
@@ -12,23 +12,32 @@ the port on one card.
         process with that checkout first on PYTHONPATH (each builds its
         own sources), then each kernel's times side by side
     python -m gpu_sdr_tpu_torch.kernel_times --cells A B [RUNS]
-        the same order for the probe's cells that run the fold, DIRECT
-        config 3 fused, unsharded and on a (2, 1) mesh (``E2E_CELLS``):
-        each cell's RUNS rates (default 10; host clock) and profiled run
-        (device busy share, device ms per block) from each checkout's
-        own ``probe.probe_cell``, and the host's ms a block in the
-        output fetch and the kernel's launch call, then the medians side
-        by side
+        the same order for the probe's cells that run those kernels
+        (``E2E_CELLS``): TONES fused (#1), TONES replay (#4) unsharded and
+        on (1, 1) and (2, 1) meshes (#5), DIRECT config 3 fused (#11)
+        unsharded and on a (2, 1) mesh; each cell's RUNS rates (default
+        10; host clock) and profiled run (device busy share, device ms
+        per block) from each checkout's own ``probe.probe_cell``, and the
+        host's ms a block in the output fetch and the kernels' launch
+        calls, then the medians side by side
 
 Only wrappers that the port has had since its last five kernels
-(``ddc_fused``, ``fold``, ``fold_streamed``, ``fold_rotg``, ``fold_t``
-with one block, ``chain``) are called, so an older checkout runs this
-file too.  Shapes: config 3 (4,000,000 samples, decimation 100,
-pf_average 4, 100 tones) for #7 channel mode, #11-#13 and #15 (shard 1
-of 2, 20,000 rows); #14 at 4,096,000 samples (nb 40,960), as the smoke;
-config 1's one channel for #7's row mode.  The yardsticks, timed the
-same way: ``torch.matmul`` of the fold's (40,000, 100) rotated rows by
-G2 (cuBLAS FP32, as ``chip_smoke.fold_library_ms`` forms it;
+(``channelizer``, ``channelizer_scrambled``, ``channelizer_at``,
+``channelizer_at_halo``, ``ddc_fused``, ``fold``, ``fold_streamed``,
+``fold_rotg``, ``fold_t`` with one block, ``chain``) are called, so an
+older checkout runs this file too.  Shapes: the TONES receiver (nfft
+1000, avg 4) for the channelizers, over the blocks of an 8-block (384
+MB) recording in turn so that each call reads its rows from HBM: #1
+stream and #4 on 6000-frame blocks, #3 on their first 4000 frames, #5
+on one shard's 3000 of a (time=2) mesh, #1 const on one frame standing
+for 6000; config 3 (4,000,000 samples, decimation 100, pf_average 4, 100
+tones) for #7 channel mode, #11-#13 and #15 (shard 1 of 2, 20,000 rows);
+#14 at 4,096,000 samples (nb 40,960), as the smoke; config 1's one
+channel for #7's row mode.  The yardsticks, timed the same way: the
+host-fed PFB route on #1's blocks, the pre-sum kernel #2 and then
+``torch.fft.fft`` (``pfb_two_calls``: no one PyTorch call computes the
+channelizer); ``torch.matmul`` of the fold's (40,000, 100) rotated rows
+by G2 (cuBLAS FP32, as ``chip_smoke.fold_library_ms`` forms it;
 ``fold_matmul``) and of the chain's stacked (20,000, 400) rows by G
 reshaped (400, 100) (``chain_matmul``).
 """
@@ -43,7 +52,11 @@ import sys
 import numpy as np
 
 RUNS, CALLS = 7, 20
-E2E_CELLS = ("DIRECT config 3 fused", "DIRECT config 3 fused on (2, 1)")
+E2E_CELLS = ("TONES fused", "TONES replay", "TONES replay on (1, 1)",
+             "TONES replay on (2, 1)", "DIRECT config 3 fused",
+             "DIRECT config 3 fused on (2, 1)")
+R_BLOCKS = 8               # blocks of the channelizers' recording
+SC_FRAMES = 4000           # #3: 4,000,000 samples at nfft 1000
 T_BLOCK = 4_096_000        # #14: JAX's channel-major geometry (nb 40,960)
 
 
@@ -92,6 +105,7 @@ def measure() -> dict:
     ptxas = [line.split("info    :")[-1].strip()
              for line in build.build_log.splitlines()
              if ("ddc" in line or "chain" in line or "fold" in line or
+                 "channelizer" in line or
                  "registers" in line or "spill" in line or
                  "smem" in line) and
              "info" in line and "Function properties" not in line]
@@ -150,16 +164,59 @@ def measure() -> dict:
     Ac = torch.cat([E[j:j + nbt] for j in range(f)], dim=1)   # (nbt, f*Ct)
     Gr = cargs[2].reshape(-1, ch.Cp)
     times["chain_matmul"] = time_ms(lambda: torch.matmul(Ac, Gr))
+    measure_channelizers(dev, gen, times)
     return dict(card=card(), torch=torch.__version__, ptxas=ptxas,
                 ms={k: dict(median=float(np.median(v)), min=float(min(v)),
                             max=float(max(v))) for k, v in times.items()})
+
+
+def measure_channelizers(dev, gen, times) -> None:
+    """#1 (const, stream), #3, #4, #5 and the two-call host-fed route
+    into `times`, over the blocks of an 8-block recording in turn."""
+    import itertools
+
+    import torch
+    from gpu_sdr_tpu_torch.ops import channelizer as ch
+    from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
+    from gpu_sdr_tpu_torch.ops.presum import (pfb_frames_fused, shard_spans,
+                                              staged_halos)
+    from gpu_sdr_tpu_torch.probe import AVG, FRAMES, NFFT, RATE
+    cfg = PFBConfig(nfft=NFFT, avg=AVG, rate=RATE)
+    w2, F1, G = ch.channelizer_consts(cfg, dev)
+    X = torch.randn((R_BLOCKS * FRAMES, NFFT), dtype=torch.complex64,
+                    device=dev, generator=gen)
+    spare, frame, rot = X[:AVG - 1], X[:1], itertools.count()
+
+    def block(n=FRAMES):
+        i = next(rot) % R_BLOCKS
+        return X[i * FRAMES:i * FRAMES + n]
+    times["channelizer_const"] = time_ms(
+        lambda: ch.channelizer(w2, F1, G, spare, frame, FRAMES))
+    times["channelizer_stream"] = time_ms(
+        lambda: ch.channelizer(w2, F1, G, spare, block()))
+    times["channelizer_scrambled"] = time_ms(
+        lambda: ch.channelizer_scrambled(w2, F1, G, spare, block(SC_FRAMES)))
+    times["channelizer_at"] = time_ms(lambda: ch.channelizer_at(
+        w2, F1, G, X, next(rot) % R_BLOCKS, 1, FRAMES))
+    window, flat = cfg.window(dev), spare.reshape(-1)
+    times["pfb_two_calls"] = time_ms(
+        lambda: pfb_frames_fused(cfg, window, flat, block().reshape(-1)))
+    spans = shard_spans(X, R_BLOCKS, 2)
+    halos = staged_halos(X, R_BLOCKS, 2, AVG - 1)
+
+    def shard():
+        i = next(rot)
+        return spans[i % 2], halos[i % 2], (i // 2) % R_BLOCKS
+    times["channelizer_at_halo"] = time_ms(lambda: ch.channelizer_at_halo(
+        w2, F1, G, *shard(), 1, FRAMES // 2))
 
 
 def measure_cells(runs: int) -> dict:
     """E2E_CELLS through this checkout's probe, `runs` rates each, with
     the host's ms a block over those runs (medians): in the fetch's
     start (the gather, the pinned buffer, the copy queued), in its wait
-    for the copy, and in the fold's or chain's C launch call."""
+    for the copy, and in the channelizer's, fold's or chain's C launch
+    calls."""
     import time
 
     import torch
@@ -183,7 +240,8 @@ def measure_cells(runs: int) -> dict:
     fetch.result = staticmethod(timed("wait", fetch.result))
     timed_launch = timed("launch", launch)
     build.launch = lambda name, *args: (
-        timed_launch if name.startswith(("sdr_fold", "sdr_chain"))
+        timed_launch if name.startswith(("sdr_fold", "sdr_chain",
+                                         "sdr_channelizer"))
         else launch)(name, *args)
 
     def counted(*args, **kw):               # the timed runs only

@@ -109,20 +109,25 @@ def _bind(lib) -> None:
     lib.sdr_presum.restype = ci
     lib.sdr_presum_at.argtypes = [vp, vp, vp, ll, ll, ci, ci, ci, ci, vp]
     lib.sdr_presum_at.restype = ci
-    lib.sdr_channelizer.argtypes = [vp, vp, vp, vp, vp, vp,
-                                    ci, ci, ci, ci, ci, vp]
+    # the channelizer's FFT plan: the twiddle table (device), the radices
+    # (a host int array) and their count; then the output and the device
+    # buffers of an nfft too large for shared memory (null) and their count
+    fft = [vp, ctypes.POINTER(ci), ci, vp, vp, ci]
+    lib.sdr_channelizer.argtypes = [vp, vp, vp] + fft + [ci] * 5 + [vp]
     lib.sdr_channelizer.restype = ci
-    lib.sdr_channelizer_at.argtypes = [vp, vp, vp, vp, vp, ll, ll,
-                                       ci, ci, ci, ci, ci, vp]
+    lib.sdr_channelizer_at.argtypes = [vp, vp] + fft + [ll, ll] + \
+        [ci] * 5 + [vp]
     lib.sdr_channelizer_at.restype = ci
-    lib.sdr_channelizer_at_halo.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll,
-                                            ci, ci, ci, ci, ci, vp]
+    lib.sdr_channelizer_at_halo.argtypes = [vp, vp, vp] + fft + [ll, ll] + \
+        [ci] * 5 + [vp]
     lib.sdr_channelizer_at_halo.restype = ci
-    lib.sdr_channelizer_scrambled.argtypes = [vp, vp, vp, vp, vp, vp,
-                                              ci, ci, ci, ci, vp]
+    lib.sdr_channelizer_scrambled.argtypes = [vp, vp, vp] + fft + \
+        [ci] * 4 + [vp]
     lib.sdr_channelizer_scrambled.restype = ci
     lib.sdr_channelizer_frame_tile.argtypes = []
     lib.sdr_channelizer_frame_tile.restype = ci
+    lib.sdr_channelizer_smem_bytes.argtypes = [ci]
+    lib.sdr_channelizer_smem_bytes.restype = ci
     lib.sdr_ddc.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ci, ci, ci, ci,
                             ci, fl, ci, vp]
     lib.sdr_ddc.restype = ci

@@ -4,21 +4,24 @@ versions.
 
 Port of gpu_sdr_tpu/ops/pallas_channelizer.py (channelizer_frames_t,
 channelizer_frames_at and channelizer_frames_at_halo): the windowed
-pre-sum over avg-1 halo frames,
-then a two-stage n1 x n2 DFT with the twiddle folded into per-k1
-stage-2 constants.  ``channelizer`` takes a streamed block and its
-carried spare; ``channelizer_at`` reads block `idx` of a resident
-(total_frames, nfft) recording in place, its halo the avg-1 frames
-before it, wrapped at the loop seam and zero on the stream's first
-block (``valid`` 0); ``channelizer_at_halo`` reads block `idx` of one
-time shard's span of a recording, its halo frames staged per block at
-upload (the sharded replay, parallel/sharded_replay.py).  The output is
-(T, nfft) in natural bin order, so
-tone selection is ops/pfb.select_tones (a plain ``index_select``) where
-the JAX package needed select_tones_t; the TPU layout artifacts
-(transposed (n1, T, n2) blocks and the recording transposed at upload,
-8-frame halo units, bf16 hi/lo constants, the bt % 8 tiling rule) have
-no counterpart here.
+pre-sum over avg-1 halo frames, then the frame's DFT.  The plain
+versions keep the JAX package's algebra, a two-stage n1 x n2 DFT with
+the twiddle folded into per-k1 stage-2 constants (``channelizer_consts``:
+window, F1, G); the kernel computes the same function as a mixed-radix
+Stockham FFT in shared memory, its plan (``fft_radices``) and twiddle
+table (``fft_table``) built here in float64 once per (nfft, device).
+``channelizer`` takes a streamed block and its carried spare;
+``channelizer_at`` reads block `idx` of a resident (total_frames, nfft)
+recording in place, its halo the avg-1 frames before it, wrapped at the
+loop seam and zero on the stream's first block (``valid`` 0);
+``channelizer_at_halo`` reads block `idx` of one time shard's span of a
+recording, its halo frames staged per block at upload (the sharded
+replay, parallel/sharded_replay.py).  The output is (T, nfft) in natural
+bin order, so tone selection is ops/pfb.select_tones (a plain
+``index_select``) where the JAX package needed select_tones_t; the TPU
+layout artifacts (transposed (n1, T, n2) blocks and the recording
+transposed at upload, 8-frame halo units, bf16 hi/lo constants, the bt %
+8 tiling rule, the DFT as a matmul) have no counterpart here.
 
 ``channelizer_frames_scrambled`` is the port of the JAX package's
 ``channelizer_frames`` (kernel #3): a streamed block in the JAX layout
@@ -30,6 +33,7 @@ in the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -40,8 +44,11 @@ from ..kernels import build
 from .pfb import PFBConfig
 from .presum import pfb_frames_fused, presum_plain, recording_halo
 
-FRAME_TILE = 32                     # frames per CUDA block (csrc FT)
+FRAME_TILE = 32                     # frames of a block at most (csrc FT_MAX)
+SMEM_TILE = 73_728                  # a multi-frame tile's two buffers (csrc)
 SMEM_LIMIT = 232_448                # bytes of shared memory a block may use
+SCRATCH_BLOCKS = 264                # blocks of an nfft too large for it
+FFT_RADICES = (16, 10, 8, 6, 5, 4, 3, 7, 2)    # its register butterflies
 
 
 def best_split(n: int) -> Tuple[int, int]:
@@ -60,21 +67,80 @@ def best_split(n: int) -> Tuple[int, int]:
     return best
 
 
-def smem_bytes(n2: int) -> int:
-    """Shared memory of one channelizer block: G_k1 plus the z tile."""
-    return (n2 * n2 + FRAME_TILE * n2) * 8
+def tile_frames(nfft: int) -> int:
+    """Frames of one kernel block (csrc tile_frames): its two (frames,
+    nfft) complex buffers within SMEM_TILE; at least one, at most
+    FRAME_TILE."""
+    return max(1, min(FRAME_TILE, SMEM_TILE // (16 * nfft)))
+
+
+def smem_bytes(nfft: int) -> int:
+    """Shared memory of one kernel block (csrc sdr_channelizer_smem_bytes):
+    the tile's two buffers, or 0 where one frame's two buffers exceed
+    SMEM_LIMIT (nfft > 14,528) and the kernel keeps them in device memory
+    (``SCRATCH_BLOCKS`` pairs, the blocks looping over the frames)."""
+    b = 16 * tile_frames(nfft) * nfft
+    return b if b <= SMEM_LIMIT else 0
 
 
 def can_fuse_channelizer(cfg: PFBConfig, block_len: int) -> bool:
-    """Whether the channelizer kernel takes this geometry: G_k1 and the
-    z tile inside one block's shared memory, and whole frames per block.
-    The JAX kernel also needs 2 <= n1 <= 16, avg >= 2 and an 8-aligned
-    frame tile dividing the block; the CUDA kernel masks its last tile,
-    loops over n1 and reads no halo when avg = 1, so it takes more
-    geometries than the JAX one."""
+    """Whether the engine's paths take the channelizer kernel for this
+    geometry: whole frames per block, and the rule of the port's first,
+    two-stage kernel, G_k1 (n2 x n2) and a 32-frame z tile inside one
+    block's shared memory (n2 <= 155).  The FFT kernel takes any nfft;
+    the rule is kept so that every engine path keeps its route (NOISE at
+    nfft 1018, split 2 x 509, stays on the pre-sum route).  The JAX kernel
+    also needs 2 <= n1 <= 16, avg >= 2 and an 8-aligned frame tile
+    dividing the block; the port's masks its last tile and reads no halo
+    when avg = 1, so it takes more geometries than the JAX one."""
     _, n2 = best_split(cfg.nfft)
-    return (smem_bytes(n2) <= SMEM_LIMIT and
+    return ((n2 * n2 + 32 * n2) * 8 <= SMEM_LIMIT and
             block_len % cfg.nfft == 0 and block_len >= cfg.nfft)
+
+
+def fft_radices(nfft: int) -> Tuple[int, ...]:
+    """The kernel's radix plan for nfft, one Stockham pass each: as many
+    of each register butterfly as divide it, largest first (16, 10, 8,
+    6, 5, 4, 3, 7, 2), then each prime factor left (a direct-DFT pass).
+    (10, 10, 10) for 1000, (16, 16, 16) for 4096."""
+    out, n = [], nfft
+    for r in FFT_RADICES:
+        while n % r == 0:
+            out.append(r)
+            n //= r
+    p = 11
+    while n > 1:
+        if n % p == 0:
+            out.append(p)
+            n //= p
+        else:
+            p += 2
+    return tuple(out)
+
+
+def fft_table(radices) -> np.ndarray:
+    """The kernel's twiddle table for `radices`, built in float64 and
+    stored complex64: for pass p, with ns the product of the radices
+    before it and R its own, exp(-2 pi i r m / (ns R)) at [(r - 1) ns +
+    m] for 1 <= r < R and m < ns, then R's roots exp(-2 pi i j / R), j <
+    R (csrc Plan)."""
+    parts, ns = [], 1
+    for R in radices:
+        r = np.arange(1, R, dtype=np.float64)[:, None]
+        m = np.arange(ns, dtype=np.float64)[None, :]
+        parts += [np.exp(-2j * np.pi * r * m / (ns * R)).ravel(),
+                  np.exp(-2j * np.pi * np.arange(R) / R)]
+        ns *= R
+    return np.concatenate(parts or [np.zeros(0)]).astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_consts(nfft: int, device: torch.device):
+    """(radices, the table on `device`, the radices as a C int array) of
+    nfft, built once."""
+    radices = fft_radices(nfft)
+    return (radices, torch.from_numpy(fft_table(radices)).to(device),
+            (ctypes.c_int * max(1, len(radices)))(*radices))
 
 
 def stage1_matrix(n1: int, device) -> torch.Tensor:
@@ -144,11 +210,35 @@ def _check(window2d, F1, G, spare, x, nframes):
 @functools.cache
 def _library():
     """The kernel library, its frame tile checked once against
-    FRAME_TILE, on which smem_bytes and can_fuse_channelizer rest."""
+    FRAME_TILE, on which tile_frames and smem_bytes rest."""
     lib = build.load()
     if lib.sdr_channelizer_frame_tile() != FRAME_TILE:
-        raise RuntimeError("csrc/channelizer.cu FT differs from FRAME_TILE")
+        raise RuntimeError("csrc/channelizer.cu FT_MAX differs from "
+                           "FRAME_TILE")
     return lib
+
+
+def _launch(entry: str, srcs, window2d, G, T: int, *tail):
+    """Launch the C entry `entry` of csrc/channelizer.cu on CUDA operands:
+    its row sources `srcs` (data pointers), the window, nfft's FFT plan,
+    a (T, nfft) output and, where smem_bytes(nfft) is 0, the device
+    buffers of up to SCRATCH_BLOCKS blocks; then `tail`."""
+    dev = window2d.device
+    n1, n2 = G.shape[0], G.shape[1]
+    nfft = n1 * n2
+    radices, table, c_radices = _fft_consts(nfft, dev)
+    out = torch.empty((T, nfft), dtype=torch.complex64, device=dev)
+    scratch, nscratch = None, 0
+    if smem_bytes(nfft) == 0:
+        nscratch = min(T, SCRATCH_BLOCKS)
+        scratch = torch.empty((nscratch, 2, nfft), dtype=torch.complex64,
+                              device=dev)
+    _library()
+    build.launch(entry, dev, *srcs, window2d.data_ptr(), table.data_ptr(),
+                 c_radices, len(radices), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), nscratch,
+                 *tail)
+    return out
 
 
 def channelizer(window2d: torch.Tensor, F1: torch.Tensor, G: torch.Tensor,
@@ -164,7 +254,7 @@ def channelizer(window2d: torch.Tensor, F1: torch.Tensor, G: torch.Tensor,
     if x.device.type == "cpu":
         return channelizer_plain(window2d, F1, G, spare, x, nframes)
     T = int(nframes) if nframes is not None else x.shape[0]
-    out = _launch_streamed("sdr_channelizer", window2d, F1, G, spare, x, T,
+    out = _launch_streamed("sdr_channelizer", window2d, G, spare, x, T,
                            int(nframes is not None))
     if T:
         channelizer.launches += 1
@@ -174,26 +264,18 @@ def channelizer(window2d: torch.Tensor, F1: torch.Tensor, G: torch.Tensor,
 channelizer.launches = 0
 
 
-def _launch_streamed(entry: str, window2d, F1, G, spare, x, T: int, *flags):
+def _launch_streamed(entry: str, window2d, G, spare, x, T: int, *flags):
     """Launch the C entry `entry` of csrc/channelizer.cu's stream source
     (#1, or #3's scrambled store) on CUDA operands: (T, nfft) spectra,
     no launch when T is 0."""
     if x.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {x.device}")
-    n1, n2 = G.shape[0], G.shape[1]
-    avg, nfft = window2d.shape
-    if smem_bytes(n2) > SMEM_LIMIT:
-        raise ValueError(f"{entry}: split ({n1}, {n2}) does not fit one "
-                         "block's shared memory")
-    x, spare, window2d, F1, G = (t.contiguous() for t in
-                                 (x, spare, window2d, F1, G))
-    out = torch.empty((T, nfft), dtype=torch.complex64, device=x.device)
-    if T:
-        _library()
-        build.launch(entry, x.device, x.data_ptr(), spare.data_ptr(),
-                     window2d.data_ptr(), F1.data_ptr(), G.data_ptr(),
-                     out.data_ptr(), T, n1, n2, avg, *flags)
-    return out
+    if not T:
+        return torch.empty((0, x.shape[1]), dtype=torch.complex64,
+                           device=x.device)
+    x, spare, window2d = (t.contiguous() for t in (x, spare, window2d))
+    return _launch(entry, (x.data_ptr(), spare.data_ptr()), window2d, G, T,
+                   T, G.shape[0], G.shape[1], window2d.shape[0], *flags)
 
 
 def channelizer_at_plain(window2d: torch.Tensor, F1: torch.Tensor,
@@ -223,18 +305,10 @@ def channelizer_at(window2d: torch.Tensor, F1: torch.Tensor, G: torch.Tensor,
         return channelizer_at_plain(window2d, F1, G, X, idx, valid, nframes)
     if X.device.type != "cuda":
         raise ValueError(f"channelizer_at: unsupported device {X.device}")
-    n1, n2 = G.shape[0], G.shape[1]
-    if smem_bytes(n2) > SMEM_LIMIT:
-        raise ValueError(f"channelizer_at: split ({n1}, {n2}) does not fit "
-                         "one block's shared memory")
-    X, window2d, F1, G = (t.contiguous() for t in (X, window2d, F1, G))
-    out = torch.empty((nframes, nfft), dtype=torch.complex64,
-                      device=X.device)
-    _library()
-    build.launch("sdr_channelizer_at", X.device, X.data_ptr(),
-                 window2d.data_ptr(), F1.data_ptr(), G.data_ptr(),
-                 out.data_ptr(), X.shape[0], idx * nframes, nframes, n1, n2,
-                 avg, int(bool(valid)))
+    X, window2d = X.contiguous(), window2d.contiguous()
+    out = _launch("sdr_channelizer_at", (X.data_ptr(),), window2d, G,
+                  nframes, X.shape[0], idx * nframes, nframes, G.shape[0],
+                  G.shape[1], avg, int(bool(valid)))
     channelizer_at.launches += 1
     return out
 
@@ -288,19 +362,10 @@ def channelizer_at_halo(window2d: torch.Tensor, F1: torch.Tensor,
     if X.device.type != "cuda":
         raise ValueError(f"channelizer_at_halo: unsupported device "
                          f"{X.device}")
-    n1, n2 = G.shape[0], G.shape[1]
-    if smem_bytes(n2) > SMEM_LIMIT:
-        raise ValueError(f"channelizer_at_halo: split ({n1}, {n2}) does not "
-                         "fit one block's shared memory")
-    X, Hs, window2d, F1, G = (t.contiguous() for t in
-                              (X, Hs, window2d, F1, G))
-    out = torch.empty((nframes, nfft), dtype=torch.complex64,
-                      device=X.device)
-    _library()
-    build.launch("sdr_channelizer_at_halo", X.device, X.data_ptr(),
-                 Hs.data_ptr(), window2d.data_ptr(), F1.data_ptr(),
-                 G.data_ptr(), out.data_ptr(), X.shape[0], idx, nframes, n1,
-                 n2, avg, int(bool(valid)))
+    X, Hs, window2d = (t.contiguous() for t in (X, Hs, window2d))
+    out = _launch("sdr_channelizer_at_halo", (X.data_ptr(), Hs.data_ptr()),
+                  window2d, G, nframes, X.shape[0], idx, nframes, G.shape[0],
+                  G.shape[1], avg, int(bool(valid)))
     channelizer_at_halo.launches += 1
     return out
 
@@ -359,7 +424,7 @@ def channelizer_scrambled(window2d: torch.Tensor, F1: torch.Tensor,
     _check(window2d, F1, G, spare, x, None)
     if x.device.type == "cpu":
         return channelizer_scrambled_plain(window2d, F1, G, spare, x)
-    out = _launch_streamed("sdr_channelizer_scrambled", window2d, F1, G,
+    out = _launch_streamed("sdr_channelizer_scrambled", window2d, G,
                            spare, x, x.shape[0])
     if x.shape[0]:
         channelizer_scrambled.launches += 1
