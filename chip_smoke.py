@@ -104,12 +104,15 @@ and exits non-zero at the first phase that fails:
    run of the same measurement at >= 90 dB SNR;
 14. the deep FIR: the DDC and chain kernels' shared-memory staging plans
    (csrc/ddc.cu, csrc/chain.cu) against their Python mirrors for every f
-   up to 4096 (the DDC's within 48 KB, the chain's, at 100 tones and
-   channels and at 1000 tones and 300 channels, within 227 KB); at decimation 10 and 40,000 rows a block, #7 and #8 in
+   up to 4096 (the DDC's row mode within 48 KB, its channel mode at 9,
+   100, 128, 129 and 1000 channels within 227 KB, the chain's, at 100
+   tones and channels and at 1000 tones and 300 channels, within 227
+   KB); at decimation 10 and 40,000 rows a block, #7 and #8 in
    channel mode at 100 channels, pf_average 400 and 1000, #9 in row
    mode at one channel, 800 and 2000, #10 on shard 1 of a (time=2) mesh
    at 400, #15 at 1000, each at the stream's start against its plain
-   version and the float64 oracle, timed on the next block;
+   version and the float64 oracle, timed on the next block (#7, #8 and
+   #10 also against float64 over that whole block);
 15. config 3 host-fed at pf_average 400 through ``run_measurement`` (the
    DDC kernel), held against the plain DDC over the same TX blocks;
 16. the five kernels no engine path takes, at full width against their
@@ -150,10 +153,13 @@ from this run's shapes; for the folds and the chain (#11-#15), which run
 on the tensor cores with a three-pass TF32 split, three times their
 operations over the dense TF32 peak of 495 TFLOP/s in place of the FP32
 term, the FP32 bound beside it (``bound_fp32_ms``), and their SNR
-against the float64 product at full width (``snr_db``); ``library_ms``
-is one PyTorch call computing the same function where there is one (the
-lock-in modes: ``torch.einsum``; the folds and the chain:
-``torch.matmul`` of their rotated rows), else null.  The last line is
+against the float64 product at full width (``snr_db``); the DDC's
+channel mode (#7, #8, #10) its SNR against its plain version in float64
+over the whole block (``snr_db``); ``library_ms`` is one PyTorch call
+computing the same function where there is one (the lock-in modes:
+``torch.einsum``; the folds and the chain: ``torch.matmul`` of their
+rotated rows; the DDC's channel mode: ``torch.matmul`` of the
+materialized (nb, f*M) window rows by Hmod), else null.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -235,6 +241,7 @@ DEEP_SHARD_F, DEEP_CHAIN_F = 400, 1000      # #10 on shard 1 of 2; #15
 DEEP_RUN_F, DEEP_RUN_BLOCKS = 400, 4        # config 3 host-fed, run_measurement
 DEEP_TIMED_RUNS = 5
 F_PLAN = 4096                       # staging plans compared for f 1..F_PLAN
+DEEP_PLAN_CHANNELS = (9, 100, 128, 129, 1000)   # the DDC channel mode's, at C
 F_PLAN_NFFT = 20_000                # the channelizer's, for nfft 1..
 
 # the kernels no engine path takes, driven through their entry points
@@ -404,6 +411,29 @@ def ddc_flops(rows: int, channels: int, taps: int) -> int:
     """A DDC+FIR block: `taps` complex MACs per output, then the two
     complex rotations."""
     return rows * channels * (8 * taps + 12)
+
+
+def ddc_library_ms(E, hmod, f: int, timer) -> float:
+    """The DDC's yardstick: one torch.matmul of the materialized (nb,
+    f*M) complex64 window rows of E (nb + f - 1, M) by hmod (f*M, C),
+    cuBLAS in FP32 (config.py keeps TF32 off), timed by `timer`."""
+    import torch
+    nb, M = E.shape[0] - f + 1, E.shape[1]
+    A = E.reshape(-1).unfold(0, f * M, M)[:nb].contiguous()
+    ms = timer(lambda: torch.matmul(A, hmod))
+    print(f"ddc yardstick: torch.matmul ({nb}, {f * M}) x ({f * M}, "
+          f"{hmod.shape[1]}) complex64 {ms:.4f} ms")
+    del A
+    return ms
+
+
+def ddc_snr64(name: str, k, hmod, ramp, phase, W: int, M: int, f: int,
+              E) -> float:
+    """The SNR of a DDC kernel's whole output `k` against its plain
+    version (ddc_rows_plain) in float64 over the extended rows E;
+    checked against the bar."""
+    from gpu_sdr_tpu_torch.ops.ddc import ddc_rows_plain
+    return snr64(name, k, ddc_rows_plain, hmod, ramp, phase, W, M, f, E)
 
 
 def phase_card():
@@ -732,6 +762,7 @@ def phase_direct_kernels(dev):
     import torch
     from gpu_sdr_tpu_torch.ops import ddc
     from gpu_sdr_tpu_torch.ops.fold import TonesDirectFold, fold, fold_plain
+    from gpu_sdr_tpu_torch.ops.presum import recording_rows
     from gpu_sdr_tpu_torch.ops.replay_ddc import make_replay_ddc
     from gpu_sdr_tpu_torch.ops.tonegen import (comb_period,
                                                tone_comb_wavetable_block)
@@ -764,6 +795,10 @@ def phase_direct_kernels(dev):
         time_ms(lambda: ddc.direct_ddc_fir(*args, ph, hist, x1))), rows=rows,
         cost=(nbytes(x1, hist, hmod, ramp, ph, yk),
               ddc_flops(D_ROWS, len(CONFIG3), D_DECIM * D_AVG)))
+    E = torch.cat([hist, x1]).reshape(-1, D_DECIM)
+    rows["ddc"]["snr_db"] = ddc_snr64("ddc", yk, hmod, ramp, ph, D_RATE,
+                                      D_DECIM, D_AVG, E)
+    rows["ddc"]["library_ms"] = ddc_library_ms(E, hmod, D_AVG, time_ms)
 
     # replay DDC (#8, #9): the stream's first block (zero history)
     # against the oracle, its second (history wrapped at the seam) timed
@@ -790,6 +825,13 @@ def phase_direct_kernels(dev):
             time_ms(lambda: rk.block_plain(st1))), rows=rows,
             cost=(block_bytes + nbytes(rk._hmod, rk._ramp, st1[1], yk),
                   ddc_flops(D_ROWS, len(freqs), D_DECIM * D_AVG)))
+        if name == "replay_ddc":          # #8: channel mode
+            E = recording_rows(rk.X, st1[0], rk.nbr, D_AVG - 1, 1)
+            rows[name]["snr_db"] = ddc_snr64(
+                name, yk, rk._hmod, rk._ramp, st1[1], D_RATE, D_DECIM,
+                D_AVG, E)
+            rows[name]["library_ms"] = ddc_library_ms(E, rk._hmod, D_AVG,
+                                                      time_ms)
 
     # fold (#11) at config 3: the stream's first block, startup
     # correction applied, against plain and the oracle; then timed
@@ -1426,8 +1468,17 @@ def phase_sharded_kernels(dev):
     print(f"replay_ddc_sharded {nbt}x{len(CONFIG3)}: kernel {ms:.4f} ms, "
           f"plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})")
+    idx, t = 3, 1                       # a block inside, its halo shard 0's
+    st = (idx, st0[1], 1)
+    E = torch.cat([rk.H[t][idx], rk.X[t][idx * nbt:(idx + 1) * nbt]])
+    s64 = ddc_snr64(f"replay_ddc_sharded [block {idx}, shard {t}]",
+                    via_kernel("replay_ddc_sharded", lambda: rk.local(st, t)),
+                    rk._hmod[t], rk._ramp[t], st0[1], D_RATE, D_DECIM, D_AVG,
+                    E)
+    lms = ddc_library_ms(E, rk._hmod[t], D_AVG,
+                         lambda fn: time_ms_queued(fn, 2 * R_BLOCKS))
     rows["replay_ddc_sharded"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                      library_ms=None, **b)
+                                      library_ms=lms, snr_db=s64, **b)
     del rk, rec
 
     # #15: config 3 through use_fold=False, 20,000 rows per shard
@@ -1940,15 +1991,17 @@ def phase_deep_fir_kernels(dev):
     from gpu_sdr_tpu_torch.ops import ddc
     from gpu_sdr_tpu_torch.ops.chain import (TonesDirectChain, chain,
                                              chain_plain)
+    from gpu_sdr_tpu_torch.ops.presum import recording_rows
     from gpu_sdr_tpu_torch.ops.replay_ddc import (ReplayDDC, ReplayDDCT,
                                                   ShardedReplayDDC)
     lib = build.load()
-    plans = {"ddc channel mode": (lambda f: lib.sdr_ddc_smem_bytes(f, 0),
-                                  lambda f: ddc.smem_bytes(f, False),
-                                  ddc.SMEM_DEFAULT),
-             "ddc row mode": (lambda f: lib.sdr_ddc_smem_bytes(f, 1),
+    plans = {"ddc row mode": (lambda f: lib.sdr_ddc_smem_bytes(f, 1, 1),
                               lambda f: ddc.smem_bytes(f, True),
                               ddc.SMEM_DEFAULT)}
+    for C in DEEP_PLAN_CHANNELS:
+        plans[f"ddc channel mode, {C} channels"] = (
+            lambda f, C=C: lib.sdr_ddc_smem_bytes(f, 0, C),
+            lambda f, C=C: ddc.smem_bytes(f, False, C), ddc.SMEM_MAX)
     for Ct, Cp in ((100, 100), (1000, 300)):
         plans[f"chain, {Ct} tones, {Cp} channels"] = (
             lambda f, a=(Ct, Cp): lib.sdr_chain_smem_bytes(f, *a),
@@ -1999,6 +2052,9 @@ def phase_deep_fir_kernels(dev):
                       timed(lambda: ddc.direct_ddc_fir(*args, ph, hist, x1))),
                rows=tmp, cost=(nbytes(x1, hist, hmod, ramp, ph, yk),
                                ddc_flops(nb, len(CONFIG3), M * f)))
+        tmp[f"ddc [f {f}]"]["snr_db"] = ddc_snr64(
+            f"ddc [f {f}]", yk, hmod, ramp, ph, D_RATE, M, f,
+            torch.cat([hist, x1]).reshape(-1, M))
         deep_row(deep, tmp, "ddc", f, f"ddc [f {f}]")
         del x0, x1, hist
 
@@ -2026,6 +2082,10 @@ def phase_deep_fir_kernels(dev):
                 cost=((DEEP_BLOCK + (f - 1) * M) * 8 +
                       nbytes(rk._hmod, rk._ramp, st1[1], yk),
                       ddc_flops(nb, len(freqs), M * f)))
+            if name == "replay_ddc":      # #8: channel mode
+                tmp[tag]["snr_db"] = ddc_snr64(
+                    tag, yk, rk._hmod, rk._ramp, st1[1], D_RATE, M, f,
+                    recording_rows(rk.X, st1[0], rk.nbr, f - 1, 1))
             deep_row(deep, tmp, name, f, tag)
             report(f"{name} [f {f}, block 0 after the seam]",
                    via_kernel(name, lambda: rk.step(st2))[1],
@@ -2055,6 +2115,9 @@ def phase_deep_fir_kernels(dev):
         rows=tmp, cost=((nbt + f - 1) * M * 8 + nbytes(
             rk._hmod[1], rk._ramp[1], st1[1], yk),
             ddc_flops(nbt, len(CONFIG3), M * f)))
+    tmp[tag]["snr_db"] = ddc_snr64(
+        tag, yk, rk._hmod[1], rk._ramp[1], st1[1], D_RATE, M, f,
+        torch.cat([rk.H[1][1], rk.X[1][nbt:2 * nbt]]))
     deep_row(deep, tmp, "replay_ddc_sharded", f, tag)
     del rk, rec
 

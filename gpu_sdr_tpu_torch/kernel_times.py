@@ -1,7 +1,8 @@
 """Device times of the channelizer (#1 const and stream, #3, #4, #5),
-DDC (#7, channel and row mode), fold (#11-#14) and chain (#15) kernels
-at the main path's shapes, and of the yardsticks beside them, for
-comparing two checkouts of the port on one card.
+DDC (#7 in channel mode at config 3 and at a deep FIR, #7 in row mode,
+#8, #10), fold (#11-#14) and chain (#15) kernels at the main path's
+shapes, and of the yardsticks beside them, for comparing two checkouts
+of the port on one card.
 
     python -m gpu_sdr_tpu_torch.kernel_times
         one JSON line: the card, ptxas's register and spill lines for the
@@ -15,31 +16,39 @@ comparing two checkouts of the port on one card.
         the same order for the probe's cells that run those kernels
         (``E2E_CELLS``): TONES fused (#1), TONES replay (#4) unsharded and
         on (1, 1) and (2, 1) meshes (#5), DIRECT config 3 fused (#11)
-        unsharded and on a (2, 1) mesh; each cell's RUNS rates (default
-        10; host clock) and profiled run (device busy share, device ms
-        per block) from each checkout's own ``probe.probe_cell``, and the
-        host's ms a block in the output fetch and the kernels' launch
-        calls, then the medians side by side
+        unsharded and on a (2, 1) mesh, DIRECT config 3 replay (#8)
+        unsharded and on a (2, 1) mesh (#10), and config 3 host-fed at
+        pf_average 400 (#7 at an 8000-tap FIR, ``DEEP_CELL``); each
+        cell's RUNS rates (default 10; host clock) and profiled run
+        (device busy share, device ms per block) from each checkout's own
+        ``probe.probe_cell``, and the host's ms a block in the output
+        fetch and the kernels' launch calls, then the medians side by
+        side
 
 Only wrappers that the port has had since its last five kernels
 (``channelizer``, ``channelizer_scrambled``, ``channelizer_at``,
-``channelizer_at_halo``, ``ddc_fused``, ``fold``, ``fold_streamed``,
-``fold_rotg``, ``fold_t`` with one block, ``chain``) are called, so an
-older checkout runs this file too.  Shapes: the TONES receiver (nfft
-1000, avg 4) for the channelizers, over the blocks of an 8-block (384
-MB) recording in turn so that each call reads its rows from HBM: #1
-stream and #4 on 6000-frame blocks, #3 on their first 4000 frames, #5
-on one shard's 3000 of a (time=2) mesh, #1 const on one frame standing
-for 6000; config 3 (4,000,000 samples, decimation 100, pf_average 4, 100
-tones) for #7 channel mode, #11-#13 and #15 (shard 1 of 2, 20,000 rows);
-#14 at 4,096,000 samples (nb 40,960), as the smoke; config 1's one
-channel for #7's row mode.  The yardsticks, timed the same way: the
-host-fed PFB route on #1's blocks, the pre-sum kernel #2 and then
-``torch.fft.fft`` (``pfb_two_calls``: no one PyTorch call computes the
-channelizer); ``torch.matmul`` of the fold's (40,000, 100) rotated rows
-by G2 (cuBLAS FP32, as ``chip_smoke.fold_library_ms`` forms it;
-``fold_matmul``) and of the chain's stacked (20,000, 400) rows by G
-reshaped (400, 100) (``chain_matmul``).
+``channelizer_at_halo``, ``ddc_fused``, ``ReplayDDC.step``,
+``ShardedReplayDDC.local``, ``fold``, ``fold_streamed``, ``fold_rotg``,
+``fold_t`` with one block, ``chain``) are called, so an older checkout
+runs this file too.  Shapes: the TONES receiver (nfft 1000, avg 4) for
+the channelizers, over the blocks of an 8-block (384 MB) recording in
+turn so that each call reads its rows from HBM: #1 stream and #4 on
+6000-frame blocks, #3 on their first 4000 frames, #5 on one shard's 3000
+of a (time=2) mesh, #1 const on one frame standing for 6000; config 3
+(4,000,000 samples, decimation 100, pf_average 4, 100 tones) for #7
+channel mode, #11-#13 and #15 (shard 1 of 2, 20,000 rows), and for #8
+and #10 (shard 1 of a (time=2) mesh, 20,000 rows) over the blocks of an
+8-block (256 MB) recording in turn; #7 at decimation 10, pf_average 400
+(400,000 samples, 40,000 rows); #14 at 4,096,000 samples (nb 40,960), as
+the smoke; config 1's one channel for #7's row mode.  The yardsticks,
+timed the same way: the host-fed PFB route on #1's blocks, the pre-sum
+kernel #2 and then ``torch.fft.fft`` (``pfb_two_calls``: no one PyTorch
+call computes the channelizer); ``torch.matmul`` of the DDC's
+materialized (40,000, 400) window rows by Hmod (``ddc_matmul``), of the
+fold's (40,000, 100) rotated rows by G2 (as
+``chip_smoke.fold_library_ms`` forms it; ``fold_matmul``) and of the
+chain's stacked (20,000, 400) rows by G reshaped (400, 100)
+(``chain_matmul``), cuBLAS in FP32.
 """
 
 from __future__ import annotations
@@ -54,8 +63,12 @@ import numpy as np
 RUNS, CALLS = 7, 20
 E2E_CELLS = ("TONES fused", "TONES replay", "TONES replay on (1, 1)",
              "TONES replay on (2, 1)", "DIRECT config 3 fused",
-             "DIRECT config 3 fused on (2, 1)")
-R_BLOCKS = 8               # blocks of the channelizers' recording
+             "DIRECT config 3 fused on (2, 1)", "DIRECT config 3 replay",
+             "DIRECT config 3 replay on (2, 1)")
+DEEP_CELL = "DIRECT config 3 host-fed, pf_average 400"
+DEEP_CELL_BLOCKS = 10
+R_BLOCKS = 8               # blocks of the channelizers' and #8's recordings
+DEEP_DECIM, DEEP_F, DEEP_BLOCK = 10, 400, 400_000    # #7 at a deep FIR
 SC_FRAMES = 4000           # #3: 4,000,000 samples at nfft 1000
 T_BLOCK = 4_096_000        # #14: JAX's channel-major geometry (nb 40,960)
 
@@ -111,18 +124,26 @@ def measure() -> dict:
              "info" in line and "Function properties" not in line]
     gen = torch.Generator(device=dev).manual_seed(1234)
     times = {}
-    for name, freqs in (("ddc_channel", CONFIG3), ("ddc_row", CONFIG1)):
-        cfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(freqs),
+    for name, freqs, M, f, L in (
+            ("ddc_channel", CONFIG3, D_DECIM, D_AVG, D_BLOCK),
+            ("ddc_row", CONFIG1, D_DECIM, D_AVG, D_BLOCK),
+            ("ddc_channel_f400", CONFIG3, DEEP_DECIM, DEEP_F, DEEP_BLOCK)):
+        cfg = ddc.DirectDDCConfig(D_RATE, M, f, tuple(freqs),
                                   (0,) * len(freqs))
-        args = (cfg.modulated_taps(dev), cfg.carrier_ramp(D_BLOCK // D_DECIM,
-                                                          dev),
-                ddc.ddc_carrier_step(cfg, D_BLOCK, dev), D_RATE, cfg.M,
-                cfg.f, ddc.ddc_carrier_init(cfg, dev),
-                torch.randn((D_AVG - 1) * D_DECIM, dtype=torch.complex64,
+        args = (cfg.modulated_taps(dev), cfg.carrier_ramp(L // M, dev),
+                ddc.ddc_carrier_step(cfg, L, dev), D_RATE, M, f,
+                ddc.ddc_carrier_init(cfg, dev),
+                torch.randn((f - 1) * M, dtype=torch.complex64,
                             device=dev, generator=gen),
-                torch.randn(D_BLOCK, dtype=torch.complex64, device=dev,
+                torch.randn(L, dtype=torch.complex64, device=dev,
                             generator=gen))
         times[name] = time_ms(lambda: ddc.ddc_fused(*args))
+        if name == "ddc_channel":       # the yardstick on the same block
+            E = torch.cat(args[-2:]).reshape(-1, M)
+            A = E.reshape(-1).unfold(0, f * M, M)[:L // M].contiguous()
+            times["ddc_matmul"] = time_ms(lambda: torch.matmul(A, args[0]))
+            del E, A
+    measure_replay_ddc(dev, gen, times)
     cfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(CONFIG3),
                               (0,) * len(CONFIG3))
     ampl = (0.01,) * 100
@@ -170,6 +191,32 @@ def measure() -> dict:
                             max=float(max(v))) for k, v in times.items()})
 
 
+def measure_replay_ddc(dev, gen, times) -> None:
+    """#8 (``ReplayDDC.step``) and #10 (``ShardedReplayDDC.local`` on
+    shard 1 of a (time=2) mesh) at config 3 into `times`, over the blocks
+    of an R_BLOCKS-block (256 MB) recording in turn, so that each call
+    reads its rows from HBM."""
+    import itertools
+
+    import torch
+    from gpu_sdr_tpu_torch.ops import ddc
+    from gpu_sdr_tpu_torch.ops.replay_ddc import ReplayDDC, ShardedReplayDDC
+    from gpu_sdr_tpu_torch.probe import (CONFIG3, D_AVG, D_BLOCK, D_DECIM,
+                                         D_RATE)
+    cfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(CONFIG3),
+                              (0,) * len(CONFIG3))
+    rec = torch.randn(R_BLOCKS * D_BLOCK, dtype=torch.complex64, device=dev,
+                      generator=gen)
+    phase, rot = ddc.ddc_carrier_init(cfg, dev), itertools.count()
+    rk = ReplayDDC(cfg, rec, D_BLOCK, dev)
+    times["replay_ddc"] = time_ms(
+        lambda: rk.step((next(rot) % R_BLOCKS, phase, 1)))
+    del rk
+    sk = ShardedReplayDDC(cfg, rec, D_BLOCK, [dev] * 2)
+    times["replay_ddc_sharded"] = time_ms(
+        lambda: sk.local((next(rot) % R_BLOCKS, phase, 1), 1))
+
+
 def measure_channelizers(dev, gen, times) -> None:
     """#1 (const, stream), #3, #4, #5 and the two-call host-fed route
     into `times`, over the blocks of an 8-block recording in turn."""
@@ -212,11 +259,11 @@ def measure_channelizers(dev, gen, times) -> None:
 
 
 def measure_cells(runs: int) -> dict:
-    """E2E_CELLS through this checkout's probe, `runs` rates each, with
-    the host's ms a block over those runs (medians): in the fetch's
-    start (the gather, the pinned buffer, the copy queued), in its wait
-    for the copy, and in the channelizer's, fold's or chain's C launch
-    calls."""
+    """E2E_CELLS and DEEP_CELL through this checkout's probe, `runs` rates
+    each, with the host's ms a block over those runs (medians): in the
+    fetch's start (the gather, the pinned buffer, the copy queued), in
+    its wait for the copy, and in the channelizer's, DDC's, fold's or
+    chain's C launch calls."""
     import time
 
     import torch
@@ -241,7 +288,7 @@ def measure_cells(runs: int) -> dict:
     timed_launch = timed("launch", launch)
     build.launch = lambda name, *args: (
         timed_launch if name.startswith(("sdr_fold", "sdr_chain",
-                                         "sdr_channelizer"))
+                                         "sdr_channelizer", "sdr_ddc"))
         else launch)(name, *args)
 
     def counted(*args, **kw):               # the timed runs only
@@ -253,14 +300,24 @@ def measure_cells(runs: int) -> dict:
     probe.run_once = counted
     dev = torch.device("cuda", 0)
     cells = []
-    for c in probe.cells():
-        if c[0] in E2E_CELLS:
+    for c in probe.cells() + ((DEEP_CELL, deep_params, True,
+                               DEEP_CELL_BLOCKS, probe.D_BLOCK, None),):
+        if c[0] in E2E_CELLS or c[0] == DEEP_CELL:
             host.clear()
             cells.append(probe.probe_cell(dev, *c))
             cells[-1]["host_ms_per_block"] = {
                 k: float(np.median([h.get(k, 0.0) for h in host]))
                 for k in ("start", "wait", "launch")}
     return dict(card=card(), cells=cells)
+
+
+def deep_params(n_blocks: int):
+    """Config 3 host-fed at pf_average 400 (an 8000-tap FIR at decimation
+    100): the DDC kernel #7's channel mode at a deep FIR."""
+    from gpu_sdr_tpu_torch.probe import CONFIG3, direct_params
+    p = direct_params(CONFIG3, 0.01, n_blocks)
+    p.A_RX2.pf_average = DEEP_F
+    return p
 
 
 def compare(trees, args=()) -> int:

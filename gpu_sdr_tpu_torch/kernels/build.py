@@ -134,7 +134,7 @@ def _bind(lib) -> None:
     lib.sdr_ddc_staged.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ci, ci,
                                    ci, ci, ci, fl, ci, vp]
     lib.sdr_ddc_staged.restype = ci
-    lib.sdr_ddc_smem_bytes.argtypes = [ci, ci]
+    lib.sdr_ddc_smem_bytes.argtypes = [ci, ci, ci]
     lib.sdr_ddc_smem_bytes.restype = ci
     for name in ("sdr_fold", "sdr_fold_streamed", "sdr_fold_rotg",
                  "sdr_fold_t"):

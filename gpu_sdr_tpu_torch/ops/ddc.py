@@ -16,10 +16,13 @@ package's int32 values convert exactly, see convert.ddc_state).
 ``direct_ddc_fir`` is the plain version (f complex matmuls); ``ddc_fused``
 launches the kernel for CUDA tensors.  The kernel's second input mode (a
 block of a resident recording, read by block index) serves
-ops/replay_ddc.py.  The kernel stages a tile's extended rows a chunk of
-taps at a time, so its shared memory is bounded for any f (``smem_bytes``
-mirrors its plan).  The TPU kernel's bf16 hi/lo split, its 8-row halo
-units and its fallback for untileable geometries have no counterpart.
+ops/replay_ddc.py.  In channel mode the kernel is a register-tiled FP32
+complex GEMM of the (nb, f*M) window rows by Hmod, k in chunks staged in
+shared memory; in row mode it stages a tile's extended rows a chunk of
+taps at a time.  Either way its shared memory is bounded for any f
+(``channel_plan`` and ``smem_bytes`` mirror its plans).  The TPU
+kernel's bf16 hi/lo split, its 8-row halo units and its fallback for
+untileable geometries have no counterpart.
 """
 
 from __future__ import annotations
@@ -36,26 +39,54 @@ from .fir import fir_taps_direct
 
 ROW_MODE_MAX_CHANNELS = 8   # csrc/ddc.cu kMaxRowChannels
 SMEM_DEFAULT = 48 * 1024    # a block's shared memory without the opt-in
-# csrc/ddc.cu: (rows per block, staged samples per row) in channel mode
-# and in row mode
-DDC_TILES = {False: (64, 64), True: (128, 32)}
+SMEM_MAX = 232_448          # a block's shared memory with the opt-in
+# csrc/ddc.cu's tiles.  Channel mode (False): rows and channels a thread
+# (kTM, kTN), window columns a chunk (kKC) and a staged row's pitch
+# (kKP), chunks staged at once (kStages), a block's most channels,
+# threads and row groups.  Row mode (True): rows (threads) a block and
+# staged samples a row (kTileR, kChunkR).
+DDC_TILES = {False: dict(rows=8, channels=4, chunk=32, pitch=34, stages=2,
+                         max_channels=128, max_threads=256,
+                         max_row_groups=16),
+             True: dict(tile=128, chunk=32)}
 
 
 def taps_per_pass(tile: int, chunk: int) -> int:
-    """Taps a block stages per pass: the most whose tile + taps - 1 rows
-    of `chunk` samples (odd pitch chunk + 1) fit SMEM_DEFAULT."""
+    """Taps a row-mode block stages per pass: the most whose tile + taps
+    - 1 rows of `chunk` samples (odd pitch chunk + 1) fit SMEM_DEFAULT."""
     return SMEM_DEFAULT // ((chunk + 1) * 8) - tile + 1
 
 
 def staged_smem_bytes(tile: int, chunk: int, f: int) -> int:
-    """Shared memory of a block staging tile + min(f, taps) - 1 rows."""
+    """Shared memory of a row-mode block staging tile + min(f, taps) - 1
+    rows."""
     return (tile + min(f, taps_per_pass(tile, chunk)) - 1) * (chunk + 1) * 8
 
 
-def smem_bytes(f: int, row_mode: bool) -> int:
-    """The DDC kernel's shared memory for f taps, the plan of csrc/ddc.cu
-    (sdr_ddc_smem_bytes): at most SMEM_DEFAULT for any f."""
-    return staged_smem_bytes(*DDC_TILES[bool(row_mode)], f)
+def channel_plan(C: int) -> dict:
+    """The channel mode's launch for C channels (csrc/ddc.cu chan_plan):
+    `ntile` tiles of `Ct` channels (grid.y), CG channel groups of 4 by RG
+    row groups of threads, BM = 8 RG rows a block, and its shared memory,
+    two stages of a (BM, pitch) window and (chunk, 4 CG) taps."""
+    t = DDC_TILES[False]
+    ntile = -(-C // t["max_channels"])
+    Ct = -(-C // ntile)
+    CG = -(-Ct // t["channels"])
+    RG = min(t["max_row_groups"], t["max_threads"] // CG)
+    BM = t["rows"] * RG
+    smem = t["stages"] * (BM * t["pitch"] +
+                          t["chunk"] * t["channels"] * CG) * 8
+    return dict(ntile=ntile, Ct=Ct, CG=CG, RG=RG, BM=BM, threads=CG * RG,
+                smem=smem)
+
+
+def smem_bytes(f: int, row_mode: bool, C: int = 100) -> int:
+    """The DDC kernel's shared memory for f taps and C channels, the plan
+    of csrc/ddc.cu (sdr_ddc_smem_bytes): in row mode at most SMEM_DEFAULT
+    for any f; in channel mode channel_plan's, whatever f."""
+    if row_mode:
+        return staged_smem_bytes(*DDC_TILES[True].values(), f)
+    return channel_plan(C)["smem"]
 
 
 def few_channels(n_channels: int) -> bool:

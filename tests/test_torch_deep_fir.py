@@ -1,11 +1,14 @@
-"""A deep FIR (pf_average in the hundreds) on the port: the DDC and chain
-kernels stage a tile's extended rows a chunk of taps at a time, so their
-shared memory is bounded for any f.  On the CPU: the staging plan that
+"""A deep FIR (pf_average in the hundreds) on the port: the DDC's channel
+mode runs the window's k axis in chunks, its row mode and the chain
+stage a tile's extended rows a chunk of taps at a time, so their shared
+memory is bounded for any f.  On the CPU: the staging plan that
 ops/ddc.py and ops/chain.py mirror from csrc/ddc.cu and csrc/chain.cu
-fits for every f up to 4096, the DDC's one block's default 48 KB (the
-launch size, no opt-in), the chain's (its ring of G items beside two
-buffers of rows, at config 3's widths) the H100's 227 KB, its constants
-those of the CUDA sources; and the port's host-fed DIRECT readout at pf_average 400
+fits for every f up to 4096, the DDC's channel mode (two stages of a
+window chunk and its taps, at config 3's 100 channels) and the chain
+(its ring of G items beside two buffers of rows, at config 3's widths)
+the H100's 227 KB, the DDC's row mode one block's default 48 KB (the
+launch size, no opt-in), its constants those of the CUDA sources; and
+the port's host-fed DIRECT readout at pf_average 400
 matches the JAX package's direct_ddc_fir route and the float64 oracle
 at 90 dB SNR.  The kernels themselves run at such
 depths only on the card (chip_smoke.py, its deep-FIR phase).
@@ -38,19 +41,22 @@ FREQS = [100_003, -250_001, 333_333]
 
 @pytest.mark.parametrize("kernel", ["ddc_channel", "ddc_row", "chain"])
 def test_staging_plan_fits_for_every_f(kernel):
-    """Every f in 1..4096: within the launch size (the DDC: the default
-    48 KB; the chain at config 3's 100 tones and channels: the card's
-    limit), growing with f only up to one pass of taps, then flat."""
+    """Every f in 1..4096: within the launch size (the DDC's row mode:
+    the default 48 KB; its channel mode at config 3's 100 channels and
+    the chain at its 100 tones and channels: the card's limit); the row
+    mode and the chain growing with f only up to one pass of taps, then
+    flat; the channel mode flat from f 1 (its k-loop takes any depth)."""
     plan, limit = {
-        "ddc_channel": (lambda f: ddc.smem_bytes(f, False),
-                        ddc.SMEM_DEFAULT),
+        "ddc_channel": (lambda f: ddc.smem_bytes(f, False), H100_SMEM),
         "ddc_row": (lambda f: ddc.smem_bytes(f, True), ddc.SMEM_DEFAULT),
         "chain": (lambda f: chain.smem_bytes(f, 100, 100), H100_SMEM)}[kernel]
     sizes = np.array([plan(f) for f in range(1, F_MAX + 1)])
     assert sizes.max() <= limit <= H100_SMEM
     assert np.all(np.diff(sizes) >= 0)
-    flat = int(np.flatnonzero(sizes != sizes[-1])[-1]) + 1   # f - 1
-    assert 8 <= flat < 100 and np.all(sizes[flat:] == sizes[-1])
+    grows = np.flatnonzero(sizes != sizes[-1])
+    flat = int(grows[-1]) + 1 if grows.size else 0          # f - 1
+    assert np.all(sizes[flat:] == sizes[-1])
+    assert flat == 0 if kernel == "ddc_channel" else 8 <= flat < 100
 
 
 def source_constants(name):
@@ -65,27 +71,37 @@ def source_constants(name):
 
 
 def test_taps_per_pass_mirror_the_sources():
-    """The mirrored constants, read from the CUDA sources: 31 taps a pass
-    in the DDC's channel mode (64 rows x 65 samples), 59 in row mode
-    (128 x 33), the most that fit 48 KB; 28 in the chain at config 3's
-    widths, the most whose two buffers of 64 + J - 1 rows of 204 floats
-    fit beside its ring of two G items (52 tones x 100 channels, complex)
-    in 227 KB; at f 4, the main path's, two items a tap."""
+    """The mirrored constants, read from the CUDA sources: in the DDC's
+    channel mode chunks of 32 window columns at a pitch of 34, 8 rows by
+    4 channels a thread, two stages, at config 3's 100 channels 80 rows
+    a block (10 row groups by 25 channel groups) in 94,720 bytes, within
+    227 KB; 59 taps a pass in row mode (128 x 33), the most that fit
+    48 KB; 28 in the chain at config 3's widths, the most whose two
+    buffers of 64 + J - 1 rows of 204 floats fit beside its ring of two
+    G items (52 tones x 100 channels, complex) in 227 KB; at f 4, the
+    main path's, two items a tap."""
     d, c = source_constants("ddc.cu"), source_constants("chain.cu")
     t = source_constants("tc.cuh")
-    assert ddc.DDC_TILES == {False: (d["kTileC"], d["kChunkC"]),
-                             True: (d["kTileR"], d["kChunkR"])}
+    ch = ddc.DDC_TILES[False]
+    assert ddc.DDC_TILES[True] == dict(tile=d["kTileR"], chunk=d["kChunkR"])
+    assert (ch["rows"], ch["channels"], ch["chunk"], ch["pitch"],
+            ch["stages"]) == (d["kTM"], d["kTN"], d["kKC"], d["kKP"],
+                              d["kStages"]) == (8, 4, 32, 34, 2)
     assert (chain.CHAIN_TILE, chain.CHAIN_MAX_CHANNELS, chain.SMEM_MAX) == \
         (t["kRows"], c["kChanMax"], t["kSmemMax"]) == (64, 112, H100_SMEM)
     assert chain.CHAIN_MIN_TAPS == c["kMinTaps"]
     assert ddc.SMEM_DEFAULT == d["kSmemDefault"]
+    assert ddc.SMEM_MAX == d["kSmemMax"] == H100_SMEM
     assert ddc.ROW_MODE_MAX_CHANNELS == d["kMaxRowChannels"]
-    assert [ddc.taps_per_pass(*ddc.DDC_TILES[m]) for m in (False, True)] == \
-        [31, 59]
-    for tile, chunk in ddc.DDC_TILES.values():
-        J = ddc.taps_per_pass(tile, chunk)
-        assert (tile + J - 1) * (chunk + 1) * 8 <= ddc.SMEM_DEFAULT < \
-            (tile + J) * (chunk + 1) * 8
+    tile, chunk = ddc.DDC_TILES[True].values()
+    J = ddc.taps_per_pass(tile, chunk)
+    assert J == 59
+    assert (tile + J - 1) * (chunk + 1) * 8 <= ddc.SMEM_DEFAULT < \
+        (tile + J) * (chunk + 1) * 8
+    p = ddc.channel_plan(100)                       # config 3
+    assert (p["BM"], p["RG"], p["CG"]) == (80, 10, 25)
+    assert ddc.smem_bytes(4, False) == ddc.smem_bytes(F_MAX, False) == \
+        p["smem"] == 2 * (80 * 34 + 32 * 100) * 8 <= H100_SMEM
     ring, row = 2 * 52 * 100 * 8, (2 * 100 + 4) * 4
     p = chain.plan(4, 100, 100)             # config 3
     assert (p["nc"], p["CN"], p["nke"], p["KE"], p["KG"], p["nsub"],
