@@ -32,7 +32,10 @@ and exits non-zero at the first phase that fails:
    few-channel replay DDC at config 1 (one tone at 10 MHz), the fold at
    config 3 (100 tones at linspace(-45, 45) MHz); each at >= 90 dB SNR
    against plain and, on the stream's first 400 rows, against a float64
-   numpy oracle of a 40,000-sample prefix; times as in phase 3;
+   numpy oracle of a 40,000-sample prefix; times as in phase 3; the
+   DDC's row mode also through a streamed block at one and eight
+   channels (block 0 against the oracle, block 1 against plain and
+   float64 over the whole block);
 7. the DIRECT readout through ``run_measurement``: config 3 fused (fold
    kernel), config 1 fused (few-channel replay), the quantized comb
    fused (replay), config 3 host-fed through an ideal channel (DDC
@@ -93,7 +96,9 @@ and exits non-zero at the first phase that fails:
    G-fused chain (#15) at config 3 (Ct = Cp = 100, f 4), each at the
    stream's start, inside and at the seam, on shards 0 and 1; times as
    phase 10 (#5, #10) or phase 6 (#15, beside one complex matmul of the
-   stacked rows, its library_ms);
+   stacked rows, its library_ms); the DDC's row mode after a staged
+   halo at one and eight channels (shard 0 at the stream's start, shard
+   1 at it and after it) against plain, the oracle and float64;
 13. the sharded layer through ``run_measurement(mesh=...)`` on meshes of
    this card, 10 blocks each: TONES fused (2, 1), TONES host-fed (2, 2,
    4 blocks: the psum), config 3 fused (2, 1, ``fold_kernel``) and its
@@ -104,15 +109,18 @@ and exits non-zero at the first phase that fails:
    run of the same measurement at >= 90 dB SNR;
 14. the deep FIR: the DDC and chain kernels' shared-memory staging plans
    (csrc/ddc.cu, csrc/chain.cu) against their Python mirrors for every f
-   up to 4096 (the DDC's row mode within 48 KB, its channel mode at 9,
-   100, 128, 129 and 1000 channels within 227 KB, the chain's, at 100
-   tones and channels and at 1000 tones and 300 channels, within 227
-   KB); at decimation 10 and 40,000 rows a block, #7 and #8 in
+   up to 4096 (the DDC's row mode at 1-8 channels within two blocks an
+   SM, and its whole launch plan for 6,060 (M, f) at each C; its
+   channel mode at 9, 100, 128, 129 and 1000 channels within 227 KB,
+   the chain's, at 100 tones and channels and at 1000 tones and 300
+   channels, within 227 KB); at decimation 10 and 40,000 rows a block,
+   #7 and #8 in
    channel mode at 100 channels, pf_average 400 and 1000, #9 in row
    mode at one channel, 800 and 2000, #10 on shard 1 of a (time=2) mesh
    at 400, #15 at 1000, each at the stream's start against its plain
-   version and the float64 oracle, timed on the next block (#7, #8 and
-   #10 also against float64 over that whole block);
+   version and the float64 oracle, timed on the next block (#7 to #10
+   also against float64 over that whole block, #9 beside its
+   yardstick);
 15. config 3 host-fed at pf_average 400 through ``run_measurement`` (the
    DDC kernel), held against the plain DDC over the same TX blocks;
 16. the five kernels no engine path takes, at full width against their
@@ -153,18 +161,19 @@ from this run's shapes; for the folds and the chain (#11-#15), which run
 on the tensor cores with a three-pass TF32 split, three times their
 operations over the dense TF32 peak of 495 TFLOP/s in place of the FP32
 term, the FP32 bound beside it (``bound_fp32_ms``), and their SNR
-against the float64 product at full width (``snr_db``); the DDC's
-channel mode (#7, #8, #10) its SNR against its plain version in float64
-over the whole block (``snr_db``); ``library_ms`` is one PyTorch call
-computing the same function where there is one (the lock-in modes:
-``torch.einsum``; the folds and the chain: ``torch.matmul`` of their
-rotated rows; the DDC's channel mode: ``torch.matmul`` of the
-materialized (nb, f*M) window rows by Hmod), else null.  The last line is
+against the float64 product at full width (``snr_db``); the DDC
+(#7-#10) its SNR against its plain version in float64 over the whole
+block (``snr_db``); ``library_ms`` is one PyTorch call computing the
+same function where there is one (the lock-in modes: ``torch.einsum``;
+the folds and the chain: ``torch.matmul`` of their rotated rows; the
+DDC, both modes: ``torch.matmul`` of the materialized (nb, f*M) window
+rows by Hmod), else null.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import json
 import os
@@ -242,6 +251,10 @@ DEEP_RUN_F, DEEP_RUN_BLOCKS = 400, 4        # config 3 host-fed, run_measurement
 DEEP_TIMED_RUNS = 5
 F_PLAN = 4096                       # staging plans compared for f 1..F_PLAN
 DEEP_PLAN_CHANNELS = (9, 100, 128, 129, 1000)   # the DDC channel mode's, at C
+ROW_PLAN_M = tuple(range(1, 301)) + (1000, 4099, 100_000)   # row plans, at M
+ROW_PLAN_F = tuple(range(1, 13)) + (100, 319, 320, 321, 400, 800, 2000, 4096)
+ROW_COMB8 = [int(f) for f in np.linspace(-40e6, 40e6, 8)]   # row mode, C 8
+SM_SMEM = 233_472                   # an SM's shared memory, 1 KB a block kept
 F_PLAN_NFFT = 20_000                # the channelizer's, for nfft 1..
 
 # the kernels no engine path takes, driven through their entry points
@@ -825,13 +838,31 @@ def phase_direct_kernels(dev):
             time_ms(lambda: rk.block_plain(st1))), rows=rows,
             cost=(block_bytes + nbytes(rk._hmod, rk._ramp, st1[1], yk),
                   ddc_flops(D_ROWS, len(freqs), D_DECIM * D_AVG)))
-        if name == "replay_ddc":          # #8: channel mode
-            E = recording_rows(rk.X, st1[0], rk.nbr, D_AVG - 1, 1)
-            rows[name]["snr_db"] = ddc_snr64(
-                name, yk, rk._hmod, rk._ramp, st1[1], D_RATE, D_DECIM,
-                D_AVG, E)
-            rows[name]["library_ms"] = ddc_library_ms(E, rk._hmod, D_AVG,
-                                                      time_ms)
+        E = recording_rows(rk.X, st1[0], rk.nbr, D_AVG - 1, 1)
+        rows[name]["snr_db"] = ddc_snr64(
+            name, yk, rk._hmod, rk._ramp, st1[1], D_RATE, D_DECIM, D_AVG, E)
+        rows[name]["library_ms"] = ddc_library_ms(E, rk._hmod, D_AVG,
+                                                  time_ms)
+
+    # the row mode (#7 at C <= 8) through a streamed block: a one- and an
+    # eight-channel comb, block 0 with zero history against the oracle,
+    # block 1 with the carried history against plain and float64
+    for freqs in (CONFIG1, ROW_COMB8):
+        tag = f"ddc [row mode, C {len(freqs)}]"
+        rcfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(freqs),
+                                   (0,) * len(freqs))
+        check(ddc.few_channels(len(freqs)), f"{tag}: not row mode")
+        hm, rp = rcfg.modulated_taps(dev), rcfg.carrier_ramp(D_ROWS, dev)
+        a = (hm, rp, ddc.ddc_carrier_step(rcfg, D_BLOCK, dev), D_RATE,
+             rcfg.M, rcfg.f)
+        s0 = (ddc.ddc_carrier_init(rcfg, dev), st[1])
+        ph, hist, yk = via_kernel("ddc", lambda: ddc.ddc_fused(*a, *s0, x0))
+        report(f"{tag} [block 0]", yk, ddc.direct_ddc_fir(*a, *s0, x0)[2],
+               direct_oracle(x0_np[:prefix].astype(np.complex128), freqs))
+        yk = via_kernel("ddc", lambda: ddc.ddc_fused(*a, ph, hist, x1))[2]
+        report(f"{tag} [block 1]", yk, ddc.direct_ddc_fir(*a, ph, hist, x1)[2])
+        ddc_snr64(f"{tag} [block 1]", yk, hm, rp, ph, D_RATE, D_DECIM, D_AVG,
+                  torch.cat([hist, x1]).reshape(-1, D_DECIM))
 
     # fold (#11) at config 3: the stream's first block, startup
     # correction applied, against plain and the oracle; then timed
@@ -1479,7 +1510,38 @@ def phase_sharded_kernels(dev):
                          lambda fn: time_ms_queued(fn, 2 * R_BLOCKS))
     rows["replay_ddc_sharded"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                       library_ms=lms, snr_db=s64, **b)
-    del rk, rec
+    del rk
+
+    # the row mode (#10 at C <= 8) through a staged halo: a one- and an
+    # eight-channel comb over the recording's first two blocks, shard 0
+    # at the stream's start (zero halo), shard 1 at it (its halo shard
+    # 0's rows) and after it; against plain, the oracle and float64
+    rec = rec[:2 * D_BLOCK]
+    for freqs in (CONFIG1, ROW_COMB8):
+        rcfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(freqs),
+                                   (0,) * len(freqs))
+        check(ddc.few_channels(len(freqs)), "sharded row mode: not row mode")
+        rk = ShardedReplayDDC(rcfg, rec, D_BLOCK, [dev] * T)
+        st0 = rk.init_state()
+        st1 = (1, rk.advance(st0)[1], 1)
+        for idx, st, t in ((0, st0, 0), (0, st0, 1), (1, st1, 1)):
+            tag = (f"replay_ddc_sharded [row mode, C {len(freqs)}, block "
+                   f"{idx}, shard {t}]")
+            yk = via_kernel("replay_ddc_sharded", lambda: rk.local(st, t))
+            a0 = idx * D_BLOCK + t * (D_BLOCK // T)
+            xs = rec_np[np.arange(a0 - H, a0 + ORACLE_ROWS * D_DECIM) %
+                        (2 * D_BLOCK)].astype(np.complex128)
+            if a0 == 0:                     # the stream's start: no history
+                xs[:H] = 0
+            report(tag, yk, rk.local_plain(st, t),
+                   direct_oracle_at((xs, a0), freqs))
+            halo = rk.H[t][idx] if rk._val(t, st[2]) else \
+                torch.zeros_like(rk.H[t][idx])
+            ddc_snr64(tag, yk, rk._hmod[t], rk._ramp[t], st[1], D_RATE,
+                      D_DECIM, D_AVG,
+                      torch.cat([halo, rk.X[t][idx * nbt:(idx + 1) * nbt]]))
+        del rk
+    del rec
 
     # #15: config 3 through use_fold=False, 20,000 rows per shard
     ch = TonesDirectChain(D_RATE, tuple(CONFIG3), (0.01,) * 100, dcfg,
@@ -1983,8 +2045,8 @@ def phase_deep_fir_kernels(dev):
     (config 1's), #10 on shard 1 of a (time=2) mesh, #15 at f 1000; at
     decimation 10, 40,000 rows a block.  Each at the stream's start
     against its plain version and the float64 oracle, then timed on the
-    next block (and #8 / #9 after the loop seam).  Returns {kernel: [its
-    rows at each f]}."""
+    next block (and #8 / #9 after the loop seam), #9 beside its
+    yardstick.  Returns {kernel: [its rows at each f]}."""
     import torch
     from gpu_sdr_tpu_torch.kernels import build
     from gpu_sdr_tpu_torch.ops import chain as chain_ops
@@ -1995,9 +2057,11 @@ def phase_deep_fir_kernels(dev):
     from gpu_sdr_tpu_torch.ops.replay_ddc import (ReplayDDC, ReplayDDCT,
                                                   ShardedReplayDDC)
     lib = build.load()
-    plans = {"ddc row mode": (lambda f: lib.sdr_ddc_smem_bytes(f, 1, 1),
-                              lambda f: ddc.smem_bytes(f, True),
-                              ddc.SMEM_DEFAULT)}
+    plans = {}
+    for C in range(1, ddc.ROW_MODE_MAX_CHANNELS + 1):
+        plans[f"ddc row mode, {C} channels"] = (
+            lambda f, C=C: lib.sdr_ddc_smem_bytes(f, 1, C),
+            lambda f, C=C: ddc.smem_bytes(f, True, C), SM_SMEM // 2 - 1024)
     for C in DEEP_PLAN_CHANNELS:
         plans[f"ddc channel mode, {C} channels"] = (
             lambda f, C=C: lib.sdr_ddc_smem_bytes(f, 0, C),
@@ -2015,6 +2079,24 @@ def phase_deep_fir_kernels(dev):
               f"{name}: a block over {limit} bytes ({max(sizes)})")
         print(f"staging plan, {name}: C and Python agree for f 1..{F_PLAN}; "
               f"at most {max(sizes)} bytes a block (limit {limit})")
+    keys = ("CP", "R", "P", "nmc", "J", "npass", "nchunk", "woff", "stage",
+            "smem")
+    got = (ctypes.c_int * len(keys))()
+    n_plans = 0
+    for M in ROW_PLAN_M:
+        for f in ROW_PLAN_F:
+            for C in range(1, ddc.ROW_MODE_MAX_CHANNELS + 1):
+                check(lib.sdr_ddc_row_plan(M, f, C, got) == 0,
+                      f"sdr_ddc_row_plan({M}, {f}, {C}) refused")
+                want = ddc.row_plan(M, f, C)
+                check(dict(zip(keys, got)) == want,
+                      f"row plan at M {M}, f {f}, C {C}: C {list(got)}, "
+                      f"Python {want}")
+                check(want["smem"] <= lib.sdr_ddc_smem_bytes(f, 1, C),
+                      f"row plan at M {M}, f {f}, C {C} over its bound")
+                n_plans += 1
+    print(f"row plan: C and Python agree at {n_plans} (M, f, C), each "
+          "within its bound")
     gen = torch.Generator(device=dev).manual_seed(86420)
     rng = np.random.default_rng(8642)
     M, nb = DEEP_DECIM, DEEP_ROWS
@@ -2082,10 +2164,13 @@ def phase_deep_fir_kernels(dev):
                 cost=((DEEP_BLOCK + (f - 1) * M) * 8 +
                       nbytes(rk._hmod, rk._ramp, st1[1], yk),
                       ddc_flops(nb, len(freqs), M * f)))
-            if name == "replay_ddc":      # #8: channel mode
-                tmp[tag]["snr_db"] = ddc_snr64(
-                    tag, yk, rk._hmod, rk._ramp, st1[1], D_RATE, M, f,
-                    recording_rows(rk.X, st1[0], rk.nbr, f - 1, 1))
+            E = recording_rows(rk.X, st1[0], rk.nbr, f - 1, 1)
+            tmp[tag]["snr_db"] = ddc_snr64(
+                tag, yk, rk._hmod, rk._ramp, st1[1], D_RATE, M, f, E)
+            if name == "replay_ddc_t":    # #9: its yardstick, (nb, f*M) rows
+                tmp[tag]["library_ms"] = ddc_library_ms(E, rk._hmod, f,
+                                                        timed)
+            del E
             deep_row(deep, tmp, name, f, tag)
             report(f"{name} [f {f}, block 0 after the seam]",
                    via_kernel(name, lambda: rk.step(st2))[1],

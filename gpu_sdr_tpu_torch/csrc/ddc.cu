@@ -56,14 +56,30 @@
 // epilogue applies ramp and rot_c and writes (nb, C) in natural order;
 // the tail tile's dead rows and dead channels write nothing.
 //
-// Row mode (at most 8 channels, config 1 has 1): one thread per output
-// row looping over the channels in registers, so no lane idles at C = 1;
-// a block stages its tile's extended rows a chunk of taps and of samples
-// at a time, so any M and any f fit the default 48 KB: for taps [j0, j0
-// + J) the rows [n0 + j0, n0 + j0 + tile + J - 1), J = 59 taps (the row
-// pitch odd so that row-strided reads hit distinct banks); hmod reads
-// are warp-uniform broadcasts.  Accumulation is FP32 FFMA, taps in
-// order: chunks of J taps, then chunks of samples, then j, then m.
+// Row mode (at most 8 channels; config 1 has 1): a block owns a tile of
+// R output rows and every channel, in 8 warps of RR rows (RR 8 at up to
+// 2 channels, 16 / CP beyond, CP the channels rounded up to a power of
+// 2, the accumulators' width; row_plan).  Row n's window is ext[n*M,
+// n*M + f*M), so a tile's windows overlap in one span of ext: the taps
+// run in passes of J tap rows (a multiple of kArmR), and each pass's
+// span, rows n0 + j0 .. n0 + j0 + R + J - 2 of the (nb + f - 1, M) row
+// view, is staged once by cp.async with the pass's taps; with more
+// than one chunk, double-buffered: the next chunk's copies are in
+// flight while this one is summed.  Where M is wider than a stage takes
+// (row_plan's nmc > 1) the columns run in chunks too, each row's piece
+// at pitch P.  A lane's
+// task is one arm m (a column of the row view) and kArmR consecutive
+// tap rows: it holds its RR rows' kArmR + RR - 1 window samples in
+// registers and slides the taps over them, so one shared-memory load
+// feeds RR (a tap) or up to kArmR (a sample) complex MACs per channel;
+// a warp's lanes take consecutive arms, so their loads are consecutive
+// words.  The lanes' partial sums are reduced by a halving shuffle tree
+// (each level sends half the values still held), the epilogue applies
+// ramp and rot_c, and each output is written once.  Accumulation is
+// FP32 FFMA: passes, then column chunks, then a lane's tasks, then the
+// tap rows of a task; then the tree.  Bound: device memory at config 1
+// (M 100, f 4, C 1: 32 MB read, 0.13 GFLOP), FP32 operations at a deep
+// FIR (f 800 at M 10: 2.6 GFLOP).
 
 #include <cuda_runtime.h>
 
@@ -81,23 +97,21 @@ constexpr int kStages = 2;        // channel mode: chunks staged at once
 constexpr int kChanTile = 128;    // channel mode: channels a block at most
 constexpr int kThreadsC = 256;    // channel mode: threads a block at most
 constexpr int kRowGroupsMax = 16; // channel mode: row groups a block at most
-constexpr int kTileR = 128;       // row mode: rows (threads) per block
-constexpr int kChunkR = 32;       // row mode: staged samples per row
-constexpr int kMaxRowChannels = 8;
-constexpr int kSmemDefault = 48 * 1024;   // a block's shared memory, no opt-in
+constexpr int kMaxRowChannels = 8;   // row mode: channels at most
+constexpr int kWarpsR = 8;        // row mode: warps a block
+constexpr int kThreadsR = kWarpsR * 32;
+constexpr int kRowsWarp = 8;      // row mode: rows a warp at up to 2 channels
+constexpr int kAccR = 16;         // row mode: a lane's sums at 2+ channels
+constexpr int kArmR = 4;          // row mode: tap rows a lane's task slides
+constexpr int kStageR = 7104;     // row mode: samples a stage, window + taps
+constexpr int kStagesR = 2;       // row mode: stages at most
 constexpr int kSmemMax = 232448;  // a block's shared memory with the opt-in
 // kKP = kKC + 2: room for a row's odd first sample and the pair it ends in
 static_assert(kKP == kKC + 2 && kKC % 8 == 0 && kTM % 2 == 0,
               "channel-mode chunk");
-
-// Taps staged per pass in row mode: the most whose tile + taps - 1 rows
-// of a chunk fit kSmemDefault (59).
-constexpr int taps_per_pass(int tile, int chunk) {
-    return kSmemDefault / ((chunk + 1) * (int)sizeof(float2)) - tile + 1;
-}
-constexpr int kTapsR = taps_per_pass(kTileR, kChunkR);
-static_assert((kTileR + kTapsR - 1) * (kChunkR + 1) * sizeof(float2) <=
-              kSmemDefault, "row mode over 48 KB");
+// two row-mode blocks an SM (an SM's 233,472 bytes, 1 KB a block kept)
+static_assert(2 * (kStagesR * kStageR * (int)sizeof(float2) + 1024) <=
+              233472, "row mode over two blocks an SM");
 
 // The channel mode's launch for C channels (ops/ddc.py channel_plan
 // mirrors it).
@@ -126,6 +140,49 @@ ChanPlan chan_plan(int C) {
 }
 static_assert(kStages * (kTM * kRowGroupsMax * kKP + kKC * kChanTile) *
               sizeof(float2) <= kSmemMax, "channel mode over 227 KB");
+
+// Row mode: rows a warp at CP channels, a lane's sums RR x CP complex.
+__host__ __device__ constexpr int rows_a_warp(int CP) {
+    return kAccR / CP < kRowsWarp ? kAccR / CP : kRowsWarp;
+}
+
+// The row mode's launch for M samples a row, f taps a polyphase arm and
+// C channels (ops/ddc.py row_plan mirrors it).  A chunk is a pass's J
+// tap rows by P columns: its window, R + J - 1 rows at pitch P (rounded
+// up to even: the span is staged in pairs), then its taps, channel c's
+// J x P at c*J*P; a stage holds one chunk within kStageR samples.
+struct RowPlan {
+    int CP;       // channels rounded up to a power of 2 (1, 2, 4, 8)
+    int R;        // rows a block, kWarpsR * rows_a_warp(CP)
+    int P;        // columns a chunk and the window's pitch (M: the span)
+    int nmc;      // column chunks, ceil(M / P)
+    int J;        // tap rows a pass, a multiple of kArmR
+    int npass;    // passes, ceil(f / J)
+    int nchunk;   // chunks, npass * nmc
+    int woff;     // a stage's taps, after the window
+    int stage;    // samples a stage (even: 16-byte aligned)
+    int smem;     // bytes: one stage, two where there are two chunks
+};
+
+RowPlan row_plan(int M, int f, int C) {
+    RowPlan p;
+    p.CP = C <= 1 ? 1 : C <= 2 ? 2 : C <= 4 ? 4 : 8;
+    p.R = kWarpsR * rows_a_warp(p.CP);
+    // the widest chunk that takes kArmR tap rows, then the most tap rows
+    const int wmax = (kStageR - 1) / (p.R + kArmR - 1 + p.CP * kArmR);
+    p.nmc = (M + wmax - 1) / wmax;
+    p.P = (M + p.nmc - 1) / p.nmc;
+    int J = (kStageR - 1 - (p.R - 1) * p.P) / ((1 + p.CP) * p.P);
+    J -= J % kArmR;
+    const int fr = (f + kArmR - 1) / kArmR * kArmR;
+    p.J = J < fr ? J : fr;
+    p.npass = (f + p.J - 1) / p.J;
+    p.nchunk = p.npass * p.nmc;
+    p.woff = ((p.R + p.J - 1) * p.P + 1) & ~1;
+    p.stage = (p.woff + p.CP * p.J * p.P + 1) & ~1;
+    p.smem = (p.nchunk > 1 ? kStagesR : 1) * p.stage * (int)sizeof(float2);
+    return p;
+}
 
 // The extended samples of one block (rows.cuh's three sources, read
 // flat): at(e) is the address of ext sample e, an address of the
@@ -236,18 +293,6 @@ __device__ __forceinline__ float2 rotation(const long long* phase, int c,
     float s, co;
     sincosf((float)phase[c] * two_pi_w, &s, &co);
     return make_float2(co, -s);
-}
-
-// Stage extended rows [g0, g0 + nrows), columns [m0, m0 + mc) (row mode).
-__device__ __forceinline__ void stage(float2* xs, const Rows& in,
-                                      long long g0, int nrows, int m0,
-                                      int mc, int pitch, int tid,
-                                      int nthreads) {
-    for (int e = tid; e < nrows * mc; e += nthreads) {
-        const int q = e / mc;
-        const int m = e - q * mc;
-        xs[q * pitch + m] = sample(in, g0 + q, m0 + m);
-    }
 }
 
 // Special registers read afresh (volatile asm), so that the staging's
@@ -414,60 +459,216 @@ ddc_channel_kernel(Ext src, int M, int nb, int K,
     }
 }
 
-template <bool kDeep>             // f > kTapsR: passes of kTapsR taps
-__global__ void __launch_bounds__(kTileR)
-ddc_row_kernel(Rows in, const float2* __restrict__ hmod,
-               const float2* __restrict__ ramp,
-               const long long* __restrict__ phase,
-               float2* __restrict__ out, int f, int C, float two_pi_w) {
-    extern __shared__ float2 xs[];
-    const int pitch = kChunkR + 1;
-    const int t = threadIdx.x;
-    const long long n0 = (long long)blockIdx.x * kTileR;
-    float2 acc[kMaxRowChannels];
-#pragma unroll
-    for (int c = 0; c < kMaxRowChannels; ++c) acc[c] = make_float2(0.f, 0.f);
+// Pairs q = tid, tid + nthr, ... of a (rows, per) walk, stepped
+// without a division (row mode's pieces and taps).
+struct Walk {
+    int r, j, dr, dj, per;
+    __device__ __forceinline__ Walk(int tid, int nthr, int per_row)
+        : r(tid / per_row), j(tid % per_row), dr(nthr / per_row),
+          dj(nthr % per_row), per(per_row) {}
+    __device__ __forceinline__ void next() {
+        r += dr;
+        j += dj;
+        if (j >= per) { j -= per; ++r; }
+    }
+};
 
-    for (int j0 = 0; j0 < (kDeep ? f : 1); j0 += kTapsR) {
-        const int jc = kDeep ? min(kTapsR, f - j0) : f;
-        for (int m0 = 0; m0 < in.M; m0 += kChunkR) {
-            const int mc = min(kChunkR, in.M - m0);
-            __syncthreads();
-            stage(xs, in, n0 + j0, kTileR + jc - 1, m0, mc, pitch, t, kTileR);
-            __syncthreads();
-            for (int j = 0; j < jc; ++j) {
-                const float2* h = hmod + ((long long)(j0 + j) * in.M + m0) * C;
-                const float2* xr = xs + (t + j) * pitch;
-                for (int m = 0; m < mc; ++m) {
-                    const float2 xv = xr[m];
-#pragma unroll
-                    for (int c = 0; c < kMaxRowChannels; ++c)
-                        if (c < C)
-                            cmac(acc[c], xv, __ldg(h + (long long)m * C + c));
-                }
-            }
+// The geometry of row-mode chunk ch: pass ch / nmc (tap rows [j0, j0 +
+// jc), jr of them staged, jc rounded up to kArmR) and column chunk ch %
+// nmc (columns [m0, m0 + mc)).
+struct RowChunk {
+    int j0, jc, jr, m0, mc;
+    __device__ __forceinline__ RowChunk(const RowPlan& p, int ch, int M,
+                                        int f) {
+        const int pass = ch / p.nmc;
+        j0 = pass * p.J;
+        jc = min(p.J, f - j0);
+        jr = (jc + kArmR - 1) / kArmR * kArmR;
+        m0 = (ch - pass * p.nmc) * p.P;
+        mc = min(p.P, M - m0);
+    }
+};
+
+// Stage row-mode chunk ch of the block's row tile into buf: the window,
+// ext rows n0 + j0 + u for u < R + jr - 1, columns [m0, m0 + mc) at
+// pitch P (one column chunk: the span itself, in pairs from an even ext
+// sample, one 16-byte copy a pair where the span lies in the body, else
+// stage_pair; more: a piece a row, a sample a copy), then the taps,
+// channel c's [jj, col] at c*J*P + jj*P + col, zero past tap row jc and
+// channel C.
+template <int CP>
+__device__ __forceinline__ void stage_rows(const Ext& src, int M, int f,
+                                           int C, const float2* hmod,
+                                           const RowPlan& p, int ch,
+                                           float2* buf) {
+    const int tid = tid_x();
+    const RowChunk k(p, ch, M, f);
+    const int rows = p.R + k.jr - 1;
+    const long long e0 =
+        ((long long)ctaid(0) * p.R + k.j0) * M + k.m0;   // even if span
+    if (p.nmc == 1) {
+        const int npairs = (rows * M + 1) / 2;
+        const bool fast =
+            e0 >= src.H && e0 + 2LL * npairs <= src.end &&
+            ((((uintptr_t)src.body >> 3) ^ (uintptr_t)src.H) & 1) == 0;
+        const float2* w = fast ? src.body + (e0 - src.H) : src.body;
+        for (int q = tid; q < npairs; q += kThreadsR) {
+            if (fast) cp_async16(buf + 2 * q, w + 2 * q);
+            else stage_pair(buf + 2 * q, src, e0 + 2 * q);
+        }
+    } else {
+        Walk w(tid, kThreadsR, k.mc);
+        for (int q = tid; q < rows * k.mc; q += kThreadsR, w.next()) {
+            bool live;
+            const float2* s = src.at(e0 + (long long)w.r * M + w.j, live);
+            cp_async8(buf + w.r * p.P + w.j, s, live ? 8 : 0);
         }
     }
-    const long long n = n0 + t;
-    if (n >= in.nb) return;
+    float2* hs = buf + p.woff;
+    const int ts = p.J * p.P;
+    Walk w(tid, kThreadsR, k.mc * CP);
+    for (int q = tid; q < k.jr * k.mc * CP; q += kThreadsR, w.next()) {
+        const int col = w.j / CP, c = w.j % CP;
+        const bool live = w.r < k.jc && c < C;
+        const float2* s =
+            live ? hmod + ((long long)(k.j0 + w.r) * M + k.m0 + col) * C + c
+                 : hmod;
+        cp_async8(hs + c * ts + w.r * p.P + col, s, live ? 8 : 0);
+    }
+}
+
+// Sum each of v[0..N) over the warp's lanes, a level for O = 16, 8, ...,
+// 1: while N > 1 a level keeps one half of the values (the upper where
+// the lane's bit O is set) and adds the partner's, so it sends N / 2;
+// then the one value left is added whole.  Lane l ends with the sum of
+// value l (N = 32) or l >> 1 (N = 16) in v[0].
+template <int N, int O>
+__device__ __forceinline__ void reduce_lanes(float* v, int lane) {
+    if constexpr (O > 0) {
+        if constexpr (N > 1) {
+            const bool up = lane & O;
 #pragma unroll
-    for (int c = 0; c < kMaxRowChannels; ++c) {
-        if (c < C) {
+            for (int k = 0; k < N / 2; ++k) {
+                const float send = up ? v[k] : v[k + N / 2];
+                const float keep = up ? v[k + N / 2] : v[k];
+                v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+            }
+            reduce_lanes<N / 2, O / 2>(v, lane);
+        } else {
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+            reduce_lanes<1, O / 2>(v, lane);
+        }
+    }
+}
+
+template <int CP>                 // channels rounded up to a power of 2
+__global__ void __launch_bounds__(kThreadsR, 2)
+ddc_row_kernel(Ext src, int M, int nb, int f, int C,
+               const float2* __restrict__ hmod,
+               const float2* __restrict__ ramp,
+               const long long* __restrict__ phase,
+               float2* __restrict__ out, RowPlan p, float two_pi_w) {
+    constexpr int RR = rows_a_warp(CP);
+    constexpr int NX = RR + kArmR - 1;        // window samples a task
+    constexpr int V = 2 * (RR * CP);          // floats a lane sums: 16, 32
+    constexpr int S = V == 32 ? 0 : 1;        // a value's lanes, log2
+    static_assert(V == 16 || V == 32, "row-mode lane sums");
+    extern __shared__ __align__(16) float2 smem[];
+    const int lane = threadIdx.x & 31;
+    const int r0 = (threadIdx.x >> 5) * RR;   // the warp's first row
+    float2 acc[RR][CP];
+#pragma unroll
+    for (int i = 0; i < RR; ++i)
+#pragma unroll
+        for (int c = 0; c < CP; ++c) acc[i][c] = make_float2(0.f, 0.f);
+
+    stage_rows<CP>(src, M, f, C, hmod, p, 0, smem);
+    cp_async_commit();
+    for (int ch = 0; ch < p.nchunk; ++ch) {
+        cp_async_wait_all();
+        __syncthreads();      // chunk ch landed; ch - 1's buffer is free
+        if (ch + 1 < p.nchunk)
+            stage_rows<CP>(src, M, f, C, hmod, p, ch + 1,
+                           smem + ((ch + 1) & 1) * p.stage);
+        cp_async_commit();
+        const float2* W = smem + (ch & 1) * p.stage;
+        const float2* T = W + p.woff;
+        const RowChunk k(p, ch, M, f);
+        const int P = p.P, ts = p.J * p.P;
+        // task t: arm m, tap rows jb*kArmR + [0, kArmR), t = jb*mc + m
+        const int nt = k.jr / kArmR * k.mc;
+        int jb = lane / k.mc, m = lane % k.mc;
+        const int djb = 32 / k.mc, dm = 32 % k.mc;
+        for (int t = lane; t < nt; t += 32) {
+            const float2* w = W + (r0 + jb * kArmR) * P + m;
+            const float2* h = T + jb * kArmR * P + m;
+            float2 x[NX];
+#pragma unroll
+            for (int u = 0; u < NX; ++u) x[u] = w[u * P];
+#pragma unroll
+            for (int jj = 0; jj < kArmR; ++jj) {
+                float2 hv[CP];
+#pragma unroll
+                for (int c = 0; c < CP; ++c) hv[c] = h[c * ts + jj * P];
+#pragma unroll
+                for (int i = 0; i < RR; ++i)
+#pragma unroll
+                    for (int c = 0; c < CP; ++c)
+                        cmac(acc[i][c], x[i + jj], hv[c]);
+            }
+            m += dm;
+            jb += djb;
+            if (m >= k.mc) { m -= k.mc; ++jb; }
+        }
+    }
+
+    float v[V];                   // v[2*(i*CP + c) + {0: re, 1: im}]
+#pragma unroll
+    for (int i = 0; i < RR; ++i)
+#pragma unroll
+        for (int c = 0; c < CP; ++c) {
+            v[2 * (i * CP + c)] = acc[i][c].x;
+            v[2 * (i * CP + c) + 1] = acc[i][c].y;
+        }
+    reduce_lanes<V, 16>(v, lane);
+    const int g = lane >> S;                  // this lane's value of v
+    const float other = __shfl_xor_sync(0xffffffffu, v[0], 1 << S);
+    if ((g & 1) == 0 && (lane & ((1 << S) - 1)) == 0) {
+        const int i = (g >> 1) / CP, c = (g >> 1) % CP;
+        const long long n = (long long)blockIdx.x * p.R + r0 + i;
+        if (n < nb && c < C) {
             const long long o = n * C + c;
-            out[o] = cmul(cmul(acc[c], ramp[o]), rotation(phase, c, two_pi_w));
+            out[o] = cmul(cmul(make_float2(v[0], other), ramp[o]),
+                          rotation(phase, c, two_pi_w));
         }
     }
 }
 
 // A block's dynamic shared memory for f taps and C channels (ops/ddc.py
-// smem_bytes mirrors it): row mode tile + min(f, taps) - 1 staged rows,
-// at most kSmemDefault for any f; channel mode chan_plan's, independent
-// of f and M, at most 102,400 bytes for any C.
+// smem_bytes mirrors it): row mode the most a launch takes for any M,
+// two stages, kStagesR * kStageR samples; channel mode chan_plan's,
+// independent of f and M, at most 102,400 bytes for any C.
 int smem_bytes(int f, int row_mode, int C) {
-    return row_mode
-        ? (kTileR + (f < kTapsR ? f : kTapsR) - 1) * (kChunkR + 1) *
-              (int)sizeof(float2)
-        : chan_plan(C).smem;
+    return row_mode ? kStagesR * kStageR * (int)sizeof(float2)
+                    : chan_plan(C).smem;
+}
+
+template <int CP>
+cudaError_t launch_rows(const Rows& in, const float2* hmod,
+                        const float2* ramp, const long long* phase,
+                        float2* out, int C, float two_pi_w,
+                        cudaStream_t s) {
+    const int f = in.lead + 1;
+    const RowPlan p = row_plan(in.M, f, C);
+    // the bound of every launch, so that no launch's attribute is another's
+    const cudaError_t e = cudaFuncSetAttribute(
+        ddc_row_kernel<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes(f, 1, C));
+    if (e != cudaSuccess) return e;
+    ddc_row_kernel<CP><<<(unsigned)((in.nb + p.R - 1) / p.R), kThreadsR,
+                         p.smem, s>>>(ext_of(in), in.M, in.nb, f, C, hmod,
+                                      ramp, phase, out, p, two_pi_w);
+    return cudaSuccess;
 }
 
 int launch(const Rows& in, const void* hmod, const void* ramp,
@@ -479,12 +680,16 @@ int launch(const Rows& in, const void* hmod, const void* ramp,
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     if (row_mode) {
-        const int smem = smem_bytes(f, row_mode, C);
-        const auto kernel = f > kTapsR ? ddc_row_kernel<true>
-                                       : ddc_row_kernel<false>;
-        kernel<<<(unsigned)((nb + kTileR - 1) / kTileR), kTileR, smem, s>>>(
-            in, (const float2*)hmod, (const float2*)ramp,
-            (const long long*)phase, (float2*)out, f, C, two_pi_w);
+        const auto h = (const float2*)hmod;
+        const auto r = (const float2*)ramp;
+        const auto ph = (const long long*)phase;
+        const auto o = (float2*)out;
+        const cudaError_t e =
+            C <= 1 ? launch_rows<1>(in, h, r, ph, o, C, two_pi_w, s)
+            : C <= 2 ? launch_rows<2>(in, h, r, ph, o, C, two_pi_w, s)
+            : C <= 4 ? launch_rows<4>(in, h, r, ph, o, C, two_pi_w, s)
+                     : launch_rows<8>(in, h, r, ph, o, C, two_pi_w, s);
+        if (e != cudaSuccess) return (int)e;
     } else {
         const ChanPlan p = chan_plan(C);
         const cudaError_t e = cudaFuncSetAttribute(
@@ -503,10 +708,22 @@ int launch(const Rows& in, const void* hmod, const void* ramp,
 
 }  // namespace
 
-// The launch's shared memory for f taps and C channels (row_mode 1: row
-// mode), the plan ops/ddc.py smem_bytes mirrors; -1 for f < 1 or C < 1.
+// A launch's shared memory for f taps and C channels (row_mode 1: row
+// mode, the most for any M), the plan ops/ddc.py smem_bytes mirrors; -1
+// for f < 1 or C < 1.
 extern "C" int sdr_ddc_smem_bytes(int f, int row_mode, int C) {
     return f < 1 || C < 1 ? -1 : smem_bytes(f, row_mode, C);
+}
+
+// The row mode's plan for M, f, C (ops/ddc.py row_plan mirrors it):
+// RowPlan's 10 fields in order into out; -1 for M, f or C out of range.
+extern "C" int sdr_ddc_row_plan(int M, int f, int C, int* out) {
+    if (M < 1 || f < 1 || C < 1 || C > kMaxRowChannels) return -1;
+    const RowPlan p = row_plan(M, f, C);
+    const int v[] = {p.CP, p.R, p.P, p.nmc, p.J, p.npass, p.nchunk,
+                     p.woff, p.stage, p.smem};
+    for (int i = 0; i < 10; ++i) out[i] = v[i];
+    return 0;
 }
 
 // (a) a streamed block after its history (`hist` of (f-1)*M samples), or

@@ -1,8 +1,8 @@
 """Device times of the channelizer (#1 const and stream, #3, #4, #5),
-DDC (#7 in channel mode at config 3 and at a deep FIR, #7 in row mode,
-#8, #10), fold (#11-#14) and chain (#15) kernels at the main path's
-shapes, and of the yardsticks beside them, for comparing two checkouts
-of the port on one card.
+DDC (#7 in channel mode at config 3 and at a deep FIR, #7 in row mode
+at config 1 and at a deep FIR, #8, #10), fold (#11-#14) and chain (#15)
+kernels at the main path's shapes, and of the yardsticks beside them,
+for comparing two checkouts of the port on one card.
 
     python -m gpu_sdr_tpu_torch.kernel_times
         one JSON line: the card, ptxas's register and spill lines for the
@@ -17,7 +17,8 @@ of the port on one card.
         (``E2E_CELLS``): TONES fused (#1), TONES replay (#4) unsharded and
         on (1, 1) and (2, 1) meshes (#5), DIRECT config 3 fused (#11)
         unsharded and on a (2, 1) mesh, DIRECT config 3 replay (#8)
-        unsharded and on a (2, 1) mesh (#10), and config 3 host-fed at
+        unsharded and on a (2, 1) mesh (#10), DIRECT config 1 fused (#9,
+        the DDC's row mode), and config 3 host-fed at
         pf_average 400 (#7 at an 8000-tap FIR, ``DEEP_CELL``); each
         cell's RUNS rates (default 10; host clock) and profiled run
         (device busy share, device ms per block) from each checkout's own
@@ -40,11 +41,13 @@ channel mode, #11-#13 and #15 (shard 1 of 2, 20,000 rows), and for #8
 and #10 (shard 1 of a (time=2) mesh, 20,000 rows) over the blocks of an
 8-block (256 MB) recording in turn; #7 at decimation 10, pf_average 400
 (400,000 samples, 40,000 rows); #14 at 4,096,000 samples (nb 40,960), as
-the smoke; config 1's one channel for #7's row mode.  The yardsticks,
+the smoke; config 1's one channel for #7's row mode, at config 1 and at
+decimation 10, pf_average 800 (400,000 samples).  The yardsticks,
 timed the same way: the host-fed PFB route on #1's blocks, the pre-sum
 kernel #2 and then ``torch.fft.fft`` (``pfb_two_calls``: no one PyTorch
 call computes the channelizer); ``torch.matmul`` of the DDC's
-materialized (40,000, 400) window rows by Hmod (``ddc_matmul``), of the
+materialized (40,000, 400) window rows by Hmod at config 3
+(``ddc_matmul``) and config 1 (``ddc_row_matmul``), of the
 fold's (40,000, 100) rotated rows by G2 (as
 ``chip_smoke.fold_library_ms`` forms it; ``fold_matmul``) and of the
 chain's stacked (20,000, 400) rows by G reshaped (400, 100)
@@ -64,11 +67,13 @@ RUNS, CALLS = 7, 20
 E2E_CELLS = ("TONES fused", "TONES replay", "TONES replay on (1, 1)",
              "TONES replay on (2, 1)", "DIRECT config 3 fused",
              "DIRECT config 3 fused on (2, 1)", "DIRECT config 3 replay",
-             "DIRECT config 3 replay on (2, 1)")
+             "DIRECT config 3 replay on (2, 1)", "DIRECT config 1 fused")
 DEEP_CELL = "DIRECT config 3 host-fed, pf_average 400"
 DEEP_CELL_BLOCKS = 10
 R_BLOCKS = 8               # blocks of the channelizers' and #8's recordings
 DEEP_DECIM, DEEP_F, DEEP_BLOCK = 10, 400, 400_000    # #7 at a deep FIR
+DEEP_ROW_F = 800                   # #7's row mode at a deep FIR, one channel
+YARDSTICKS = {"ddc_channel": "ddc_matmul", "ddc_row": "ddc_row_matmul"}
 SC_FRAMES = 4000           # #3: 4,000,000 samples at nfft 1000
 T_BLOCK = 4_096_000        # #14: JAX's channel-major geometry (nb 40,960)
 
@@ -127,7 +132,8 @@ def measure() -> dict:
     for name, freqs, M, f, L in (
             ("ddc_channel", CONFIG3, D_DECIM, D_AVG, D_BLOCK),
             ("ddc_row", CONFIG1, D_DECIM, D_AVG, D_BLOCK),
-            ("ddc_channel_f400", CONFIG3, DEEP_DECIM, DEEP_F, DEEP_BLOCK)):
+            ("ddc_channel_f400", CONFIG3, DEEP_DECIM, DEEP_F, DEEP_BLOCK),
+            ("ddc_row_f800", CONFIG1, DEEP_DECIM, DEEP_ROW_F, DEEP_BLOCK)):
         cfg = ddc.DirectDDCConfig(D_RATE, M, f, tuple(freqs),
                                   (0,) * len(freqs))
         args = (cfg.modulated_taps(dev), cfg.carrier_ramp(L // M, dev),
@@ -138,10 +144,11 @@ def measure() -> dict:
                 torch.randn(L, dtype=torch.complex64, device=dev,
                             generator=gen))
         times[name] = time_ms(lambda: ddc.ddc_fused(*args))
-        if name == "ddc_channel":       # the yardstick on the same block
+        if name in YARDSTICKS:          # the yardstick on the same block
             E = torch.cat(args[-2:]).reshape(-1, M)
             A = E.reshape(-1).unfold(0, f * M, M)[:L // M].contiguous()
-            times["ddc_matmul"] = time_ms(lambda: torch.matmul(A, args[0]))
+            times[YARDSTICKS[name]] = time_ms(
+                lambda: torch.matmul(A, args[0]))
             del E, A
     measure_replay_ddc(dev, gen, times)
     cfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(CONFIG3),

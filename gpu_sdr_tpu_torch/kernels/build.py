@@ -136,6 +136,8 @@ def _bind(lib) -> None:
     lib.sdr_ddc_staged.restype = ci
     lib.sdr_ddc_smem_bytes.argtypes = [ci, ci, ci]
     lib.sdr_ddc_smem_bytes.restype = ci
+    lib.sdr_ddc_row_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.sdr_ddc_row_plan.restype = ci
     for name in ("sdr_fold", "sdr_fold_streamed", "sdr_fold_rotg",
                  "sdr_fold_t"):
         getattr(lib, name).argtypes = [vp] * 6 + [ci, ci, ci, ci, vp]

@@ -18,9 +18,11 @@ launches the kernel for CUDA tensors.  The kernel's second input mode (a
 block of a resident recording, read by block index) serves
 ops/replay_ddc.py.  In channel mode the kernel is a register-tiled FP32
 complex GEMM of the (nb, f*M) window rows by Hmod, k in chunks staged in
-shared memory; in row mode it stages a tile's extended rows a chunk of
-taps at a time.  Either way its shared memory is bounded for any f
-(``channel_plan`` and ``smem_bytes`` mirror its plans).  The TPU
+shared memory; in row mode (at most 8 channels) a tile's span of the
+samples is staged once a pass of taps and its lanes slide taps over
+window samples held in registers.  Either way its shared memory is
+bounded for any f and M (``channel_plan``, ``row_plan`` and
+``smem_bytes`` mirror its plans).  The TPU
 kernel's bf16 hi/lo split, its 8-row halo units and its fallback for
 untileable geometries have no counterpart.
 """
@@ -38,29 +40,44 @@ from .cplx import advance_phase, from_np, phase_rotation
 from .fir import fir_taps_direct
 
 ROW_MODE_MAX_CHANNELS = 8   # csrc/ddc.cu kMaxRowChannels
-SMEM_DEFAULT = 48 * 1024    # a block's shared memory without the opt-in
 SMEM_MAX = 232_448          # a block's shared memory with the opt-in
 # csrc/ddc.cu's tiles.  Channel mode (False): rows and channels a thread
 # (kTM, kTN), window columns a chunk (kKC) and a staged row's pitch
 # (kKP), chunks staged at once (kStages), a block's most channels,
-# threads and row groups.  Row mode (True): rows (threads) a block and
-# staged samples a row (kTileR, kChunkR).
+# threads and row groups.  Row mode (True): warps a block (kWarpsR), rows
+# a warp at up to 2 channels (kRowsWarp), complex sums a lane beyond
+# (kAccR), tap rows a lane's task slides (kArmR), samples a stage
+# (kStageR) and stages at most (kStagesR).
 DDC_TILES = {False: dict(rows=8, channels=4, chunk=32, pitch=34, stages=2,
                          max_channels=128, max_threads=256,
                          max_row_groups=16),
-             True: dict(tile=128, chunk=32)}
+             True: dict(warps=8, rows_warp=8, acc=16, arm=4, stage=7104,
+                        stages=2)}
 
 
-def taps_per_pass(tile: int, chunk: int) -> int:
-    """Taps a row-mode block stages per pass: the most whose tile + taps
-    - 1 rows of `chunk` samples (odd pitch chunk + 1) fit SMEM_DEFAULT."""
-    return SMEM_DEFAULT // ((chunk + 1) * 8) - tile + 1
-
-
-def staged_smem_bytes(tile: int, chunk: int, f: int) -> int:
-    """Shared memory of a row-mode block staging tile + min(f, taps) - 1
-    rows."""
-    return (tile + min(f, taps_per_pass(tile, chunk)) - 1) * (chunk + 1) * 8
+def row_plan(M: int, f: int, C: int) -> dict:
+    """The row mode's launch for M samples a row, f taps a polyphase arm
+    and C <= 8 channels (csrc/ddc.cu row_plan): CP, C rounded up to a
+    power of 2; R rows a block, 8 warps of min(8, 16 / CP); chunks of J
+    tap rows (a multiple of `arm`) by P columns, nmc column chunks (one:
+    P = M, the span), npass passes, nchunk chunks; a stage's window of R
+    + J - 1 rows at pitch P (rounded up to even), its taps at `woff`,
+    `stage` samples; `smem` bytes, one stage or, with two chunks, two."""
+    t = DDC_TILES[True]
+    CP = 1 if C <= 1 else 2 if C <= 2 else 4 if C <= 4 else 8
+    R = t["warps"] * min(t["rows_warp"], t["acc"] // CP)
+    A, S = t["arm"], t["stage"]
+    wmax = (S - 1) // (R + A - 1 + CP * A)
+    nmc = -(-M // wmax)
+    P = -(-M // nmc)
+    J = (S - 1 - (R - 1) * P) // ((1 + CP) * P)
+    J = min(J - J % A, -(-f // A) * A)
+    npass = -(-f // J)
+    woff = ((R + J - 1) * P + 1) & ~1
+    stage = (woff + CP * J * P + 1) & ~1
+    return dict(CP=CP, R=R, P=P, nmc=nmc, J=J, npass=npass,
+                nchunk=npass * nmc, woff=woff, stage=stage,
+                smem=(t["stages"] if npass * nmc > 1 else 1) * stage * 8)
 
 
 def channel_plan(C: int) -> dict:
@@ -82,16 +99,19 @@ def channel_plan(C: int) -> dict:
 
 def smem_bytes(f: int, row_mode: bool, C: int = 100) -> int:
     """The DDC kernel's shared memory for f taps and C channels, the plan
-    of csrc/ddc.cu (sdr_ddc_smem_bytes): in row mode at most SMEM_DEFAULT
-    for any f; in channel mode channel_plan's, whatever f."""
+    of csrc/ddc.cu (sdr_ddc_smem_bytes): in row mode the most a launch
+    takes for any M (two stages; ``row_plan`` gives a launch's own); in
+    channel mode channel_plan's, whatever f."""
     if row_mode:
-        return staged_smem_bytes(*DDC_TILES[True].values(), f)
+        t = DDC_TILES[True]
+        return t["stages"] * t["stage"] * 8
     return channel_plan(C)["smem"]
 
 
 def few_channels(n_channels: int) -> bool:
-    """Whether the kernel can run one thread per output row (row mode)
-    rather than lanes over channels (channel mode)."""
+    """Whether the kernel runs in row mode (a block's lanes over the taps
+    of its rows, every channel in a lane's registers) rather than channel
+    mode (threads over rows and channels)."""
     return n_channels <= ROW_MODE_MAX_CHANNELS
 
 
@@ -217,9 +237,8 @@ def launch_ddc(x: torch.Tensor, hist, hmod: torch.Tensor,
                ramp: torch.Tensor, phase: torch.Tensor, W: int, M: int,
                f: int, nb: int, row_mode: bool, base: int = 0,
                valid: int = 1):
-    """Launch csrc/ddc.cu on CUDA tensors: y (nb, C) complex64, one
-    thread per output row (`row_mode`, at most 8 channels) or lanes over
-    channels.
+    """Launch csrc/ddc.cu on CUDA tensors: y (nb, C) complex64, in row
+    mode (`row_mode`, at most 8 channels) or channel mode.
 
     Streamed block (`hist` a tensor of (f-1)*M samples): x holds the
     block.  Resident recording (`hist` None): x holds the recording, the

@@ -15,7 +15,7 @@ package's (idx, phase, started) with the int32 phase widened
 (convert.replay_state).  The port runs one block per launch where the
 JAX kernels take K; the two classes keep the JAX sub-path names and each
 counts its own launches.  ``ReplayDDCT`` (at most 8 channels, config 1)
-runs the kernel with one thread per output row; the TPU form's
+runs the kernel in row mode (ops/ddc.row_plan); the TPU form's
 pre-tiled transposed recording with baked halo columns, its rep8
 rotation rows and its ramp applied after the kernel are MXU / lane
 artifacts and are not ported.  ``ShardedReplayDDC`` (kernel #10) is the
@@ -110,8 +110,8 @@ class ReplayDDC:
 
 
 class ReplayDDCT(ReplayDDC):
-    """The few-channel (C <= 8) form: the same function and state, one
-    kernel thread per output row (the JAX channel-major kernel)."""
+    """The few-channel (C <= 8) form: the same function and state, the
+    kernel in row mode (the JAX channel-major kernel)."""
 
     path_name = "replay_kernel_t"
     row_mode = True

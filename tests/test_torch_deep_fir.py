@@ -1,17 +1,17 @@
 """A deep FIR (pf_average in the hundreds) on the port: the DDC's channel
-mode runs the window's k axis in chunks, its row mode and the chain
-stage a tile's extended rows a chunk of taps at a time, so their shared
-memory is bounded for any f.  On the CPU: the staging plan that
-ops/ddc.py and ops/chain.py mirror from csrc/ddc.cu and csrc/chain.cu
-fits for every f up to 4096, the DDC's channel mode (two stages of a
-window chunk and its taps, at config 3's 100 channels) and the chain
-(its ring of G items beside two buffers of rows, at config 3's widths)
-the H100's 227 KB, the DDC's row mode one block's default 48 KB (the
-launch size, no opt-in), its constants those of the CUDA sources; and
-the port's host-fed DIRECT readout at pf_average 400
-matches the JAX package's direct_ddc_fir route and the float64 oracle
-at 90 dB SNR.  The kernels themselves run at such
-depths only on the card (chip_smoke.py, its deep-FIR phase).
+mode runs the window's k axis in chunks, its row mode stages a tile's
+span a pass of taps at a time, and the chain a tile's extended rows a
+chunk of taps at a time, so their shared memory is bounded for any f.
+On the CPU: the staging plan that ops/ddc.py and ops/chain.py mirror
+from csrc/ddc.cu and csrc/chain.cu fits for every f up to 4096, the
+DDC's channel mode (two stages of a window chunk and its taps, at
+config 3's 100 channels) and the chain (its ring of G items beside two
+buffers of rows, at config 3's widths) the H100's 227 KB, the DDC's row
+mode two blocks an SM, its constants those of the CUDA sources; and the
+port's host-fed DIRECT readout at pf_average 400 matches the JAX
+package's direct_ddc_fir route and the float64 oracle at 90 dB SNR.
+The kernels themselves run at such depths only on the card
+(chip_smoke.py, its deep-FIR phase).
 """
 
 import re
@@ -34,6 +34,7 @@ from gpu_sdr_tpu_torch.ops import chain, ddc
 torch.set_num_threads(2)
 
 H100_SMEM = 232_448             # bytes a block may use with the opt-in
+SM_SMEM = 233_472               # an SM's shared memory, 1 KB a block reserved
 F_MAX = 4096
 RATE, M, F, BLOCK, N_BLOCKS = 1_000_000, 20, 400, 64_000, 2
 FREQS = [100_003, -250_001, 333_333]
@@ -41,14 +42,17 @@ FREQS = [100_003, -250_001, 333_333]
 
 @pytest.mark.parametrize("kernel", ["ddc_channel", "ddc_row", "chain"])
 def test_staging_plan_fits_for_every_f(kernel):
-    """Every f in 1..4096: within the launch size (the DDC's row mode:
-    the default 48 KB; its channel mode at config 3's 100 channels and
-    the chain at its 100 tones and channels: the card's limit); the row
-    mode and the chain growing with f only up to one pass of taps, then
-    flat; the channel mode flat from f 1 (its k-loop takes any depth)."""
+    """Every f in 1..4096: within the launch size (the DDC's channel mode
+    at config 3's 100 channels and the chain at its 100 tones and
+    channels: the card's limit; the DDC's row mode at the deep FIR's
+    decimation 10 and one channel: two blocks an SM); the row mode and
+    the chain growing with f only up to one pass of taps (the row mode's
+    320 tap rows in one stage, then two), then flat; the channel mode
+    flat from f 1 (its k-loop takes any depth)."""
     plan, limit = {
         "ddc_channel": (lambda f: ddc.smem_bytes(f, False), H100_SMEM),
-        "ddc_row": (lambda f: ddc.smem_bytes(f, True), ddc.SMEM_DEFAULT),
+        "ddc_row": (lambda f: ddc.row_plan(10, f, 1)["smem"],
+                    SM_SMEM // 2 - 1024),
         "chain": (lambda f: chain.smem_bytes(f, 100, 100), H100_SMEM)}[kernel]
     sizes = np.array([plan(f) for f in range(1, F_MAX + 1)])
     assert sizes.max() <= limit <= H100_SMEM
@@ -56,7 +60,11 @@ def test_staging_plan_fits_for_every_f(kernel):
     grows = np.flatnonzero(sizes != sizes[-1])
     flat = int(grows[-1]) + 1 if grows.size else 0          # f - 1
     assert np.all(sizes[flat:] == sizes[-1])
-    assert flat == 0 if kernel == "ddc_channel" else 8 <= flat < 100
+    if kernel == "ddc_row":
+        assert flat == ddc.row_plan(10, F_MAX, 1)["J"] == 320
+        assert sizes.max() <= ddc.smem_bytes(F_MAX, True, 1)
+    else:
+        assert flat == 0 if kernel == "ddc_channel" else 8 <= flat < 100
 
 
 def source_constants(name):
@@ -75,29 +83,33 @@ def test_taps_per_pass_mirror_the_sources():
     channel mode chunks of 32 window columns at a pitch of 34, 8 rows by
     4 channels a thread, two stages, at config 3's 100 channels 80 rows
     a block (10 row groups by 25 channel groups) in 94,720 bytes, within
-    227 KB; 59 taps a pass in row mode (128 x 33), the most that fit
-    48 KB; 28 in the chain at config 3's widths, the most whose two
+    227 KB; in row mode 8 warps of 8 rows at one channel, stages of 7104
+    samples, 320 tap rows a pass at decimation 10 (the most, a multiple
+    of 4, whose 64 + J - 1 window rows and J taps of 10 samples fit a
+    stage); 28 in the chain at config 3's widths, the most whose two
     buffers of 64 + J - 1 rows of 204 floats fit beside its ring of two
     G items (52 tones x 100 channels, complex) in 227 KB; at f 4, the
     main path's, two items a tap."""
     d, c = source_constants("ddc.cu"), source_constants("chain.cu")
     t = source_constants("tc.cuh")
     ch = ddc.DDC_TILES[False]
-    assert ddc.DDC_TILES[True] == dict(tile=d["kTileR"], chunk=d["kChunkR"])
+    assert ddc.DDC_TILES[True] == dict(
+        warps=d["kWarpsR"], rows_warp=d["kRowsWarp"], acc=d["kAccR"],
+        arm=d["kArmR"], stage=d["kStageR"], stages=d["kStagesR"])
     assert (ch["rows"], ch["channels"], ch["chunk"], ch["pitch"],
             ch["stages"]) == (d["kTM"], d["kTN"], d["kKC"], d["kKP"],
                               d["kStages"]) == (8, 4, 32, 34, 2)
     assert (chain.CHAIN_TILE, chain.CHAIN_MAX_CHANNELS, chain.SMEM_MAX) == \
         (t["kRows"], c["kChanMax"], t["kSmemMax"]) == (64, 112, H100_SMEM)
     assert chain.CHAIN_MIN_TAPS == c["kMinTaps"]
-    assert ddc.SMEM_DEFAULT == d["kSmemDefault"]
     assert ddc.SMEM_MAX == d["kSmemMax"] == H100_SMEM
     assert ddc.ROW_MODE_MAX_CHANNELS == d["kMaxRowChannels"]
-    tile, chunk = ddc.DDC_TILES[True].values()
-    J = ddc.taps_per_pass(tile, chunk)
-    assert J == 59
-    assert (tile + J - 1) * (chunk + 1) * 8 <= ddc.SMEM_DEFAULT < \
-        (tile + J) * (chunk + 1) * 8
+    rt = ddc.DDC_TILES[True]
+    p = ddc.row_plan(10, F_MAX, 1)
+    R, J, arm = p["R"], p["J"], rt["arm"]
+    assert (R, J, p["P"], p["nmc"]) == (64, 320, 10, 1)
+    assert (R + J - 1) * 10 + J * 10 <= rt["stage"] < \
+        (R + J + arm - 1) * 10 + (J + arm) * 10
     p = ddc.channel_plan(100)                       # config 3
     assert (p["BM"], p["RG"], p["CG"]) == (80, 10, 25)
     assert ddc.smem_bytes(4, False) == ddc.smem_bytes(F_MAX, False) == \
