@@ -16,10 +16,20 @@ and exits non-zero at the first phase that fails:
    first 16 frames against a float64 numpy oracle and the whole block
    against a float64 PFB on the card (the pre-sum and torch.fft in
    complex128), its shared-memory plan in csrc/channelizer.cu and in
-   ops/channelizer.py alike for nfft 1..20,000; the pre-sum at <= 1e-6
-   relative error; both times from CUDA events, the median of repeated
-   runs, beside the host-fed route's two calls on the same block (the
-   pre-sum kernel, then torch.fft);
+   ops/channelizer.py alike for nfft 1..20,000; the channelizer's times
+   from CUDA events, the median of repeated runs, beside the host-fed
+   route's two calls on the same block (the pre-sum kernel, then
+   torch.fft); the pre-sum (#2) at <= 1e-6 relative error against its
+   plain version and float64 over the whole block, timed queued over
+   the blocks of an 8-block recording beside a ``copy_`` of the same
+   bytes (``copy_ms``); then the pre-sum's launch plan in
+   csrc/presum.cu and ops/presum.py alike for T 1..70, nfft 1..64, 999,
+   1000, 1001, 1018, avg 1..12 and both bodies, and #2 and #6 at <= 1e-6
+   against plain and float64 at avg 1, 2, 4, 8 (the register ring) and
+   9, 16 (the generic body), at nfft 1001 and on a view one sample into
+   a recording (the 8-byte body), on a tail tile and at T < avg - 1,
+   and at the seam's corners (a halo that wraps in part, a recording
+   shorter than its halo);
 4. ``run_measurement`` at the reference's network-stress configuration:
    1000 bin-quantized tones at 100 Msps into a 1000-bin TONES receiver,
    6,000,000-sample blocks, 100 blocks, fused on the card;
@@ -63,7 +73,8 @@ and exits non-zero at the first phase that fails:
    (#6) reading blocks of a random 8-block (384 MB) recording in place
    at the TONES geometry (blocks 0 at the stream's start, 3, 7, and 0
    after the loop seam), at >= 90 dB SNR (16 frames and the whole
-   block against float64) and <= 1e-6 relative error, with the
+   block against float64) and, the pre-sum, <= 1e-6 relative error
+   against plain and float64 over the whole block, with the
    channelizer's stream mode (#1) and the host-fed route's two calls
    timed over the same blocks as #4 is; the pre-sum again, and timed,
    at its main path's shape (NOISE at nfft 1018, blocks of 5893 frames,
@@ -155,7 +166,8 @@ its ``stream_*`` fields are stream mode; the DDC-family kernels carry
 their deep-FIR rows in ``deep``; the channelizers, #1 and #3-#5, their
 SNR against the float64 PFB over the whole block, ``snr_db``, and the
 host-fed route's time on the same block, ``two_call_ms``: the pre-sum
-kernel #2, then torch.fft), each with its bound: the larger of its
+kernel #2, then torch.fft; the pre-sums, #2 and #6, a ``copy_`` of the
+bytes they move, ``copy_ms``), each with its bound: the larger of its
 bytes over 3.35 TB/s and its FP32 operations over 67 TFLOP/s, counted
 from this run's shapes; for the folds and the chain (#11-#15), which run
 on the tensor cores with a three-pass TF32 split, three times their
@@ -201,6 +213,12 @@ WARMUP_BLOCKS = 3
 ROWS = slice(0, None, 97)   # the rows of each packet that are checked
 SNR_BAR_DB = 90.0
 PRESUM_REL_ERR = 1e-6
+# the pre-sum's cases: avg 1, 2, 4, 8 on the register ring, 9 and 16 on
+# the generic body; its plans compared at T x nfft x avg 1..PLAN_AVG
+PRESUM_AVGS = (1, 2, 4, 8, 9, 16)
+PLAN_T = tuple(range(1, 71))
+PLAN_NFFT = tuple(range(1, 65)) + (999, 1000, 1001, 1018)
+PLAN_AVG = 12
 TIMED_RUNS = 20
 
 D_ROWS = D_BLOCK // D_DECIM                     # 40,000 rows per block
@@ -544,21 +562,146 @@ def phase_kernels(dev):
     check(not plans, "channelizer shared-memory plans differ")
 
     k = presum(w2, spare, x)
-    p = presum_plain(w2, spare, x)
-    torch.cuda.synchronize(dev)
-    kn, pn = k.cpu().numpy(), p.cpu().numpy()
-    rel = float(np.linalg.norm(kn - pn) / np.linalg.norm(pn))
-    err = float(np.abs(kn - pn).max())
-    ms = time_ms(lambda: presum(w2, spare, x))
-    pms = time_ms(lambda: presum_plain(w2, spare, x))
-    print(f"presum {FRAMES}x{NFFT}: relative error {rel:.3e} vs plain, "
-          f"max |err| {err:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    check(np.isfinite(kn).all() and rel <= PRESUM_REL_ERR,
-          f"presum relative error {rel:.3e} > {PRESUM_REL_ERR}")
+    err = check_presum(f"presum {FRAMES}x{NFFT}", k, lambda c, w:
+                       presum_plain(w2.to(w), spare.to(c), x.to(c)))
+    # times: rotate over the blocks of an 8-block recording (384 MB, past
+    # the 50 MB L2), each launch reading its block from HBM, beside a
+    # copy_ of the same bytes (the block read, as many written)
+    X = torch.randn((R_BLOCKS * FRAMES, NFFT), dtype=torch.complex64,
+                    device=dev)
+    rot, dst = itertools.count(), torch.empty_like(x)
+
+    def block():
+        i = next(rot) % R_BLOCKS
+        return X[i * FRAMES:(i + 1) * FRAMES]
+    ms, pms, cms = (time_ms_queued(f, 2 * R_BLOCKS) for f in (
+        lambda: presum(w2, spare, block()),
+        lambda: presum_plain(w2, spare, block()),
+        lambda: dst.copy_(block())))
+    b = bound(nbytes(w2, spare, x, k), 4 * AVG * x.numel())
+    print(f"presum {FRAMES}x{NFFT}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"copy_ of the same bytes {cms:.4f} ms, bound {b['bound_ms']:.4f} "
+          f"ms ({b['bound_by']}; queued over an 8-block recording)")
     rows["presum"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                          library_ms=None, **bound(
-                              nbytes(w2, spare, x, k), 4 * AVG * x.numel()))
+                          library_ms=None, copy_ms=cms, **b)
     return rows
+
+
+def check_presum(tag: str, k, plain) -> float:
+    """A pre-sum kernel's output `k` against its plain version, `plain(
+    complex dtype, window dtype)`, in complex64 and in complex128: within
+    PRESUM_REL_ERR of both, relative over the whole block, its shape and
+    finite values checked; returns the max |error| against complex64."""
+    import torch
+    p = plain(torch.complex64, torch.float32)
+    p64 = plain(torch.complex128, torch.float64)
+    kn, pn, pn64 = (t.cpu().numpy() for t in (k, p, p64))
+    rel = float(np.linalg.norm(kn - pn) / np.linalg.norm(pn))
+    rel64 = float(np.linalg.norm(kn - pn64) / np.linalg.norm(pn64))
+    print(f"{tag}: relative error {rel:.3e} vs plain, {rel64:.3e} vs "
+          "float64")
+    check(kn.shape == pn.shape and np.isfinite(kn).all() and
+          rel <= PRESUM_REL_ERR and rel64 <= PRESUM_REL_ERR,
+          f"{tag}: shape {kn.shape}, relative error {rel:.3e} / "
+          f"{rel64:.3e} > {PRESUM_REL_ERR}")
+    return float(np.abs(kn - pn).max())
+
+
+def phase_presum_cases(dev):
+    """The pre-sum kernel's launch plan in csrc/presum.cu and its mirror
+    ops/presum.presum_plan alike over PLAN_T x PLAN_NFFT x avg 1..12 and
+    both bodies; then #2 (presum) and #6 (presum_at) against their plain
+    versions and float64 (check_presum) where the plan changes body: avg
+    1, 2, 4, 8 (the register ring) and 9, 16 (the generic body); nfft
+    1001 and a view one sample into a recording (the 8-byte body); a
+    tail tile and T < avg - 1; the seam's corners (a halo that wraps in
+    part, a recording shorter than its halo)."""
+    import torch
+    from gpu_sdr_tpu_torch.kernels import build
+    from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
+    from gpu_sdr_tpu_torch.ops.presum import (
+        pointers_aligned, presum, presum_at, presum_at_plain, presum_plain,
+        presum_plan)
+    lib = build.load()
+    keys = ("vec", "threads", "strips", "rows", "tiles", "ring")
+    got, n = (ctypes.c_int * len(keys))(), 0
+    for T in PLAN_T:
+        for nfft in PLAN_NFFT:
+            for avg in range(1, PLAN_AVG + 1):
+                for aligned in (0, 1):
+                    check(lib.sdr_presum_plan(T, nfft, avg, aligned, got)
+                          == 0, f"sdr_presum_plan({T}, {nfft}, {avg}) "
+                          "refused")
+                    want = presum_plan(T, nfft, avg, bool(aligned))
+                    check(dict(zip(keys, got)) == want,
+                          f"presum plan at T {T}, nfft {nfft}, avg {avg}, "
+                          f"aligned {aligned}: C {list(got)}, Python {want}")
+                    n += 1
+    print(f"presum plan: C and Python agree at {n} (T, nfft, avg, body)")
+    gen = torch.Generator(device=dev).manual_seed(24680)
+
+    def window(nfft, avg):
+        return PFBConfig(nfft=nfft, avg=avg, rate=RATE).window(
+            dev).reshape(avg, nfft)
+
+    def body(x, hist, out, w):
+        return "16-byte" if presum_plan(1, x.shape[-1], 1, pointers_aligned(
+            x.data_ptr(), hist.data_ptr() if hist is not None else 0,
+            out.data_ptr(), w.data_ptr()))["vec"] == 2 else "8-byte"
+
+    def streamed(nfft, avg, T, want):
+        w2 = window(nfft, avg)
+        spare = torch.randn((avg - 1, nfft), dtype=torch.complex64,
+                            device=dev, generator=gen)
+        x = torch.randn((T, nfft), dtype=torch.complex64, device=dev,
+                        generator=gen)
+        k = via_kernel("presum", lambda: presum(w2, spare, x))
+        b = body(x, spare, k, w2)
+        check(b == want, f"presum nfft {nfft}: the {b} body")
+        check_presum(f"presum [nfft {nfft}, avg {avg}, T {T}, {b}]", k,
+                    lambda c, w: presum_plain(w2.to(w), spare.to(c),
+                                              x.to(c)))
+
+    def recorded(X, avg, T, idx, valid, want, tag=""):
+        nfft = X.shape[1]
+        w2 = window(nfft, avg)
+        k = via_kernel("presum_at", lambda: presum_at(w2, X, idx, valid, T))
+        b = body(X, None, k, w2)
+        check(b == want, f"presum_at nfft {nfft}{tag}: the {b} body")
+        check_presum(f"presum_at [{X.shape[0]} x {nfft}{tag}, avg {avg}, T "
+                    f"{T}, block {idx}, valid {valid}, {b}]", k,
+                    lambda c, w: presum_at_plain(w2.to(w), X.to(c), idx,
+                                                 valid, T))
+
+    def rec(frames, nfft):
+        return torch.randn((frames, nfft), dtype=torch.complex64,
+                           device=dev, generator=gen)
+    for avg in PRESUM_AVGS:
+        streamed(NFFT, avg, FRAMES, "16-byte")
+        X = rec(4 * 1000, NFFT)
+        for idx, valid in ((0, 0), (2, 1), (0, 1)):
+            recorded(X, avg, 1000, idx, valid, "16-byte")
+    # the 8-byte body: odd nfft; a view one sample into a recording
+    streamed(1001, AVG, 997, "8-byte")
+    X = rec(4 * 997, 1001)
+    for idx, valid in ((0, 0), (3, 1), (0, 1)):
+        recorded(X, AVG, 997, idx, valid, "8-byte")
+    flat = torch.randn(4 * 997 * NFFT + 1, dtype=torch.complex64,
+                       device=dev, generator=gen)
+    X = flat[1:].view(4 * 997, NFFT)
+    for idx, valid in ((0, 0), (2, 1), (0, 1)):
+        recorded(X, AVG, 997, idx, valid, "8-byte", ", one sample in")
+    # a tail tile (997 and 5 frames) and T < avg - 1, on both bodies
+    for nfft, want in ((NFFT, "16-byte"), (1001, "8-byte")):
+        for avg, T in ((8, 3), (16, 5), (AVG, 1)):
+            streamed(nfft, avg, T, want)
+            recorded(rec(4 * T, nfft), avg, T, 1, 1, want)
+            recorded(rec(4 * T, nfft), avg, T, 0, 1, want)
+    # the seam's corners (one-frame blocks): a halo that wraps in part (4
+    # frames, block 1) and a recording shorter than its halo (2 frames)
+    for total, idx in ((4, 1), (4, 0), (2, 1)):
+        for avg in (AVG, 9):
+            recorded(rec(total, 200), avg, 1, idx, 1, "16-byte")
 
 
 class PacketCheck:
@@ -1170,20 +1313,10 @@ def phase_replay_kernels(dev):
 
     def held_presum(tag, w2, X, T, idx, valid, keep_err):
         k = via_kernel("presum_at", lambda: presum_at(w2, X, idx, valid, T))
-        p = presum_at_plain(w2, X, idx, valid, T)
-        torch.cuda.synchronize(dev)
-        kn, pn = k.cpu().numpy(), p.cpu().numpy()
-        pre = pre64(X, w2.cpu().numpy().astype(np.float64), T, idx, valid)
-        rel = float(np.linalg.norm(kn - pn) / np.linalg.norm(pn))
-        rel64 = float(np.linalg.norm(kn[:16] - pre) / np.linalg.norm(pre))
+        err = check_presum(f"presum_at [{tag}]", k, lambda c, w:
+                           presum_at_plain(w2.to(w), X.to(c), idx, valid, T))
         if keep_err:
-            errs["presum_at"] = max(errs["presum_at"],
-                                    float(np.abs(kn - pn).max()))
-        print(f"presum_at [{tag}]: relative error {rel:.3e} vs plain, "
-              f"{rel64:.3e} vs float64 (16 frames)")
-        check(kn.shape == (T, X.shape[1]) and np.isfinite(kn).all() and
-              rel <= PRESUM_REL_ERR and rel64 <= PRESUM_REL_ERR,
-              f"presum_at [{tag}] relative error {rel:.3e} / {rel64:.3e}")
+            errs["presum_at"] = max(errs["presum_at"], err)
 
     # #4 and #6: a (8 * 6000, 1000) recording, 384 MB
     cfg = PFBConfig(nfft=NFFT, avg=AVG, rate=RATE)
@@ -1267,16 +1400,18 @@ def phase_replay_kernels(dev):
     for idx, valid in R_IDX:
         held_presum(f"nfft {R_NFFT}, block {idx}, valid {valid}", wn, X, T,
                     idx, valid, True)
-    rot = itertools.count()
-    ms, pms = (time_ms_queued(f, 2 * R_BLOCKS) for f in (
+    rot, dst = itertools.count(), X.new_empty((T, R_NFFT))
+    ms, pms, cms = (time_ms_queued(f, 2 * R_BLOCKS) for f in (
         lambda: presum_at(wn, X, next(rot) % R_BLOCKS, 1, T),
-        lambda: presum_at_plain(wn, X, next(rot) % R_BLOCKS, 1, T)))
+        lambda: presum_at_plain(wn, X, next(rot) % R_BLOCKS, 1, T),
+        lambda: dst.copy_(X[(next(rot) % R_BLOCKS) * T:][:T])))
     # bytes: the block read once, the (T, nfft) output written once
     b = bound(2 * T * R_NFFT * 8 + nbytes(wn), 4 * AVG * T * R_NFFT)
     print(f"presum_at {T}x{R_NFFT}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+          f"copy_ of the same bytes {cms:.4f} ms, bound {b['bound_ms']:.4f} "
+          f"ms ({b['bound_by']})")
     rows["presum_at"] = dict(max_abs_err=errs["presum_at"], ms=ms,
-                             plain_ms=pms, library_ms=None, **b)
+                             plain_ms=pms, library_ms=None, copy_ms=cms, **b)
     del X
 
     # #18: config 2 at 6,000,000-sample blocks, 300 segments of 20,000
@@ -2721,6 +2856,7 @@ def main() -> int:
         timed("card", phase_card)
         timed("build", phase_build)
         rows = timed("PFB kernels", phase_kernels, dev)
+        timed("pre-sum cases", phase_presum_cases, dev)
         rows.update(timed("DIRECT kernels", phase_direct_kernels, dev))
         rows.update(timed("CHIRP kernels", phase_chirp_kernels, dev))
         rows.update(timed("replay kernels", phase_replay_kernels, dev))

@@ -50,4 +50,23 @@ __device__ __forceinline__ float2 sample(const Rows& in, long long g, int m) {
     return in.x[w * in.M + m];
 }
 
+// Extended row g (0 <= g < nb + lead) of the block: the address of its
+// first sample, or nullptr where it stands for zeros (past the block, or a
+// history row when `valid` is 0).  sample()'s rule, resolved once for all
+// of a row's samples.
+__device__ __forceinline__ const float2* row_ptr(const Rows& in,
+                                                 long long g) {
+    if (g >= in.nb + in.lead) return nullptr;                 // past the block
+    const long long r = g - in.lead;
+    if (r >= 0) return in.x + (in.base + r) * in.M;
+    if (!in.valid) return nullptr;
+    if (in.hist != nullptr) return in.hist + g * in.M;
+    long long w = in.base + r;
+    if (w < 0) {                      // before the recording's first row:
+        w %= in.x_rows;               // wrapped at the loop seam
+        if (w < 0) w += in.x_rows;
+    }
+    return in.x + w * in.M;
+}
+
 }  // namespace

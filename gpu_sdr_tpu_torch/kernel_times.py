@@ -1,8 +1,9 @@
 """Device times of the channelizer (#1 const and stream, #3, #4, #5),
-DDC (#7 in channel mode at config 3 and at a deep FIR, #7 in row mode
-at config 1 and at a deep FIR, #8, #10), fold (#11-#14) and chain (#15)
-kernels at the main path's shapes, and of the yardsticks beside them,
-for comparing two checkouts of the port on one card.
+pre-sum (#2, #6), DDC (#7 in channel mode at config 3 and at a deep FIR,
+#7 in row mode at config 1 and at a deep FIR, #8, #10), fold (#11-#14)
+and chain (#15) kernels at the main path's shapes, and of the
+yardsticks beside them, for comparing two checkouts of the port on one
+card.
 
     python -m gpu_sdr_tpu_torch.kernel_times
         one JSON line: the card, ptxas's register and spill lines for the
@@ -14,9 +15,10 @@ for comparing two checkouts of the port on one card.
         own sources), then each kernel's times side by side
     python -m gpu_sdr_tpu_torch.kernel_times --cells A B [RUNS]
         the same order for the probe's cells that run those kernels
-        (``E2E_CELLS``): TONES fused (#1), TONES replay (#4) unsharded and
-        on (1, 1) and (2, 1) meshes (#5), DIRECT config 3 fused (#11)
-        unsharded and on a (2, 1) mesh, DIRECT config 3 replay (#8)
+        (``E2E_CELLS``): TONES fused (#1), TONES host-fed (#2), TONES
+        replay (#4) unsharded and on (1, 1) and (2, 1) meshes (#5),
+        DIRECT config 3 fused (#11) unsharded and on a (2, 1) mesh,
+        DIRECT config 3 replay (#8)
         unsharded and on a (2, 1) mesh (#10), DIRECT config 1 fused (#9,
         the DDC's row mode), and config 3 host-fed at
         pf_average 400 (#7 at an 8000-tap FIR, ``DEEP_CELL``); each
@@ -28,14 +30,20 @@ for comparing two checkouts of the port on one card.
 
 Only wrappers that the port has had since its last five kernels
 (``channelizer``, ``channelizer_scrambled``, ``channelizer_at``,
-``channelizer_at_halo``, ``ddc_fused``, ``ReplayDDC.step``,
-``ShardedReplayDDC.local``, ``fold``, ``fold_streamed``, ``fold_rotg``,
-``fold_t`` with one block, ``chain``) are called, so an older checkout
-runs this file too.  Shapes: the TONES receiver (nfft 1000, avg 4) for
-the channelizers, over the blocks of an 8-block (384 MB) recording in
-turn so that each call reads its rows from HBM: #1 stream and #4 on
+``channelizer_at_halo``, ``presum``, ``presum_at``, ``ddc_fused``,
+``ReplayDDC.step``, ``ShardedReplayDDC.local``, ``fold``,
+``fold_streamed``, ``fold_rotg``, ``fold_t`` with one block, ``chain``)
+are called, so an older checkout runs this file too.  Shapes: the TONES
+receiver (nfft 1000, avg 4) for the channelizers, over the blocks of an
+8-block (384 MB) recording in turn so that each call reads its rows
+from HBM: #1 stream and #4 on
 6000-frame blocks, #3 on their first 4000 frames, #5 on one shard's 3000
-of a (time=2) mesh, #1 const on one frame standing for 6000; config 3
+of a (time=2) mesh, #1 const on one frame standing for 6000; the
+pre-sums over the same blocks (#2 streamed after the recording's first
+rows as its spare, ``presum``; #6 in place, ``presum_at``) and #6 at the
+NOISE replay's shape, 5893 x 1018, over an 8-block recording of its own
+(``presum_at_1018``), beside a ``copy_`` of a 48 MB block (``copy``:
+the block read, as many bytes written, as the pre-sum moves); config 3
 (4,000,000 samples, decimation 100, pf_average 4, 100 tones) for #7
 channel mode, #11-#13 and #15 (shard 1 of 2, 20,000 rows), and for #8
 and #10 (shard 1 of a (time=2) mesh, 20,000 rows) over the blocks of an
@@ -64,7 +72,8 @@ import sys
 import numpy as np
 
 RUNS, CALLS = 7, 20
-E2E_CELLS = ("TONES fused", "TONES replay", "TONES replay on (1, 1)",
+E2E_CELLS = ("TONES fused", "TONES host-fed", "TONES replay",
+             "TONES replay on (1, 1)",
              "TONES replay on (2, 1)", "DIRECT config 3 fused",
              "DIRECT config 3 fused on (2, 1)", "DIRECT config 3 replay",
              "DIRECT config 3 replay on (2, 1)", "DIRECT config 1 fused")
@@ -75,6 +84,7 @@ DEEP_DECIM, DEEP_F, DEEP_BLOCK = 10, 400, 400_000    # #7 at a deep FIR
 DEEP_ROW_F = 800                   # #7's row mode at a deep FIR, one channel
 YARDSTICKS = {"ddc_channel": "ddc_matmul", "ddc_row": "ddc_row_matmul"}
 SC_FRAMES = 4000           # #3: 4,000,000 samples at nfft 1000
+NOISE_NFFT, NOISE_FRAMES = 1018, 5893   # #6: the NOISE replay's blocks
 T_BLOCK = 4_096_000        # #14: JAX's channel-major geometry (nb 40,960)
 
 
@@ -123,7 +133,7 @@ def measure() -> dict:
     ptxas = [line.split("info    :")[-1].strip()
              for line in build.build_log.splitlines()
              if ("ddc" in line or "chain" in line or "fold" in line or
-                 "channelizer" in line or
+                 "channelizer" in line or "presum" in line or
                  "registers" in line or "spill" in line or
                  "smem" in line) and
              "info" in line and "Function properties" not in line]
@@ -225,14 +235,17 @@ def measure_replay_ddc(dev, gen, times) -> None:
 
 
 def measure_channelizers(dev, gen, times) -> None:
-    """#1 (const, stream), #3, #4, #5 and the two-call host-fed route
-    into `times`, over the blocks of an 8-block recording in turn."""
+    """#1 (const, stream), #3, #4, #5, the two-call host-fed route, #2,
+    #6 and a copy_ of a block into `times`, over the blocks of an 8-block
+    recording in turn; #6 again over an 8-block recording at the NOISE
+    replay's shape."""
     import itertools
 
     import torch
     from gpu_sdr_tpu_torch.ops import channelizer as ch
     from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
-    from gpu_sdr_tpu_torch.ops.presum import (pfb_frames_fused, shard_spans,
+    from gpu_sdr_tpu_torch.ops.presum import (pfb_frames_fused, presum,
+                                              presum_at, shard_spans,
                                               staged_halos)
     from gpu_sdr_tpu_torch.probe import AVG, FRAMES, NFFT, RATE
     cfg = PFBConfig(nfft=NFFT, avg=AVG, rate=RATE)
@@ -263,14 +276,25 @@ def measure_channelizers(dev, gen, times) -> None:
         return spans[i % 2], halos[i % 2], (i // 2) % R_BLOCKS
     times["channelizer_at_halo"] = time_ms(lambda: ch.channelizer_at_halo(
         w2, F1, G, *shard(), 1, FRAMES // 2))
+    times["presum"] = time_ms(lambda: presum(w2, spare, block()))
+    times["presum_at"] = time_ms(lambda: presum_at(
+        w2, X, next(rot) % R_BLOCKS, 1, FRAMES))
+    dst = torch.empty((FRAMES, NFFT), dtype=torch.complex64, device=dev)
+    times["copy"] = time_ms(lambda: dst.copy_(block()))
+    wn = PFBConfig(nfft=NOISE_NFFT, avg=AVG, rate=RATE).window(dev).reshape(
+        AVG, NOISE_NFFT)
+    XN = torch.randn((R_BLOCKS * NOISE_FRAMES, NOISE_NFFT),
+                     dtype=torch.complex64, device=dev, generator=gen)
+    times["presum_at_1018"] = time_ms(lambda: presum_at(
+        wn, XN, next(rot) % R_BLOCKS, 1, NOISE_FRAMES))
 
 
 def measure_cells(runs: int) -> dict:
     """E2E_CELLS and DEEP_CELL through this checkout's probe, `runs` rates
     each, with the host's ms a block over those runs (medians): in the
     fetch's start (the gather, the pinned buffer, the copy queued), in
-    its wait for the copy, and in the channelizer's, DDC's, fold's or
-    chain's C launch calls."""
+    its wait for the copy, and in the channelizer's, pre-sum's, DDC's,
+    fold's or chain's C launch calls."""
     import time
 
     import torch
@@ -295,7 +319,8 @@ def measure_cells(runs: int) -> dict:
     timed_launch = timed("launch", launch)
     build.launch = lambda name, *args: (
         timed_launch if name.startswith(("sdr_fold", "sdr_chain",
-                                         "sdr_channelizer", "sdr_ddc"))
+                                         "sdr_channelizer", "sdr_ddc",
+                                         "sdr_presum"))
         else launch)(name, *args)
 
     def counted(*args, **kw):               # the timed runs only

@@ -109,6 +109,8 @@ def _bind(lib) -> None:
     lib.sdr_presum.restype = ci
     lib.sdr_presum_at.argtypes = [vp, vp, vp, ll, ll, ci, ci, ci, ci, vp]
     lib.sdr_presum_at.restype = ci
+    lib.sdr_presum_plan.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+    lib.sdr_presum_plan.restype = ci
     # the channelizer's FFT plan: the twiddle table (device), the radices
     # (a host int array) and their count; then the output and the device
     # buffers of an nfft too large for shared memory (null) and their count

@@ -12,6 +12,12 @@ resident (total_frames, nfft) recording in place, its halo the avg-1
 recording frames before it, wrapped at the loop seam and zero on the
 stream's first block (``valid`` 0).  The DFT after it stays torch
 (``torch.fft.fft``), as the JAX package left it to XLA.
+
+The kernel streams rows: a block owns a strip of columns and a tile of
+``rows`` output rows, a thread one column (two complex bins, 16 bytes,
+where nfft is even and the pointers aligned; else one) and a register
+ring of the last avg rows down its tile (``presum_plan`` mirrors its
+launch plan).
 """
 
 from __future__ import annotations
@@ -20,6 +26,36 @@ import torch
 
 from ..kernels import build
 from .pfb import PFBConfig
+
+
+# csrc/presum.cu's constants: output rows a tile, threads a block, rows
+# whose loads a thread issues at once, the largest avg of the register
+# ring (above it the generic body)
+PRESUM_TILES = dict(rows=32, threads=256, in_flight=2, ring_max=8)
+
+
+def presum_plan(T: int, nfft: int, avg: int, aligned: bool) -> dict:
+    """The pre-sum kernel's launch plan (csrc/presum.cu make_plan): vec,
+    complex bins a thread's column (2, the 16-byte body, where nfft is
+    even and the pointers aligned, ``pointers_aligned``; else 1);
+    threads a block (a strip of columns, whole warps); strips; rows a
+    tile; tiles; ring, the avg of the register ring (0: the generic
+    body).  The grid is (tiles, strips)."""
+    t = PRESUM_TILES
+    vec = 2 if aligned and nfft % 2 == 0 else 1
+    cols = nfft // vec
+    threads = min(t["threads"], -(-cols // 32) * 32)
+    return dict(vec=vec, threads=threads, strips=-(-cols // threads),
+                rows=t["rows"], tiles=-(-T // t["rows"]),
+                ring=avg if avg <= t["ring_max"] else 0)
+
+
+def pointers_aligned(x: int, hist: int, out: int, w: int) -> bool:
+    """Whether the 16-byte body may run (csrc/presum.cu launch): the
+    rows' addresses (block or recording, history, output) 16-byte and
+    the window's 8-byte aligned.  A view of a recording may start on an
+    odd sample."""
+    return x % 16 == 0 and hist % 16 == 0 and out % 16 == 0 and w % 8 == 0
 
 
 def recording_halo(X: torch.Tensor, base: int, lead: int,
