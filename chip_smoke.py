@@ -79,12 +79,21 @@ and exits non-zero at the first phase that fails:
    timed over the same blocks as #4 is; the pre-sum again, and timed,
    at its main path's shape (NOISE at nfft 1018, blocks of 5893 frames,
    the same four blocks of an 8-block recording); the in-kernel chirp
+   lock-in's launch plan in csrc/lockin.cu (``sdr_lockin_chirp_plan``)
+   and ops/lockin_at.py alike for nseg 1..40, 200, 300, ppt 1..64,
+   1000, 19,999-20,001, 25,000 and both bodies; the in-kernel chirp
    lock-in (#18) at config 2 with 6,000,000-sample blocks (300
    segments, the period no multiple of them) from stream positions 0,
-   37,000,000 and 98,000,000 (across the period's end) at >= 90 dB
-   against plain and float64, and fed the chirp itself, every point
-   within 1e-5 of 1; times as in phase 8, rotating over the recording's
-   blocks;
+   12,345 (inside a step), 37,000,000, 98,000,000 (across the period's
+   end) and period - 7,000 (the seam inside a segment), and at ppt
+   19,999 (the 8-byte body) and 25,000 (over a step's length) from
+   12,345 and period - 7,000: the integer phases of its walk exactly
+   the oracle's on both bodies, >= 90 dB against plain and float64, two
+   launches the same bits, and fed the chirp itself every point within
+   1e-5 of 1; the oscillator read straight (ppt 1) over 2,000,000
+   samples across the seam, >= 90 dB against float64; times as in phase
+   8, rotating over the recording's blocks, beside a torch.sum over the
+   same rows;
 11. the device replay through ``run_measurement(source=ReplaySource)``,
    each recording made on the card and saved as a .npy file: the TONES
    comb (8 blocks looped, 20 acquired, ``channelizer_at``) against phase
@@ -139,9 +148,12 @@ and exits non-zero at the first phase that fails:
    against #11; #14 at block_len 4,096,000 against #11 transposed; #3
    at nfft 1000, avg 4, 4,000,000 samples against #1 permuted (and the
    whole block against float64); #19 at
-   config 2 from the stream's start and across the period seam, on the
-   chirp and a down-chirp, against #18 on the same samples, its integer
-   phases exactly the oracle's; each timed, with its bound;
+   config 2 from the stream's start, 12,345, across the period's end
+   and from period - 7,000, on the chirp and a down-chirp, against #18
+   on the same samples (bit-identical), the integer phases of its walk
+   exactly the oracle's, two launches the same bits, fed the chirp every
+   point within 1e-5 of 1, and one sample into its allocation (the
+   8-byte body); each timed, with its bound;
 17. those five through the ops-level entry points that run them, as in
    the JAX package: ``TonesDirectFold.multi_step`` with
    ``time_shards=2`` (#12) and ``rotg=True`` (#13) and
@@ -167,7 +179,9 @@ their deep-FIR rows in ``deep``; the channelizers, #1 and #3-#5, their
 SNR against the float64 PFB over the whole block, ``snr_db``, and the
 host-fed route's time on the same block, ``two_call_ms``: the pre-sum
 kernel #2, then torch.fft; the pre-sums, #2 and #6, a ``copy_`` of the
-bytes they move, ``copy_ms``), each with its bound: the larger of its
+bytes they move, ``copy_ms``; the chirp lock-ins, #18 and #19, a
+torch.sum over the rows they read, ``read_ms``), each with its bound:
+the larger of its
 bytes over 3.35 TB/s and its FP32 operations over 67 TFLOP/s, counted
 from this run's shapes; for the folds and the chain (#11-#15), which run
 on the tensor cores with a three-pass TF32 split, three times their
@@ -238,13 +252,24 @@ QUEUED_RUNS = 5                     # timed passes over the table
 # 0 after the loop seam (its halo the recording's last frames)
 R_BLOCKS = 8
 R_IDX = ((0, 0), (3, 1), (7, 1), (0, 1))
-AT_POSITIONS = (0, 37_000_000, 98_000_000)   # the last crosses the period
-# operations of lockin_at per sample, counted from csrc/lockin.cu's
-# chirp mode: 21 integer and float operations for the phase (the uint32
-# index, its conversion and scaling), ~25 for sincosf (reduction and two
-# polynomials, an FMA counted as 2), 6 for conj(c) * x and 4 for the two
-# profile-weighted sums; all counted at the FP32 peak
-CHIRP_AT_OPS = 56
+# #18's stream positions: the start, inside a step (no step boundary on
+# a segment's edge), interior, across the period's end, and (the seam
+# AT_SEAM_BACK samples into the block's first segment) period - 7,000;
+# the blocks of the recording each reads
+AT_POSITIONS = (0, 12_345, 37_000_000, 98_000_000)
+AT_SEAM_BACK = 7_000
+AT_POSITION_BLOCKS = (0, 1, 3, 7, 5)
+AT_GEOMETRIES = ((19_999, 300), (25_000, 240))   # (ppt, nseg): odd; > length
+AT_OSC = 2_000_000                  # oscillator samples read straight
+# the chirp mode's launch plans compared at nseg x ppt x both bodies
+CHIRP_PLAN_NSEG = tuple(range(1, 41)) + (200, 300)
+CHIRP_PLAN_PPT = tuple(range(1, 65)) + (1000, 19_999, 20_000, 20_001, 25_000)
+# operations a sample of the chirp lock-in's function (#18, #19), its
+# bound's operations term at the FP32 peak: the phase's step (an integer
+# add), th (a conversion, two multiplies), its sine and cosine (one
+# each), conj(c) * x (four multiplies, two adds) and the weighted sum
+# (two multiplies, two adds)
+CHIRP_AT_OPS = 16
 
 # the replay runs: blocks of each looped recording and of its acquisition
 R_TONES = (8, 20)                   # comb, channelizer_at
@@ -281,7 +306,7 @@ NK_CALLS, NK_K = 5, 2               # #12-#14: calls of multi_step, blocks each
 SC_BLOCK = 4_000_000                # #3: tools/perf_fused_channelizer.py:30-31
 SC_FRAMES, SC_BLOCKS = SC_BLOCK // NFFT, 3
 SC_REFUSED_FRAMES = 5893            # #3's entry at nfft R_NFFT (pfb_at's)
-CL_POSITIONS = (0, 98_000_000)      # #19: the start; across the period seam
+CL_POSITIONS = (0, 12_345, 98_000_000)   # #19's, then period - 7,000
 CL_BLOCKS = 30                      # #19's run: past the period (25 blocks)
 
 N_KERNELS = 19                      # the repo's pl.pallas_call sites
@@ -1286,14 +1311,18 @@ def phase_replay_kernels(dev):
     at its main path's own shape, NOISE at nfft 1018 (the pfb_at
     sub-path's blocks of 5893 frames), whose times it reports; #18
     (lockin_at) on blocks of a random recording at config 2 with
-    6,000,000-sample blocks (the period is no multiple of them)."""
+    6,000,000-sample blocks (the period is no multiple of them), from
+    five stream positions and at two other ppt (held_chirp), its
+    oscillator read straight, its launch plan in C and Python alike."""
     import torch
     from gpu_sdr_tpu_torch.engine.planner import plan_blocks
+    from gpu_sdr_tpu_torch.kernels import build
     from gpu_sdr_tpu_torch.ops.channelizer import (
         channelizer, channelizer_at, channelizer_at_plain, channelizer_consts)
-    from gpu_sdr_tpu_torch.ops.chirp import ChirpConfig, chirp_block
+    from gpu_sdr_tpu_torch.ops.chirp import ChirpConfig
     from gpu_sdr_tpu_torch.ops.lockin import lockin_profile
-    from gpu_sdr_tpu_torch.ops.lockin_at import lockin_at, lockin_at_plain
+    from gpu_sdr_tpu_torch.ops.lockin_at import (
+        chirp_plan, lockin_at, lockin_at_plain, pointers_aligned)
     from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
     from gpu_sdr_tpu_torch.ops.presum import (presum_at, presum_at_plain,
                                               recording_halo)
@@ -1414,6 +1443,19 @@ def phase_replay_kernels(dev):
                              plain_ms=pms, library_ms=None, copy_ms=cms, **b)
     del X
 
+    # #18's launch plan in csrc/lockin.cu and in ops/lockin_at.py alike
+    lib, got, n_plans = build.load(), (ctypes.c_int * 3)(), 0
+    for n, q, aligned in itertools.product(CHIRP_PLAN_NSEG, CHIRP_PLAN_PPT,
+                                           (0, 1)):
+        p = chirp_plan(n, q, bool(aligned))
+        check(lib.sdr_lockin_chirp_plan(n, q, aligned, got) == 0 and
+              list(got) == [p["vec"], p["threads"], p["blocks"]],
+              f"sdr_lockin_chirp_plan({n}, {q}, {aligned}) {list(got)} "
+              f"against chirp_plan {p}")
+        n_plans += 1
+    print(f"chirp-mode launch plans: C and Python agree at {n_plans} (nseg, "
+          "ppt, body)")
+
     # #18: config 2 at 6,000,000-sample blocks, 300 segments of 20,000
     ccfg = ChirpConfig.from_params(
         CONFIG2["freq"][0], CONFIG2["chirp_f"][0], C_RATE,
@@ -1422,40 +1464,39 @@ def phase_replay_kernels(dev):
     check(ppt == 20_000 and ccfg.period % AT_BLOCK,
           f"chirp_at geometry {ppt}, {nseg}, period {ccfg.period}")
     wp_np = lockin_profile(ppt)
-    wp, wp64 = torch.from_numpy(wp_np).to(dev), wp_np.astype(np.float64)
+    wp = torch.from_numpy(wp_np).to(dev)
     Xc = torch.randn((R_BLOCKS * nseg, ppt), dtype=torch.complex64,
                      device=dev, generator=gen)
-    for pos, idx in zip(AT_POSITIONS, (0, 3, 7)):
-        tag = f"position {pos}, block {idx}"
-        new, yk = via_kernel("lockin_at", lambda: lockin_at(
-            ccfg, wp, pos, Xc, idx, nseg))
-        yp = lockin_at_plain(ccfg, wp, pos, Xc, idx, nseg)
-        torch.cuda.synchronize(dev)
-        check(new == (pos + AT_BLOCK) % ccfg.period,
-              f"lockin_at [{tag}]: new position {new}")
-        kn, pn = yk.cpu().numpy(), yp.cpu().numpy()
-        x64 = Xc[idx * nseg:(idx + 1) * nseg].cpu().numpy()
-        y64 = (np.conj(chirp_oracle(pos, AT_BLOCK).reshape(nseg, ppt)) *
-               x64) @ wp64
-        check(kn.shape == (nseg,) and np.isfinite(kn).all(),
-              f"lockin_at [{tag}]: shape {kn.shape} or non-finite")
-        s_plain, s_gold = snr_db(pn, kn), snr_db(y64, kn)
-        errs["lockin_at"] = max(errs["lockin_at"],
-                                float(np.abs(kn - pn).max()))
-        print(f"lockin_at [{tag}]: SNR {s_plain:.1f} dB vs plain, "
-              f"{s_gold:.1f} dB vs float64")
-        check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB,
-              f"lockin_at [{tag}] under {SNR_BAR_DB} dB")
-    # fed the chirp itself (across the period seam), every lock-in point
-    # is sum_k w[k] |c|^2 = 1
-    pos = AT_POSITIONS[-1]
-    chirp = chirp_block(ccfg, pos, AT_BLOCK, device=dev)[1].reshape(nseg, ppt)
-    _, yk = via_kernel("lockin_at", lambda: lockin_at(ccfg, wp, pos, chirp,
-                                                      0, nseg))
-    off = float((yk - 1).abs().max())
-    print(f"lockin_at [the chirp from position {pos}]: max |y - 1| {off:.2e}")
-    check(off <= C_TOL, f"lockin_at on the chirp: |y - 1| {off:.2e}")
-    del chirp
+    positions = AT_POSITIONS + (ccfg.period - AT_SEAM_BACK,)
+    for pos, idx in zip(positions, AT_POSITION_BLOCKS):
+        errs["lockin_at"] = max(errs["lockin_at"], held_chirp(
+            f"lockin_at [position {pos}, block {idx}]", ccfg, wp, pos, Xc,
+            idx, nseg, dev))
+    # other geometries, each from inside a step and across the seam: an
+    # odd ppt (the 8-byte body) and a ppt over the step's length
+    for gppt, gnseg in AT_GEOMETRIES:
+        wg = torch.from_numpy(lockin_profile(gppt)).to(dev)
+        Xg = torch.randn((2 * gnseg, gppt), dtype=torch.complex64,
+                         device=dev, generator=gen)
+        body = chirp_plan(gnseg, gppt, pointers_aligned(
+            Xg[gnseg:].data_ptr(), wg.data_ptr()))["vec"]
+        check(body == (1 if gppt % 2 else 2), f"lockin_at ppt {gppt}: body "
+              f"{body}")
+        for pos in (AT_POSITIONS[1], ccfg.period - AT_SEAM_BACK):
+            held_chirp(f"lockin_at [ppt {gppt} ({8 * body}-byte loads), "
+                       f"position {pos}, block 1]", ccfg, wg, pos, Xg, 1, gnseg,
+                       dev)
+        del Xg
+    # the oscillator read straight (ppt 1, a unit profile, a signal of
+    # ones: y = conj(c)) across the seam, against float64
+    o_pos, ones = ccfg.period - AT_OSC // 2, Xc.new_ones((AT_OSC, 1))
+    _, yo = via_kernel("lockin_at", lambda: lockin_at(
+        ccfg, wp.new_ones(1), o_pos, ones, 0, AT_OSC))
+    s_osc = snr_db(np.conj(chirp_oracle(o_pos, AT_OSC)), yo.cpu().numpy())
+    print(f"lockin_at [the oscillator read straight, {AT_OSC} samples from "
+          f"position {o_pos}]: {s_osc:.1f} dB vs float64")
+    check(s_osc >= SNR_BAR_DB, f"lockin_at oscillator {s_osc:.1f} dB")
+    del ones, yo
     rot = itertools.count()
 
     def at_args():
@@ -1464,13 +1505,78 @@ def phase_replay_kernels(dev):
 
     ms, pms = (time_ms_queued(lambda: f(*at_args()), 2 * R_BLOCKS)
                for f in (lockin_at, lockin_at_plain))
+    rms = time_ms_queued(lambda: torch.sum(Xc[(next(rot) % R_BLOCKS) * nseg:][
+        :nseg].view(torch.float32), dim=1), 2 * R_BLOCKS)
     b = bound(nseg * ppt * 8 + nbytes(wp) + nseg * 8,
               CHIRP_AT_OPS * nseg * ppt)
     print(f"lockin_at {nseg}x{ppt}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+          f"torch.sum over the same rows {rms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {CHIRP_AT_OPS} "
+          "operations a sample)")
     rows["lockin_at"] = dict(max_abs_err=errs["lockin_at"], ms=ms,
-                             plain_ms=pms, library_ms=None, **b)
+                             plain_ms=pms, library_ms=None, read_ms=rms,
+                             oscillator_snr_db=s_osc, **b)
     return rows
+
+
+def walk_exact(ccfg, pos: int, nseg: int, ppt: int, dev, down=None) -> bool:
+    """Whether the integer phases of chirp mode's walk on the card
+    (ops/lockin_at.walk_phases: csrc/lockin.cu's walk, both bodies where
+    ppt is even) equal ops/chirp.chirp_phase_index's exactly, and, for
+    config 2 (`down` not None), those equal the numpy oracle's."""
+    import torch
+    from gpu_sdr_tpu_torch.ops.chirp import chirp_phase_index
+    from gpu_sdr_tpu_torch.ops.lockin_at import walk_phases
+    ref = chirp_phase_index(ccfg, pos, torch.arange(
+        nseg * ppt, dtype=torch.int64, device=dev))
+    ok = all(torch.equal(walk_phases(ccfg, pos, nseg, ppt, vec, dev), ref)
+             for vec in ((2, 1) if ppt % 2 == 0 else (1,)))
+    if down is not None:
+        ok &= np.array_equal(ref.cpu().numpy(), chirp_index_oracle(
+            pos, nseg * ppt, down).astype(np.int64))
+    return ok
+
+
+def held_chirp(tag: str, ccfg, wp, pos: int, X, idx: int, nseg: int,
+               dev) -> float:
+    """#18 (lockin_at) on block `idx` of the recording X from stream
+    position `pos` of the config-2 chirp ccfg: its walk's integer phases
+    exactly the oracle's, >= 90 dB against plain and float64, two
+    launches the same bits, and fed the chirp itself every point within
+    C_TOL of 1; the max |error| against plain."""
+    import torch
+    from gpu_sdr_tpu_torch.ops.chirp import chirp_block
+    from gpu_sdr_tpu_torch.ops.lockin_at import lockin_at, lockin_at_plain
+    ppt = wp.shape[0]
+    new, yk = via_kernel("lockin_at", lambda: lockin_at(
+        ccfg, wp, pos, X, idx, nseg))
+    again = via_kernel("lockin_at", lambda: lockin_at(
+        ccfg, wp, pos, X, idx, nseg))[1]
+    yp = lockin_at_plain(ccfg, wp, pos, X, idx, nseg)
+    torch.cuda.synchronize(dev)
+    check(new == (pos + nseg * ppt) % ccfg.period,
+          f"{tag}: new position {new}")
+    kn, pn = yk.cpu().numpy(), yp.cpu().numpy()
+    check(kn.shape == (nseg,) and np.isfinite(kn).all(),
+          f"{tag}: shape {kn.shape} or non-finite")
+    x64 = X[idx * nseg:(idx + 1) * nseg].cpu().numpy()
+    y64 = (np.conj(chirp_oracle(pos, nseg * ppt).reshape(nseg, ppt)) *
+           x64) @ wp.cpu().numpy().astype(np.float64)
+    s_plain, s_gold = snr_db(pn, kn), snr_db(y64, kn)
+    exact = walk_exact(ccfg, pos, nseg, ppt, dev, down=False)
+    same = torch.equal(yk, again)
+    chirp = chirp_block(ccfg, pos, nseg * ppt, device=dev)[1].reshape(
+        nseg, ppt)
+    off = float((via_kernel("lockin_at", lambda: lockin_at(
+        ccfg, wp, pos, chirp, 0, nseg))[1] - 1).abs().max())
+    print(f"{tag}: SNR {s_plain:.1f} dB vs plain, {s_gold:.1f} dB vs "
+          f"float64; integer phases " + ("exactly" if exact else "NOT") +
+          " the oracle's; two launches " + ("the same" if same else
+                                           "DIFFERENT") +
+          f" bits; on the chirp max |y - 1| {off:.2e}")
+    check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB and exact and
+          same and off <= C_TOL, f"{tag} failed")
+    return float(np.abs(kn - pn).max())
 
 
 def comb_at(freqs, ampl, a0: int, n: int) -> np.ndarray:
@@ -2431,24 +2537,27 @@ def phase_new_kernels(dev):
     #14 (fold_t) at block_len 4,096,000 against #11 transposed; #3
     (channelizer_scrambled) at nfft 1000, avg 4, 4,000,000 samples
     against #1's stream mode permuted; #19 (chirp_lockin) at config 2
-    from the stream's start and across the period seam, on the chirp and
-    on a down-chirp, against #18 (lockin_at) on the same samples, its
-    integer phases against the oracle's exactly.  Times from CUDA events
-    (#19: queued over rotating blocks), each with its bound and, for the
-    folds, the matmul yardstick."""
+    from the stream's start, inside a step, across the period's end and
+    from period - 7,000, on the chirp and on a down-chirp, against #18
+    (lockin_at) on the same samples, the integer phases of its walk
+    against the oracle's exactly, two launches the same bits, and one
+    sample into its allocation (the 8-byte body).  Times from CUDA events
+    (#19: queued over rotating blocks, beside a torch.sum over the same
+    rows), each with its bound and, for the folds, the matmul
+    yardstick."""
     import torch
     from gpu_sdr_tpu_torch.ops import ddc
     from gpu_sdr_tpu_torch.ops.channelizer import (
         best_split, channelizer, channelizer_consts, channelizer_scrambled,
         channelizer_scrambled_plain, scramble_index, scrambled)
-    from gpu_sdr_tpu_torch.ops.chirp import (ChirpConfig, chirp_block,
-                                             chirp_phase_index)
+    from gpu_sdr_tpu_torch.ops.chirp import ChirpConfig, chirp_block
     from gpu_sdr_tpu_torch.ops.fold import (
         TonesDirectFold, TonesDirectFoldT, fold, fold_rotg, fold_rotg_plain,
         fold_streamed, fold_streamed_plain, fold_t, fold_t_plain)
     from gpu_sdr_tpu_torch.ops.lockin import lockin_profile
     from gpu_sdr_tpu_torch.ops.lockin_at import (
-        fused_chirp_lockin, fused_chirp_lockin_plain, lockin_at)
+        chirp_plan, fused_chirp_lockin, fused_chirp_lockin_plain, lockin_at,
+        pointers_aligned)
     from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
     rows = {}
     cfg = ddc.DirectDDCConfig(D_RATE, D_DECIM, D_AVG, tuple(CONFIG3),
@@ -2580,8 +2689,9 @@ def phase_new_kernels(dev):
                                          **b)
     del x, k, p, nat
 
-    # #19 at config 2: a random block from the stream's start and across
-    # the period seam, for the chirp and its reversed sweep
+    # #19 at config 2: a random block from the stream's start, inside a
+    # step, across the period's end and from period - 7,000 (the seam
+    # inside a segment), for the chirp and its reversed sweep
     steps, chirp_t = CONFIG2["swipe_s"][0], CONFIG2["chirp_t"][0]
     f_lo, f_hi = CONFIG2["freq"][0], CONFIG2["chirp_f"][0]
     wp_np = lockin_profile(20_000)
@@ -2596,21 +2706,24 @@ def phase_new_kernels(dev):
                                        chirp_t)
         ppt, nseg = ccfg.length, C_BLOCK // ccfg.length
         check((ppt, nseg) == (20_000, C_ROWS), f"chirp geometry {ppt}, {nseg}")
-        for pos, blk in zip(CL_POSITIONS, (0, 5)):
+        positions = CL_POSITIONS + (ccfg.period - AT_SEAM_BACK,)
+        for pos, blk in zip(positions, (0, 3, 5, 7)):
             tag = (f"chirp_lockin [{'down-chirp' if down else 'chirp'}, "
                    f"position {pos}]")
             x = Xc[blk]
             new, yk = via_kernel("chirp_lockin", lambda: fused_chirp_lockin(
                 ccfg, wp, pos, x))
+            again = via_kernel("chirp_lockin", lambda: fused_chirp_lockin(
+                ccfg, wp, pos, x))[1]
             pnew, yp = fused_chirp_lockin_plain(ccfg, wp, pos, x)
             y18 = via_kernel("lockin_at", lambda: lockin_at(
                 ccfg, wp, pos, x.view(nseg, ppt), 0, nseg))[1]
-            idx = chirp_phase_index(ccfg, pos, torch.arange(
-                C_BLOCK, dtype=torch.int64, device=dev))
-            exact = np.array_equal(idx.cpu().numpy(), chirp_index_oracle(
-                pos, C_BLOCK, down).astype(np.int64))
+            exact = walk_exact(ccfg, pos, nseg, ppt, dev, down=down)
             y64 = (np.conj(chirp_oracle(pos, C_BLOCK, down)).reshape(
                 nseg, ppt) * x.cpu().numpy().reshape(nseg, ppt)) @ wp64
+            chirp = chirp_block(ccfg, pos, C_BLOCK, device=dev)[1]
+            off = float((via_kernel("chirp_lockin", lambda: fused_chirp_lockin(
+                ccfg, wp, pos, chirp))[1] - 1).abs().max())
             torch.cuda.synchronize(dev)
             kn, pn = yk.cpu().numpy(), yp.cpu().numpy()
             check(kn.shape == (nseg,) and np.isfinite(kn).all(),
@@ -2622,19 +2735,26 @@ def phase_new_kernels(dev):
                   f"float64, " + ("bit-identical to" if same else "differs "
                                   "from") + " #18 on the same samples; "
                   "integer phases " + ("exactly" if exact else "NOT") +
-                  " the oracle's")
+                  " the oracle's; two launches " +
+                  ("the same" if torch.equal(yk, again) else "DIFFERENT") +
+                  f" bits; on the chirp max |y - 1| {off:.2e}")
             check(new == pnew == (pos + C_BLOCK) % ccfg.period,
                   f"{tag}: new position {new}")
             check(s_plain >= SNR_BAR_DB and s_gold >= SNR_BAR_DB and same and
-                  exact, f"{tag} failed")
-    # fed the chirp itself across the seam, every point is 1
-    pos = CL_POSITIONS[-1]
-    chirp = chirp_block(ccfg, pos, C_BLOCK, device=dev)[1]
-    off = float((via_kernel("chirp_lockin", lambda: fused_chirp_lockin(
-        ccfg, wp, pos, chirp))[1] - 1).abs().max())
-    print(f"chirp_lockin [the down-chirp from position {pos}]: max |y - 1| "
-          f"{off:.2e}")
-    check(off <= C_TOL, f"chirp_lockin on the chirp: |y - 1| {off:.2e}")
+                  exact and torch.equal(yk, again) and off <= C_TOL,
+                  f"{tag} failed")
+    # a block one sample into its allocation: the 8-byte body
+    x = Xc.view(-1)[1:1 + C_BLOCK]
+    check(chirp_plan(nseg, ppt, pointers_aligned(x.data_ptr(), wp.data_ptr(
+    )))["vec"] == 1, "chirp_lockin one sample in: not the 8-byte body")
+    pos = AT_POSITIONS[1]
+    yk = via_kernel("chirp_lockin", lambda: fused_chirp_lockin(
+        ccfg, wp, pos, x))[1]
+    s_plain = snr_db(fused_chirp_lockin_plain(ccfg, wp, pos, x)[1].cpu()
+                     .numpy(), yk.cpu().numpy())
+    print(f"chirp_lockin [down-chirp, position {pos}, one sample in (8-byte "
+          f"loads)]: SNR {s_plain:.1f} dB vs plain")
+    check(s_plain >= SNR_BAR_DB, f"chirp_lockin one sample in {s_plain:.1f}")
     rot = itertools.count()
 
     def blk_args():
@@ -2642,11 +2762,14 @@ def phase_new_kernels(dev):
         return ccfg, wp, (i * C_BLOCK) % ccfg.period, Xc[i % R_BLOCKS]
     ms, pms = (time_ms_queued(lambda: fn(*blk_args()), 2 * R_BLOCKS)
                for fn in (fused_chirp_lockin, fused_chirp_lockin_plain))
+    rms = time_ms_queued(lambda: torch.sum(Xc[next(rot) % R_BLOCKS].view(
+        torch.float32).view(nseg, 2 * ppt), dim=1), 2 * R_BLOCKS)
     b = bound(nbytes(Xc[0], wp) + nseg * 8, CHIRP_AT_OPS * C_BLOCK)
     print(f"chirp_lockin {nseg}x{ppt}: kernel {ms:.4f} ms, plain {pms:.4f} "
-          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+          f"ms, torch.sum over the same rows {rms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     rows["chirp_lockin"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                library_ms=None, **b)
+                                library_ms=None, read_ms=rms, **b)
     return rows
 
 

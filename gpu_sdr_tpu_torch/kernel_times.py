@@ -1,9 +1,9 @@
 """Device times of the channelizer (#1 const and stream, #3, #4, #5),
 pre-sum (#2, #6), DDC (#7 in channel mode at config 3 and at a deep FIR,
-#7 in row mode at config 1 and at a deep FIR, #8, #10), fold (#11-#14)
-and chain (#15) kernels at the main path's shapes, and of the
-yardsticks beside them, for comparing two checkouts of the port on one
-card.
+#7 in row mode at config 1 and at a deep FIR, #8, #10), fold (#11-#14),
+chain (#15) and lock-in (#16-#19) kernels at the main path's shapes,
+and of the yardsticks beside them, for comparing two checkouts of the
+port on one card.
 
     python -m gpu_sdr_tpu_torch.kernel_times
         one JSON line: the card, ptxas's register and spill lines for the
@@ -20,7 +20,8 @@ card.
         DIRECT config 3 fused (#11) unsharded and on a (2, 1) mesh,
         DIRECT config 3 replay (#8)
         unsharded and on a (2, 1) mesh (#10), DIRECT config 1 fused (#9,
-        the DDC's row mode), and config 3 host-fed at
+        the DDC's row mode), CHIRP config 2 replay at 6M blocks (#18,
+        ``chirp_at``), and config 3 host-fed at
         pf_average 400 (#7 at an 8000-tap FIR, ``DEEP_CELL``); each
         cell's RUNS rates (default 10; host clock) and profiled run
         (device busy share, device ms per block) from each checkout's own
@@ -32,7 +33,8 @@ Only wrappers that the port has had since its last five kernels
 (``channelizer``, ``channelizer_scrambled``, ``channelizer_at``,
 ``channelizer_at_halo``, ``presum``, ``presum_at``, ``ddc_fused``,
 ``ReplayDDC.step``, ``ShardedReplayDDC.local``, ``fold``,
-``fold_streamed``, ``fold_rotg``, ``fold_t`` with one block, ``chain``)
+``fold_streamed``, ``fold_rotg``, ``fold_t`` with one block, ``chain``,
+``lockin_self``, ``lockin_table``, ``lockin_at``, ``fused_chirp_lockin``)
 are called, so an older checkout runs this file too.  Shapes: the TONES
 receiver (nfft 1000, avg 4) for the channelizers, over the blocks of an
 8-block (384 MB) recording in turn so that each call reads its rows
@@ -59,7 +61,15 @@ materialized (40,000, 400) window rows by Hmod at config 3
 fold's (40,000, 100) rotated rows by G2 (as
 ``chip_smoke.fold_library_ms`` forms it; ``fold_matmul``) and of the
 chain's stacked (20,000, 400) rows by G reshaped (400, 100)
-(``chain_matmul``), cuBLAS in FP32.
+(``chain_matmul``), cuBLAS in FP32.  The lock-ins at config 2 (ppt
+20,000): #16 (``lockin_table_self``) and #17 (``lockin_table``) over
+the blocks of the real one-period table (200 segments, 800 MB) in turn,
+as the smoke times them; #18 (``lockin_at``) at the 6,000,000-sample
+blocks of the ``chirp_at`` replay (300 segments) over an 8-block (384
+MB) recording in turn, at rotating stream positions; #19
+(``chirp_lockin``) on 4,000,000-sample blocks of that recording; beside
+them ``read``, a torch.sum over the rows of one 6M-sample block (#18's
+48 MB read, no chirp formed).
 """
 
 from __future__ import annotations
@@ -76,7 +86,8 @@ E2E_CELLS = ("TONES fused", "TONES host-fed", "TONES replay",
              "TONES replay on (1, 1)",
              "TONES replay on (2, 1)", "DIRECT config 3 fused",
              "DIRECT config 3 fused on (2, 1)", "DIRECT config 3 replay",
-             "DIRECT config 3 replay on (2, 1)", "DIRECT config 1 fused")
+             "DIRECT config 3 replay on (2, 1)", "DIRECT config 1 fused",
+             "CHIRP config 2 replay, 6M blocks")
 DEEP_CELL = "DIRECT config 3 host-fed, pf_average 400"
 DEEP_CELL_BLOCKS = 10
 R_BLOCKS = 8               # blocks of the channelizers' and #8's recordings
@@ -134,6 +145,7 @@ def measure() -> dict:
              for line in build.build_log.splitlines()
              if ("ddc" in line or "chain" in line or "fold" in line or
                  "channelizer" in line or "presum" in line or
+                 "lockin" in line or
                  "registers" in line or "spill" in line or
                  "smem" in line) and
              "info" in line and "Function properties" not in line]
@@ -203,6 +215,7 @@ def measure() -> dict:
     Gr = cargs[2].reshape(-1, ch.Cp)
     times["chain_matmul"] = time_ms(lambda: torch.matmul(Ac, Gr))
     measure_channelizers(dev, gen, times)
+    measure_lockins(dev, gen, times)
     return dict(card=card(), torch=torch.__version__, ptxas=ptxas,
                 ms={k: dict(median=float(np.median(v)), min=float(min(v)),
                             max=float(max(v))) for k, v in times.items()})
@@ -289,12 +302,62 @@ def measure_channelizers(dev, gen, times) -> None:
         wn, XN, next(rot) % R_BLOCKS, 1, NOISE_FRAMES))
 
 
+def measure_lockins(dev, gen, times) -> None:
+    """#16 and #17 over the blocks of config 2's one-period table, #18 and
+    #19 over the blocks of an R_BLOCKS-block recording at rotating stream
+    positions, and ``read`` (a torch.sum over the rows of one of its
+    6M-sample blocks) into `times`."""
+    import itertools
+
+    import torch
+    from gpu_sdr_tpu_torch.ops.chirp import ChirpConfig, chirp_period_table
+    from gpu_sdr_tpu_torch.ops.lockin import lockin_profile
+    from gpu_sdr_tpu_torch.ops.lockin_at import fused_chirp_lockin, lockin_at
+    from gpu_sdr_tpu_torch.ops.lockin_table import lockin_self, lockin_table
+    from gpu_sdr_tpu_torch.probe import AT_BLOCK, C_BLOCK, C_RATE, CONFIG2
+    cfg = ChirpConfig.from_params(
+        CONFIG2["freq"][0], CONFIG2["chirp_f"][0], C_RATE,
+        CONFIG2["swipe_s"][0], CONFIG2["chirp_t"][0])
+    ppt = cfg.length
+    nseg, nblk = C_BLOCK // ppt, cfg.period // C_BLOCK
+    w = torch.from_numpy(lockin_profile(ppt)).to(dev)
+    table = chirp_period_table(cfg, C_BLOCK, ppt, device=dev)
+    rot = itertools.count()
+
+    def blk():
+        o = next(rot) % nblk
+        return o, (o + nblk // 2) % nblk
+    times["lockin_table_self"] = time_ms(
+        lambda: lockin_self(w, table, blk()[0], nseg))
+    times["lockin_table"] = time_ms(
+        lambda: lockin_table(w, table, table, *blk(), nseg))
+    del table
+    at_nseg = AT_BLOCK // ppt
+    X = torch.randn((R_BLOCKS * at_nseg, ppt), dtype=torch.complex64,
+                    device=dev, generator=gen)
+    Y = X.view(R_BLOCKS, AT_BLOCK)[:, :C_BLOCK]
+
+    def at():
+        i = next(rot)
+        return (cfg, w, (i * AT_BLOCK) % cfg.period, X, i % R_BLOCKS,
+                at_nseg)
+
+    def streamed():
+        i = next(rot)
+        return cfg, w, (i * C_BLOCK) % cfg.period, Y[i % R_BLOCKS]
+    times["lockin_at"] = time_ms(lambda: lockin_at(*at()))
+    times["chirp_lockin"] = time_ms(lambda: fused_chirp_lockin(*streamed()))
+    times["read"] = time_ms(lambda: torch.sum(X[
+        (next(rot) % R_BLOCKS) * at_nseg:][:at_nseg].view(torch.float32),
+        dim=1))
+
+
 def measure_cells(runs: int) -> dict:
     """E2E_CELLS and DEEP_CELL through this checkout's probe, `runs` rates
     each, with the host's ms a block over those runs (medians): in the
     fetch's start (the gather, the pinned buffer, the copy queued), in
     its wait for the copy, and in the channelizer's, pre-sum's, DDC's,
-    fold's or chain's C launch calls."""
+    fold's, chain's or lock-in's C launch calls."""
     import time
 
     import torch
@@ -320,7 +383,7 @@ def measure_cells(runs: int) -> dict:
     build.launch = lambda name, *args: (
         timed_launch if name.startswith(("sdr_fold", "sdr_chain",
                                          "sdr_channelizer", "sdr_ddc",
-                                         "sdr_presum"))
+                                         "sdr_presum", "sdr_lockin"))
         else launch)(name, *args)
 
     def counted(*args, **kw):               # the timed runs only

@@ -155,6 +155,11 @@ def _bind(lib) -> None:
     lib.sdr_lockin_at.argtypes = [vp, vp, vp, ll, ci, ci, cu, cu, cu, cu, cu,
                                   fl, fl, vp]
     lib.sdr_lockin_at.restype = ci
+    lib.sdr_lockin_chirp_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.sdr_lockin_chirp_plan.restype = ci
+    lib.sdr_lockin_chirp_phases.argtypes = [vp, ci, ci, ci, cu, cu, cu, cu,
+                                            cu, vp]
+    lib.sdr_lockin_chirp_phases.restype = ci
     lib.sdr_error_string.argtypes = [ci]
     lib.sdr_error_string.restype = ctypes.c_char_p
 

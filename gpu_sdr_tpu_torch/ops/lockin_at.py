@@ -23,6 +23,12 @@ x viewed as (nseg, ppt) rows at row offset 0.  Its plain version is the
 JAX package's XLA route, chirp_demod_block then lockin_decimate.  No
 engine path takes it, as in the JAX package; the JAX kernel's 8-segment
 tile has no counterpart (ROADMAP Queue 3, divergence 20).
+
+The kernel gives each segment one block, a thread walking its columns
+with the phase as an exact uint32 recurrence, two samples a 16-byte
+load where ppt is even and the pointers aligned (``chirp_plan`` mirrors
+its launch plan; ``walk_phases`` reads the integer phases its walk
+gives).
 """
 
 from __future__ import annotations
@@ -33,6 +39,27 @@ from ..kernels import build
 from . import chirp as chirp_ops
 from .chirp import M32, ChirpConfig
 from .lockin import lockin_decimate, profile_sum
+
+# csrc/lockin.cu's chirp-mode constants: threads a block, column vectors
+# whose loads a thread issues at once
+CHIRP_TILES = dict(threads=256, unroll=4)
+
+
+def chirp_plan(nseg: int, ppt: int, aligned: bool) -> dict:
+    """Chirp mode's launch plan (csrc/lockin.cu make_chirp_plan): vec,
+    samples a column vector (2, the 16-byte body, where ppt is even and
+    the pointers aligned, ``pointers_aligned``; else 1); threads a
+    block; blocks, the grid, one a segment.  A thread takes its
+    segment's column vectors j, j + threads, ... of the row's ppt //
+    vec."""
+    vec = 2 if aligned and ppt % 2 == 0 else 1
+    return dict(vec=vec, threads=CHIRP_TILES["threads"], blocks=nseg)
+
+
+def pointers_aligned(x: int, w: int) -> bool:
+    """Whether the 16-byte body may run (csrc/lockin.cu sdr_lockin_at):
+    the block's first row 16-byte and the profile 8-byte aligned."""
+    return x % 16 == 0 and w % 8 == 0
 
 
 def lockin_at_plain(cfg: ChirpConfig, profile: torch.Tensor, last: int,
@@ -125,3 +152,22 @@ def fused_chirp_lockin(cfg: ChirpConfig, profile: torch.Tensor, last: int,
 
 fused_chirp_lockin.launches = 0
 pallas_chirp_lockin = fused_chirp_lockin
+
+
+def walk_phases(cfg: ChirpConfig, last: int, nseg: int, ppt: int, vec: int,
+                device) -> torch.Tensor:
+    """The int32 phases (as int64, (nseg * ppt,)) that chirp mode's walk
+    gives nseg segments of ppt from stream position `last` on the body
+    `vec` (2: the 16-byte body, where ppt is even): the kernel's walk
+    (csrc/lockin.cu sdr_lockin_chirp_phases), for checking it against
+    ``chirp_phase_index`` exactly.  It runs only on a CUDA device: any
+    other raises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"walk_phases: the kernel's walk runs on a CUDA "
+                         f"device, not {device}")
+    out = torch.empty(nseg * ppt, dtype=torch.int32, device=device)
+    build.launch("sdr_lockin_chirp_phases", device, out.data_ptr(), nseg,
+                 ppt, vec, cfg.period, cfg.length, cfg.chirpness & M32,
+                 cfg.f0 & M32, int(last) % cfg.period)
+    return out.to(torch.int64)
