@@ -164,16 +164,37 @@ and exits non-zero at the first phase that fails:
    through the pre-sum kernel #2; ``fused_chirp_lockin`` (#19) over 30 blocks of the config-2
    chirp made on the card, every point within 1e-5 of 1.
 
-Phases 4, 5, 7, 9, 11, 13, 15 and 17 are the main path.  Their CallbackSink checks rows
-::97 of every packet (finite; PFB tones within 1% of their amplitude;
-DIRECT rows within 2.5% of the TX amplitude, the sum of the other tones'
-leakage through the 400-tap FIR's stopband at config 3, and each
-channel's mean over the rows within 1%; every CHIRP row) and drops the
+13b. two front ends, the dispatch plan and checkpoints: BASELINE config
+   5 (phase 4's configuration on front ends A and B, B at half the
+   amplitude, 100 blocks each) through ``run_measurement``:
+   ``dual_fused:channelizer_wavetable`` on both, exactly 2 x 100
+   channelizer launches and no other, packets A0, B0, A1, B1, ..., each
+   front end's first 3 blocks bit-identical to its ``FusedLoopback``
+   alone, B's amplitudes half A's, its rate per front end and in total;
+   dual config 3 (``fold_kernel``, B's comb 250 kHz up, 20 blocks) bit
+   for bit against each chain alone; ``dual_sharded_fused`` at config
+   5's widths on a (2, 1) mesh (20 blocks) against the unsharded run at
+   >= 90 dB; the sequential paths: B's blocks half A's (two
+   ``fused_loopback`` entries and plan_dual's warning) and an ideal
+   channel (two ``host_pipeline`` entries, no warning); a TONES
+   host-fed (#2), config 3 host-fed (#7) and TONES fused (#1) stream
+   saved after 2 blocks (``engine.save_state``), restored into a fresh
+   template (``load_state``, its tensors on the card) and continued 2
+   blocks bit-identically.  Every ``run_measurement`` of the smoke, in
+   every phase, is held against ``engine/dispatch.plan_dispatch``.
+
+Phases 4, 5, 7, 9, 11, 13, 13b, 15 and 17 are the main path.  Their
+CallbackSink checks rows ::97 of every packet (finite; PFB tones within
+1% of their amplitude; DIRECT rows within 2.5% of the TX amplitude, the
+sum of the other tones' leakage through the 400-tap FIR's stopband at
+config 3, and each channel's mean over the rows within 1%; every CHIRP
+row) and drops the
 packet, and their rates are host-clock Msamples/s from the sink's start
 to its end, after a warm-up of each branch.  Every kernel launch
 counter is set to 0 just before each run and read just after it.
 The line before the last is a JSON object with one entry per kernel,
-all 19 (the channelizer's times are const-frame mode, the main path's;
+all 19 (the channelizer's times are const-frame mode, the main path's,
+its ``config5_launches`` those of phase 13b's config-5 run;
 its ``stream_*`` fields are stream mode; the DDC-family kernels carry
 their deep-FIR rows in ``deep``; the channelizers, #1 and #3-#5, their
 SNR against the float64 PFB over the whole block, ``snr_db``, and the
@@ -215,7 +236,8 @@ try:    # the main path's configurations (gpu_sdr_tpu_torch/probe.py)
     from gpu_sdr_tpu_torch.probe import (
         AT_BLOCK, AVG, BLOCK, C_BLOCK, C_RATE, CONFIG1, CONFIG2, CONFIG3,
         D_AVG, D_BLOCK, D_DECIM, D_RATE, FRAMES, NFFT, QCOMB, RATE,
-        chirp6m_params, chirp_params, direct_params, loopback_params,
+        chirp6m_params, chirp_params, config5_params, direct_params,
+        loopback_params,
         receiver_only, save_recording, tx_recording)
 except ImportError as e:
     print(f"chip_smoke: the port is not beside this script: {e}",
@@ -223,6 +245,12 @@ except ImportError as e:
     sys.exit(1)
 
 FUSED_BLOCKS, HOST_BLOCKS = 100, 20
+DUAL_BLOCKS = 100                   # config 5: blocks a front end
+DUAL_SHORT = 20                     # dual config 3, dual_sharded_fused
+DUAL_EXACT = 3                      # blocks held bit for bit, one chain
+SEQ_BLOCKS = 4                      # the sequential paths' runs
+RESUME_BLOCKS = (2, 2)              # blocks before and after a checkpoint
+CONFIG3_B = [f + 250_000 for f in CONFIG3]      # dual config 3's B comb
 WARMUP_BLOCKS = 3
 ROWS = slice(0, None, 97)   # the rows of each packet that are checked
 SNR_BAR_DB = 90.0
@@ -492,14 +520,19 @@ def ddc_snr64(name: str, k, hmod, ramp, phase, W: int, M: int, f: int,
     return snr64(name, k, ddc_rows_plain, hmod, ramp, phase, W, M, f, E)
 
 
-def phase_card():
-    import torch
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_card():
+    import torch
+    print(card_name())
     cap = torch.cuda.get_device_capability(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, capability {cap}, "
@@ -731,11 +764,12 @@ def phase_presum_cases(dev):
 
 class PacketCheck:
     """The callback of the main path's CallbackSink: checks rows ::97 of
-    every packet as it arrives (finite, tone amplitudes within 1%) and
-    keeps those rows of the first `keep` packets; the packet is dropped."""
+    every packet as it arrives (finite, tone amplitudes within 1% of
+    `ampl`) and keeps those rows of the first `keep` packets; the packet
+    is dropped."""
 
-    def __init__(self, rows: int, keep: int = 0):
-        self.rows, self.keep = rows, keep
+    def __init__(self, rows: int, keep: int = 0, ampl: float = 1.0 / NFFT):
+        self.rows, self.keep, self.ampl = rows, keep, ampl
         self.kept, self.n = [], 0
 
     def __call__(self, meta, d):
@@ -745,21 +779,30 @@ class PacketCheck:
         sub = d[ROWS]
         check(bool(np.isfinite(sub).all()), f"packet {self.n}: non-finite")
         amp = np.abs(sub[1:] if self.n == 0 else sub)   # row 0: startup
-        check(bool(np.all(np.abs(amp * NFFT - 1.0) <= 1e-2)),
+        check(bool(np.all(np.abs(amp / self.ampl - 1.0) <= 1e-2)),
               f"packet {self.n}: tone amplitude off by more than 1%")
         if self.n < self.keep:
             self.kept.append(sub.copy())
         self.n += 1
 
 
+PLAN_CHECKS = []                    # each run_measurement's planned paths
+
+
 def run_path(dev, params, channel, pkt, n_blocks, block, channels,
-             source=None, mesh=None):
+             source=None, mesh=None, sinks=()):
     """One run_measurement (fed from `source` when given, on `mesh` when
-    given) with `pkt` as the CallbackSink's check: (pkt, dispatch, Msps
-    from the sink's start to its end, seconds with set-up)."""
+    given) with `pkt` as the CallbackSink's check, beside `sinks`: (pkt,
+    dispatch, Msps from the first sink start to the last end over
+    n_blocks blocks of `block` samples, seconds with set-up).  The
+    dispatch must be engine/dispatch.plan_dispatch's, asked just
+    before."""
     from gpu_sdr_tpu_torch import measure
+    from gpu_sdr_tpu_torch.engine.dispatch import plan_dispatch
     from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
     stamps = []
+    plan = tuple(d.key() for d in plan_dispatch(
+        params, source=source, channel=channel, mesh=mesh))
 
     class TimedSink(CallbackSink):
         def on_start(self, n_channels, expected_rows):
@@ -771,11 +814,14 @@ def run_path(dev, params, channel, pkt, n_blocks, block, channels,
 
     t0 = time.perf_counter()
     measure.run_measurement(params, channel=channel, source=source,
-                            extra_sinks=[TimedSink(pkt)], device=dev,
-                            mesh=mesh)
+                            extra_sinks=[TimedSink(pkt), *sinks],
+                            device=dev, mesh=mesh)
     wall = time.perf_counter() - t0
+    check(measure.last_dispatch() == plan, f"dispatch "
+          f"{measure.last_dispatch()}, planned {plan}")
+    PLAN_CHECKS.append(plan)
     check(pkt.n == n_blocks, f"{pkt.n} of {n_blocks} packets")
-    msps = n_blocks * block / (stamps[1] - stamps[0]) / 1e6
+    msps = n_blocks * block / (stamps[-1] - stamps[0]) / 1e6
     return pkt, measure.last_dispatch(), msps, wall
 
 
@@ -2273,6 +2319,281 @@ def phase_sharded_main_path(dev, meshes=None):
                                      "replay_ddc_sharded", "chain")}
 
 
+class DualCheck:
+    """The packet callback of a run over several front ends: each front
+    end's packets through a check of its own, by the packet's front-end
+    code; ``order`` keeps the codes as they came, ``n`` counts them."""
+
+    def __init__(self, checks: dict):
+        self.checks, self.order = checks, []
+
+    def __call__(self, meta, d):
+        check(meta.front_end_code in self.checks,
+              f"front end {meta.front_end_code!r}")
+        self.order.append(meta.front_end_code)
+        self.checks[meta.front_end_code](meta, d)
+
+    @property
+    def n(self) -> int:
+        return len(self.order)
+
+
+class FirstBlocks:
+    """A sink keeping whole copies of each front end's first k packets."""
+
+    def __init__(self, k: int):
+        self.k, self.kept = k, {}
+
+    def on_start(self, n_channels, expected_rows):
+        pass
+
+    def on_packet(self, meta, d):
+        got = self.kept.setdefault(meta.front_end_code, [])
+        if len(got) < self.k:
+            got.append(d.copy())
+
+    def on_end(self):
+        pass
+
+
+def tree_leaves(tree):
+    """The leaves of a state tree (tuples, lists, dicts)."""
+    if isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from tree_leaves(v)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def phase_dual_main_path(dev):
+    """Two front ends, the dispatch plan and checkpoints on the card.
+    BASELINE config 5 through run_measurement (dual_fused, the
+    channelizer on both front ends, B at half A's amplitude): its
+    launches, its packets' lock-step order, each front end's first
+    blocks bit for bit against its FusedLoopback alone, its rates; dual
+    config 3 (fold_kernel) bit for bit against each chain alone;
+    dual_sharded_fused on a (2, 1) mesh against the unsharded run; the
+    sequential paths (unmatched block plans, with plan_dual's warning; a
+    channel model, with none); then a TONES host-fed (#2), a config-3
+    host-fed (#7) and a TONES fused (#1) stream saved after k blocks,
+    restored into a fresh template and continued bit for bit, its
+    tensors back on the card.  Every run_measurement here, as in every
+    phase, is held against plan_dispatch (run_path)."""
+    import logging
+    import tempfile
+
+    import torch
+    from gpu_sdr_tpu_torch.engine import (load_state, make_demodulator,
+                                          make_generator, save_state)
+    from gpu_sdr_tpu_torch.engine.channel import IdealChannel
+    from gpu_sdr_tpu_torch.engine.fused import FusedLoopback
+    from gpu_sdr_tpu_torch.parallel import make_mesh
+    A, B = "A_RX2", "B_RX2"
+    fused5 = (A, "dual_fused", "channelizer_wavetable")
+
+    class Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    def tones_check(keep=0, codes=(A, B), rows=(FRAMES, FRAMES)):
+        return DualCheck({codes[0]: PacketCheck(rows[0], keep=keep),
+                          codes[1]: PacketCheck(rows[1], keep=keep,
+                                                ampl=0.5 / NFFT)})
+
+    def alone(params, fe):
+        """Front end fe's pair through FusedLoopback alone: whole copies
+        of its packets."""
+        first = FirstBlocks(DUAL_EXACT)
+        FusedLoopback(params.antenna(fe + "_TXRX"),
+                      params.antenna(fe + "_RX2"), device=dev).run(
+                          [first], front_end=fe)
+        return first.kept[fe]
+
+    def exact(name, params, first):
+        for fe in "AB":
+            ref, got = alone(params, fe), first.kept[fe + "_RX2"]
+            check(len(got) == DUAL_EXACT and
+                  all(np.array_equal(r, g) for r, g in zip(ref, got)),
+                  f"{name}: {fe}_RX2 differs from its chain alone")
+
+    def only(counts, kernel, n, name):
+        check(counts[kernel] == n and
+              all(v == 0 for k, v in counts.items() if k != kernel),
+              f"{name} launches {counts}")
+
+    # BASELINE config 5 at full width
+    run_path(dev, config5_params(WARMUP_BLOCKS), None, tones_check(),
+             2 * WARMUP_BLOCKS, BLOCK, NFFT)
+    first = FirstBlocks(DUAL_EXACT)
+    (pkt5, disp, msps, wall), counts = counted(lambda: run_path(
+        dev, config5_params(DUAL_BLOCKS), None,
+        tones_check(keep=DUAL_SHORT), 2 * DUAL_BLOCKS, BLOCK, NFFT,
+        sinks=[first]))
+    check(disp == (fused5, (B,) + fused5[1:]), f"config 5 dispatch {disp}")
+    only(counts, "channelizer", 2 * DUAL_BLOCKS, "config 5")
+    n5 = counts["channelizer"]
+    check(pkt5.order == [A, B] * DUAL_BLOCKS, "config 5: packets not in "
+          "lock-step order")
+    exact("config 5", config5_params(DUAL_EXACT), first)
+    amp = {c: float(np.abs(np.stack(pkt5.checks[c].kept)[1:]).mean())
+           for c in (A, B)}
+    ratio = amp[B] / amp[A]
+    check(abs(ratio - 0.5) <= 5e-3, f"config 5: B / A amplitude {ratio}")
+    print(f"{card_name()}: config 5 {disp}, 2 x {DUAL_BLOCKS} blocks of "
+          f"{BLOCK} samples, {counts['channelizer']} channelizer launches; "
+          f"{msps / 2:.1f} Msps per front end, {msps:.1f} in total, "
+          f"streaming; {wall:.3f} s with set-up; B / A amplitude "
+          f"{ratio:.5f}; each front end's first {DUAL_EXACT} blocks "
+          "bit-identical to its FusedLoopback alone")
+
+    # dual config 3: fold_kernel on both front ends
+    def config3_dual(n):
+        p = direct_params(CONFIG3, 0.01, n)
+        q = direct_params(CONFIG3_B, 0.01, n)
+        p.B_TXRX, p.B_RX2 = q.A_TXRX, q.A_RX2
+        return p
+    first = FirstBlocks(DUAL_EXACT)
+    (_, disp, msps3, wall), counts = counted(lambda: run_path(
+        dev, config3_dual(DUAL_SHORT), None,
+        DualCheck({A: DirectCheck(100, 0.01), B: DirectCheck(100, 0.01)}),
+        2 * DUAL_SHORT, D_BLOCK, 100, sinks=[first]))
+    check(disp == ((A, "dual_fused", "fold_kernel"),
+                   (B, "dual_fused", "fold_kernel")),
+          f"dual config 3 dispatch {disp}")
+    only(counts, "fold", 2 * DUAL_SHORT, "dual config 3")
+    exact("dual config 3", config3_dual(DUAL_EXACT), first)
+    print(f"dual config 3: {disp}, 2 x {DUAL_SHORT} blocks, "
+          f"{counts['fold']} fold launches; {msps3 / 2:.1f} Msps per front "
+          f"end, {wall:.3f} s with set-up; bit-identical to each chain "
+          "alone")
+
+    # dual_sharded_fused: config 5's widths on a (2, 1) mesh of the card
+    m21 = make_mesh((2, 1), devices=[dev] * 2)
+    (pkt, disp, msps_s, wall), counts = counted(lambda: run_path(
+        dev, config5_params(DUAL_SHORT), None, tones_check(keep=DUAL_SHORT),
+        2 * DUAL_SHORT, BLOCK, NFFT, mesh=m21))
+    check(disp == ((A, "dual_sharded_fused", "channelizer_wavetable"),
+                   (B, "dual_sharded_fused", "channelizer_wavetable")),
+          f"dual sharded dispatch {disp}")
+    only(counts, "channelizer", 2 * 2 * DUAL_SHORT, "dual sharded")
+    for c in (A, B):
+        snr = snr_db(np.stack(pkt5.checks[c].kept),
+                     np.stack(pkt.checks[c].kept))
+        check(snr >= SNR_BAR_DB, f"dual sharded {c} vs unsharded {snr:.1f}")
+    print(f"dual sharded (2, 1): {disp}, 2 x {DUAL_SHORT} blocks, "
+          f"{counts['channelizer']} channelizer launches; "
+          f"{msps_s / 2:.1f} Msps per front end, {wall:.3f} s with set-up; "
+          f">= {SNR_BAR_DB} dB against the unsharded run")
+
+    # the sequential paths
+    def unmatched(n):
+        p = config5_params(n)
+        p.B_TXRX.buffer_len = p.B_RX2.buffer_len = BLOCK // 2
+        return p
+    log = logging.getLogger("gpu_sdr_tpu_torch.dual")
+    for name, params, channel, want, kernel, n_kernel in (
+            ("unmatched block plans", unmatched, None,
+             ("fused_loopback", "channelizer_wavetable"), "channelizer",
+             3 * SEQ_BLOCKS),
+            ("a channel model", config5_params, IdealChannel(),
+             ("host_pipeline", None), "presum", 2 * SEQ_BLOCKS)):
+        grab = Warnings()
+        log.addHandler(grab)
+        try:
+            rows_b = FRAMES // 2 if params is unmatched else FRAMES
+            (pkt, disp, _, wall), counts = counted(lambda: run_path(
+                dev, params(SEQ_BLOCKS), channel,
+                tones_check(codes=("A", "B"), rows=(FRAMES, rows_b)),
+                # B's half blocks: 3 x SEQ_BLOCKS packets of 4M samples
+                n_kernel, 2 * BLOCK // 3 if params is unmatched else BLOCK,
+                NFFT))
+        finally:
+            log.removeHandler(grab)
+        check(disp == ((A,) + want, (B,) + want), f"{name}: dispatch {disp}")
+        only(counts, kernel, n_kernel, name)
+        n_a = pkt.checks["A"].n
+        check(pkt.order == ["A"] * n_a + ["B"] * (pkt.n - n_a),
+              f"{name}: front ends not one after the other")
+        warned = any("unmatched block plans across frontends" in m
+                     for m in grab.messages)
+        check(warned == (params is unmatched),
+              f"{name}: plan_dual's warnings {grab.messages}")
+        print(f"sequential, {name}: {disp}, {pkt.n} packets, "
+              f"{counts[kernel]} {kernel} launches, {wall:.3f} s; "
+              f"warning: {warned}")
+
+    # resume on the card: k blocks, save, restore, continue
+    class HostFed:
+        def __init__(self, p, blocks):
+            self.demod = make_demodulator(p.A_RX2, dev)
+            self.blocks = blocks
+
+        def init_state(self):
+            return (self.demod.init_state(), 0)
+
+        def step(self, state):
+            st, i = state
+            st, y = self.demod.step(st, self.blocks[i])
+            return (st, i + 1), y
+
+    def tx_blocks(p, n):
+        L = make_demodulator(p.A_RX2, dev).plan.block_len
+        gen = make_generator(p.A_TXRX, L, dev)
+        st, out = gen.init_state(), []
+        for _ in range(n):
+            st, x = gen.step(st)
+            out.append(x)
+        return out
+
+    k, m = RESUME_BLOCKS
+    tones_p = loopback_params(k + m)
+    c3_p = direct_params(CONFIG3, 0.01, k + m)
+    for name, make, kernel in (
+            ("TONES host-fed",
+             lambda b=tx_blocks(tones_p, k + m): HostFed(tones_p, b),
+             "presum"),
+            ("config 3 host-fed",
+             lambda b=tx_blocks(c3_p, k + m): HostFed(c3_p, b), "ddc"),
+            ("TONES fused", lambda: FusedLoopback(
+                tones_p.A_TXRX, tones_p.A_RX2, device=dev), "channelizer")):
+        def run(chain, st, n):
+            outs = []
+            for _ in range(n):
+                st, y = chain.step(st)
+                outs.append(y.cpu().numpy())
+            return outs, st
+        def from_start(n):
+            chain = make()
+            return run(chain, chain.init_state(), n)
+        (ref, _), counts = counted(lambda: from_start(k + m))
+        check(counts[kernel] == k + m, f"resume {name}: launches {counts}")
+        _, st = from_start(k)
+        fresh = make()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "carry")
+            save_state(st, path, block_index=k)
+            st2, k2 = load_state(path, like=fresh.init_state())
+        tensors = [t for t in tree_leaves(st2) if isinstance(t, torch.Tensor)]
+        check(k2 == k and tensors and all(t.device == dev for t in tensors),
+              f"resume {name}: restored on "
+              f"{sorted({str(t.device) for t in tensors})}")
+        out, _ = run(fresh, st2, m)
+        check(all(np.array_equal(a, b) for a, b in zip(ref[k:], out)),
+              f"resume {name}: the continuation differs")
+        print(f"resume {name}: saved after {k} blocks, {len(tensors)} "
+              f"tensors restored on {dev}, the next {m} blocks "
+              f"bit-identical ({counts[kernel]} {kernel} launches)")
+    print(f"plan == actual on {len(PLAN_CHECKS)} run_measurement calls")
+    return n5
+
+
 def deep_row(deep, tmp, name, f, entry):
     """Move report()'s row `entry` of `tmp` into deep[name], as f's."""
     deep.setdefault(name, []).append(dict(f=f, **tmp.pop(entry)))
@@ -2994,6 +3315,8 @@ def main() -> int:
         rows.update(timed("sharded kernels", phase_sharded_kernels, dev))
         launches.update(timed("sharded main path", phase_sharded_main_path,
                               dev))
+        config5 = timed("dual, dispatch and checkpoint",
+                        phase_dual_main_path, dev)
         deep = timed("deep-FIR kernels", phase_deep_fir_kernels, dev)
         deep_launches = timed("deep-FIR main path", phase_deep_fir_main_path,
                               dev)
@@ -3007,7 +3330,8 @@ def main() -> int:
     kernels = [
         dict(name="channelizer", route="cuda", source=src + "channelizer.cu",
              replaces="gpu_sdr_tpu/ops/pallas_channelizer.py:390",
-             launches=launches["channelizer"], **rows["channelizer_const"],
+             launches=launches["channelizer"], config5_launches=config5,
+             **rows["channelizer_const"],
              **{f"stream_{k}": v
                 for k, v in rows["channelizer_stream"].items()}),
         dict(name="presum", route="cuda", source=src + "presum.cu",

@@ -221,3 +221,65 @@ def sharded_replay_state(state, sr, demod_state=None):
         return replay_at_state(state)
     st, idx = state
     return demod_state(st), _scalar(idx)
+
+
+# ---------------------------------------------------------------------
+# Dual front ends (gpu_sdr_tpu/engine/dual.py): one (g, d) per chain,
+# g the chain's state (d empty), or the generator's and demodulator's
+# states of a generic_scan chain.
+
+
+def _generator_state(g, tx, device, gated: bool = True):
+    """A TX generator's state -> the port's: () for a periodic comb, the
+    int32 phases of an aperiodic one, a chirp's uint32 position, each
+    inside (state, burst offset) when burst-gated."""
+    from .params import WaveType
+    if gated and tx.burst_on > 0:
+        inner, off = g
+        return _generator_state(inner, tx, device, False), _scalar(off)
+    if tx.wave_type[0] == WaveType.CHIRP:
+        return chirp_state(g)
+    return () if isinstance(g, tuple) and not g else tone_phase(g, device)
+
+
+def _demod_state(d, rx, device):
+    """A host-fed demodulator's state -> the port's, by its mode."""
+    from .params import WaveType
+    w = rx.wave_type[0]
+    if w == WaveType.DIRECT:
+        return ddc_state(d, device)
+    if w == WaveType.CHIRP:
+        return chirp_state(d)
+    nfft, avg = int(rx.fft_tones), int(rx.pf_average)
+    return host_spare(d, avg, nfft, device)
+
+
+def fused_state(state, fused):
+    """A JAX FusedLoopback (g, d) state -> the port's FusedLoopback
+    `fused`'s, by its sub-path: channelizer_wavetable's transposed spare
+    (channelizer_spare), the replay kernels' ((idx, phase, started), X)
+    (replay_state; the recording is the port chain's own), fold_kernel's
+    (sph, dph, pv) (fold_state), chirp_wavetable's (position, block,
+    table) (chirp_state), generic_scan's (generator, demodulator)."""
+    g, d = state
+    dev, path = fused.device, fused.path
+    if path == "channelizer_wavetable":
+        return channelizer_spare(g, dev)
+    if path in ("replay_kernel_t", "replay_kernel"):
+        return replay_state(g[0], dev)
+    if path == "fold_kernel":
+        return fold_state(g, dev)
+    if path == "chirp_wavetable":
+        return chirp_state(g)
+    return (_generator_state(g, fused.tx, dev),
+            _demod_state(d, fused.rx, dev))
+
+
+def dual_state(jax_states, dual):
+    """A JAX DualFused state list (one (g, d) per chain) -> the port's
+    DualFused `dual`'s list, one chain at a time (fused_state), so a
+    stream the JAX package stopped continues in the port."""
+    if len(jax_states) != len(dual.chains):
+        raise ValueError(f"{len(jax_states)} chain states for "
+                         f"{len(dual.chains)} chains")
+    return [fused_state(st, ch) for st, ch in zip(jax_states, dual.chains)]

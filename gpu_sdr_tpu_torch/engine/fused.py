@@ -35,21 +35,102 @@ from ..ops import cplx
 from ..ops import pfb as pfb_ops
 from ..ops.channelizer import (can_fuse_channelizer, channelizer_consts,
                                channelizer_frames)
-from ..ops.ddc import DirectDDCConfig
 from ..ops.fold import TonesDirectFold
 from ..ops.lockin import lockin_profile
 from ..ops.lockin_table import lockin_self
-from ..ops.replay_ddc import make_replay_ddc
+from ..ops.replay_ddc import make_replay_ddc, replay_ddc_kind
 from ..ops.tonegen import comb_period, tone_comb_wavetable_block
 from ..params import AntennaParams, WaveType
-from .demodulator import make_demodulator
+from .demodulator import direct_config, make_demodulator, pfb_config
 from .generator import make_generator
 from .pipeline import PipelineResult, run_chunked
 
 
+def plan_tones_direct_chain(tx, rx, L: int) -> Optional[str]:
+    """The TONES->DIRECT chain for blocks of L, or None: no burst gating,
+    a decimating receiver with pf_average >= 2.  A periodic comb is a
+    looped one-block recording through the replay kernel
+    (``replay_kernel_t`` / ``replay_kernel``, ops/replay_ddc.
+    replay_ddc_kind), any other comb the fold kernel (``fold_kernel``).
+    The JAX package sends a periodic comb of fewer than 8 tones that its
+    replay refuses to generic_scan (gpu_sdr_tpu/engine/fused.py:144-166);
+    the port's replay takes every periodic comb of the planner's
+    whole-row blocks, so that rule has no counterpart."""
+    if not (tx.wave_type and tx.wave_type[0] == WaveType.TONES
+            and rx.wave_type and rx.wave_type[0] == WaveType.DIRECT):
+        return None
+    if tx.burst_on > 0 or int(rx.decim) <= 0 or int(rx.pf_average) < 2:
+        return None
+    freqs = tuple(int(f) for f in tx.freq)
+    if not freqs or not rx.freq:
+        return None
+    period = comb_period(freqs, int(tx.rate))
+    if L % period == 0 and period <= (1 << 22):
+        kind = replay_ddc_kind(direct_config(rx), L, L)
+        if kind is not None:
+            return kind
+    return "fold_kernel"
+
+
+def plan_chirp_chain(tx, rx, L: int) -> bool:
+    """CHIRP->CHIRP with no burst gating into a lock-in receiver
+    (decim >= 1) whose chirp is the TX chirp, and a one-period table
+    that fits (ops/chirp.chirp_table_fits).  JAX also needs its Pallas
+    switch and 8-segment blocks (a TPU row tile); the port needs neither
+    (ROADMAP Queue 3)."""
+    if not (tx.wave_type and tx.wave_type[0] == WaveType.CHIRP
+            and rx.wave_type and rx.wave_type[0] == WaveType.CHIRP):
+        return False
+    if tx.burst_on > 0 or int(rx.decim) < 1:
+        return False
+    # the table is the TX signal: the demodulator's chirp must match
+    for attr in ("freq", "chirp_f", "chirp_t", "swipe_s"):
+        a, b = getattr(tx, attr), getattr(rx, attr)
+        if not a or not b or a[0] != b[0]:
+            return False
+    cfg = chirp_ops.chirp_config(rx)
+    return chirp_ops.chirp_table_fits(cfg, L, cfg.length * int(rx.decim))
+
+
+def plan_channelizer_chain(tx, rx, L: int) -> bool:
+    """TONES->TONES / TONES->NOISE with no burst gating, a comb that is
+    one-frame periodic (its period divides nfft), blocks the channelizer
+    kernel takes (ops/channelizer.can_fuse_channelizer) of whole
+    decimation groups."""
+    if not (tx.wave_type and tx.wave_type[0] == WaveType.TONES
+            and rx.wave_type
+            and rx.wave_type[0] in (WaveType.TONES, WaveType.NOISE)):
+        return False
+    if tx.burst_on > 0 or int(rx.fft_tones) <= 0:
+        return False
+    freqs = tuple(int(f) for f in tx.freq)
+    cfg = pfb_config(rx)
+    if not freqs or cfg.nfft % comb_period(freqs, int(tx.rate)) != 0:
+        return False
+    if not can_fuse_channelizer(cfg, L):
+        return False
+    return not (cfg.decim > 0 and (L // cfg.nfft) % cfg.decim != 0)
+
+
+def plan_fused_path(tx, rx, L: int) -> str:
+    """The chain FusedLoopback runs for blocks of L, in the JAX
+    package's order: DIRECT first, then the chirp, then the channelizer,
+    else ``generic_scan``."""
+    kind = plan_tones_direct_chain(tx, rx, L)
+    if kind is not None:
+        return kind
+    if plan_chirp_chain(tx, rx, L):
+        return "chirp_wavetable"
+    if plan_channelizer_chain(tx, rx, L):
+        return "channelizer_wavetable"
+    return "generic_scan"
+
+
 @dataclasses.dataclass
 class FusedLoopback:
-    """A TX -> RX loopback chain run block by block on one device."""
+    """A TX -> RX loopback chain run block by block on one device.
+    ``path`` names the chain (measure.LAST_DISPATCH's subpath), chosen by
+    plan_fused_path."""
 
     tx: AntennaParams
     rx: AntennaParams
@@ -58,132 +139,69 @@ class FusedLoopback:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.demod = make_demodulator(self.rx, self.device)
-        chain = self._try_tones_direct_chain()
-        if chain is None:
-            chain = self._try_chirp_chain()
-        if chain is None:
-            chain = self._try_channelizer_chain()
-        # which chain this loopback runs: measure.LAST_DISPATCH subpath
-        self.path = (chain.path_name if chain is not None
-                     else "generic_scan")
-        if chain is not None:
-            self._init_state = chain.init_state
-            self._step = chain.step
-        else:
-            gen = make_generator(self.tx, self.demod.plan.block_len,
-                                 self.device)
-            demod = self.demod
+        L = self.demod.plan.block_len
+        self.path = plan_fused_path(self.tx, self.rx, L)
+        self._chain = self._build_chain(L)
 
-            def step(st):
-                g, d = st
-                g, x = gen.step(g)
-                d, y = demod.step(d, x)
-                return (g, d), y
-
-            self._init_state = lambda: (gen.init_state(),
-                                        demod.init_state())
-            self._step = step
-
-    def _try_tones_direct_chain(self):
-        """TONES->DIRECT with no burst gating into a decimating receiver
-        with pf_average >= 2: a periodic comb through the replay kernel,
-        any other comb through the fold kernel.  The JAX package sends a
-        periodic comb of fewer than 8 tones that its replay refuses to
-        generic_scan (gpu_sdr_tpu/engine/fused.py:144-166); the port's
-        replay takes every periodic comb of the planner's whole-row
-        blocks, so that rule has no counterpart."""
-        tx, rx = self.tx, self.rx
-        if not (tx.wave_type and tx.wave_type[0] == WaveType.TONES
-                and rx.wave_type and rx.wave_type[0] == WaveType.DIRECT):
-            return None
-        if tx.burst_on > 0 or int(rx.decim) <= 0 or int(rx.pf_average) < 2:
-            return None
+    def _build_chain(self, L: int):
+        """The chain of ``self.path``: an object with init_state and
+        step."""
+        tx, rx, dev = self.tx, self.rx, self.device
+        if self.path == "generic_scan":
+            return _GenericScan(make_generator(tx, L, dev), self.demod)
         freqs = tuple(int(f) for f in tx.freq)
-        if not freqs or not rx.freq:
-            return None
-        L = self.demod.plan.block_len
-        period = comb_period(freqs, int(tx.rate))
         ampls = tuple(float(a) for a in (tx.ampl or [1.0] * len(freqs)))
-        rx_freqs = tuple(int(f) for f in rx.freq)
-        cfg = DirectDDCConfig(rate=int(rx.rate), decim=int(rx.decim),
-                              pf_average=int(rx.pf_average), freqs=rx_freqs,
-                              phases=(0,) * len(rx_freqs))
-        if L % period == 0 and period <= (1 << 22):
-            chain = self._try_replay_loopback(cfg, freqs, ampls, L)
-            if chain is not None:
-                return chain
-        return TonesDirectFold(int(tx.rate), freqs, ampls, cfg, L,
-                               self.device)
+        if self.path == "fold_kernel":
+            return TonesDirectFold(int(tx.rate), freqs, ampls,
+                                   direct_config(rx), L, dev)
+        if self.path in ("replay_kernel_t", "replay_kernel"):
+            # the loopback as a looped one-block recording: the replay
+            # object is the chain itself (path_name, init_state, step)
+            rec = tone_comb_wavetable_block(freqs, ampls, int(tx.rate), L)
+            return make_replay_ddc(direct_config(rx), rec, L, dev)
+        if self.path == "chirp_wavetable":
+            cfg = chirp_ops.chirp_config(rx)
+            scale = float(tx.ampl[0]) if tx.ampl else 1.0
+            return _ChirpWavetableChain(cfg, L, cfg.length * int(rx.decim),
+                                        scale, dev)
+        return _ChannelizerWavetableChain(pfb_config(rx), freqs, ampls, L,
+                                          int(rx.decim), dev)
 
-    def _try_replay_loopback(self, cfg, freqs, ampls, L):
-        """A periodic comb's loopback as a looped one-block recording:
-        the replay object is the chain itself (path_name, init_state,
-        step)."""
-        rec = tone_comb_wavetable_block(freqs, ampls, int(self.tx.rate), L)
-        return make_replay_ddc(cfg, rec, L, self.device)
+    def init_state(self):
+        """The chain's state at the stream's start."""
+        return self._chain.init_state()
 
-    def _try_chirp_chain(self):
-        """CHIRP->CHIRP with no burst gating into a lock-in receiver
-        (decim >= 1) whose chirp is the TX chirp: one period of it, a
-        table in device memory, serves the whole stream.  JAX also
-        needs its Pallas switch and 8-segment blocks (a TPU row tile);
-        the port needs neither (ROADMAP Queue 3)."""
-        tx, rx = self.tx, self.rx
-        if not (tx.wave_type and tx.wave_type[0] == WaveType.CHIRP
-                and rx.wave_type and rx.wave_type[0] == WaveType.CHIRP):
-            return None
-        if tx.burst_on > 0 or int(rx.decim) < 1:
-            return None
-        # the table is the TX signal: the demodulator's chirp must match
-        for attr in ("freq", "chirp_f", "chirp_t", "swipe_s"):
-            a, b = getattr(tx, attr), getattr(rx, attr)
-            if not a or not b or a[0] != b[0]:
-                return None
-        cfg = chirp_ops.chirp_config(rx)
-        L = self.demod.plan.block_len
-        ppt = cfg.length * int(rx.decim)
-        if not chirp_ops.chirp_table_fits(cfg, L, ppt):
-            return None
-        scale = float(tx.ampl[0]) if tx.ampl else 1.0
-        return _ChirpWavetableChain(cfg, L, ppt, scale, self.device)
-
-    def _try_channelizer_chain(self):
-        """TONES->TONES / TONES->NOISE through the channelizer kernel
-        with a bin-quantized comb as one wavetable frame."""
-        tx, rx = self.tx, self.rx
-        if not (tx.wave_type and tx.wave_type[0] == WaveType.TONES
-                and rx.wave_type
-                and rx.wave_type[0] in (WaveType.TONES, WaveType.NOISE)):
-            return None
-        if tx.burst_on > 0 or int(rx.fft_tones) <= 0:
-            return None
-        nfft, avg = int(rx.fft_tones), int(rx.pf_average)
-        full_spectrum = rx.wave_type[0] == WaveType.NOISE
-        L = self.demod.plan.block_len
-        freqs = tuple(int(f) for f in tx.freq)
-        if not freqs or nfft % comb_period(freqs, int(tx.rate)) != 0:
-            return None        # comb not one-frame-periodic: generic path
-        bins = None if full_spectrum else tuple(
-            int(b) for b in pfb_ops.tone_bins(rx.freq, rx.rate, nfft))
-        cfg = pfb_ops.PFBConfig(nfft=nfft, avg=avg, rate=int(rx.rate),
-                                bins=bins, decim=int(rx.decim))
-        if not can_fuse_channelizer(cfg, L):
-            return None
-        decim = int(rx.decim)
-        if decim > 0 and (L // nfft) % decim != 0:
-            return None
-        ampls = tuple(float(a) for a in (tx.ampl or [1.0] * len(freqs)))
-        return _ChannelizerWavetableChain(cfg, freqs, ampls, L, decim,
-                                          self.device)
+    def step(self, state):
+        """One block: (state', y (rows, channels))."""
+        return self._chain.step(state)
 
     def run(self, sinks=(), usrp_number: int = 0,
             front_end: str = "A") -> PipelineResult:
         """Stream the full acquisition through the chain."""
         plan = self.demod.plan
-        return run_chunked(self._step, self._init_state, plan.n_blocks,
+        return run_chunked(self.step, self.init_state, plan.n_blocks,
                            plan.block_len, self.demod.n_channels,
                            plan.total_out_rows, self.device, sinks,
                            usrp_number=usrp_number, front_end=front_end)
+
+
+class _GenericScan:
+    """The host-fed path's generator and demodulator back to back on the
+    device.  State: (generator state, demodulator state)."""
+
+    path_name = "generic_scan"
+
+    def __init__(self, gen, demod):
+        self.gen, self.demod = gen, demod
+
+    def init_state(self):
+        return (self.gen.init_state(), self.demod.init_state())
+
+    def step(self, state):
+        g, d = state
+        g, x = self.gen.step(g)
+        d, y = self.demod.step(d, x)
+        return (g, d), y
 
 
 class _ChannelizerWavetableChain:

@@ -385,7 +385,10 @@ class SegmentedDeviceReplay:
     after its last copy has completed; a segment's device memory is
     tied to the compute stream (``record_stream``) so it is not reused
     while still read.  The demodulator's state carries across segments
-    as across blocks, so the output equals the host-fed path's.
+    as across blocks, so the output equals the host-fed path's.  The
+    state is (demodulator state, block index): after init_state, a
+    replay resumes from a saved state at any block, a segment boundary
+    included.
     ``stage_seconds`` keeps the host time of each segment's staging."""
 
     rx: AntennaParams
@@ -453,39 +456,51 @@ class SegmentedDeviceReplay:
             x.record_stream(compute)
         return x
 
+    def init_state(self):
+        """(demodulator state, block index) at the stream's start; the
+        staging buffers are made anew and the first segment's upload
+        started (set-up)."""
+        self._reset()
+        self._segment(0)
+        return (self.demod.init_state(), 0)
+
+    def _reset(self) -> None:
+        """Fresh staging: copy stream, pinned buffers, no segment."""
+        S, L = self.seg_blocks, self.L
+        self.stage_seconds = []
+        self._n_seg = -(-self.demod.plan.n_blocks // S)
+        if self.device.type == "cuda":
+            self._copy = torch.cuda.Stream(device=self.device)
+            self._pinned = [torch.empty(S * L, dtype=torch.complex64,
+                                        pin_memory=True)
+                            for _ in range(min(self._n_seg, 2))]
+        self._done = [None, None]
+        self._cur = self._nxt = None      # (segment, staged tensor)
+
+    def step(self, state):
+        """One block: (state', y (rows, channels))."""
+        st, b = state
+        S, L = self.seg_blocks, self.L
+        if self._cur[0] != b // S:
+            self._segment(b // S)
+        j = b % S
+        st, y = self.demod.step(st, self._cur[1][j * L:(j + 1) * L])
+        return (st, b + 1), y
+
+    def _segment(self, s: int) -> None:
+        """Enter segment s: take it from the upload started a segment
+        earlier (or stage it now, on a restored state) and start the
+        next one's."""
+        staged = (self._nxt[1] if self._nxt and self._nxt[0] == s
+                  else self._stage(s))
+        self._cur = (s, self._enter(*staged))
+        self._nxt = ((s + 1, self._stage(s + 1))
+                     if s + 1 < self._n_seg else None)
+
     def run(self, sinks=(), usrp_number: int = 0,
             front_end: str = "A") -> PipelineResult:
         plan = self.demod.plan
-        L, S = self.L, self.seg_blocks
-        n_seg = -(-plan.n_blocks // S)
-        slot = {}
-
-        def init():
-            self.stage_seconds = []
-            if self.device.type == "cuda":
-                self._copy = torch.cuda.Stream(device=self.device)
-                self._pinned = [torch.empty(S * L, dtype=torch.complex64,
-                                            pin_memory=True)
-                                for _ in range(min(n_seg, 2))]
-                self._done = [None, None]
-            slot["cur"] = self._enter(*self._stage(0))
-            slot["nxt"] = self._stage(1) if n_seg > 1 else None
-            slot["b"] = 0
-            return self.demod.init_state()
-
-        def step(state):
-            b = slot["b"]
-            if b and b % S == 0:            # entering segment b // S
-                s = b // S
-                slot["cur"] = self._enter(*slot["nxt"])
-                slot["nxt"] = self._stage(s + 1) if s + 1 < n_seg else None
-            j = b % S
-            state, y = self.demod.step(state,
-                                       slot["cur"][j * L:(j + 1) * L])
-            slot["b"] = b + 1
-            return state, y
-
-        return run_chunked(step, init, plan.n_blocks, L,
-                           self.demod.n_channels, plan.total_out_rows,
-                           self.device, sinks, usrp_number=usrp_number,
-                           front_end=front_end)
+        return run_chunked(self.step, self.init_state, plan.n_blocks,
+                           self.L, self.demod.n_channels,
+                           plan.total_out_rows, self.device, sinks,
+                           usrp_number=usrp_number, front_end=front_end)

@@ -1,8 +1,11 @@
 """In-process measurement execution (port of gpu_sdr_tpu/measure.py).
 
 Given a validated UsrpParams, build TX generators and RX demodulators
-and route TX -> channel -> RX on one device.  Ported branches, for one
-front end, in the JAX package's order:
+and route TX -> channel -> RX on one device.  First, with no source and
+no channel model, two or more RX front ends whose loopbacks fuse with
+one block plan run in lock-step (``dual_fused``, engine/dual.DualFused;
+``dual_sharded_fused`` under a mesh).  Otherwise each RX takes its own
+branch in turn, in the JAX package's order:
 
 * ``fused_loopback``: ideal loopback with no channel model, the whole
   chain on the device (engine/fused.py);
@@ -23,8 +26,8 @@ mesh branches replace the first three, in the JAX package's order:
 replay`` (ShardedSegmentedReplay), else ``host_pipeline`` with the
 sharded demodulator.  The mesh names the devices; `device` is not read.
 
-Every other branch raises NotImplementedError naming the ROADMAP item
-that will port it; none falls back to another path.
+HDF5 output and mixed wave types raise NotImplementedError naming the
+ROADMAP item that will port them; no branch falls back to another path.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from .config import resolve_device
 from .engine import (FusedLoopback, can_fuse, make_demodulator,
                      make_generator, run_pipeline)
 from .engine.channel import Channel, IdealChannel
+from .engine.demodulator import _mesh_plan
+from .engine.dual import DualFused, DualShardedFused, plan_dual
 from .engine.planner import plan_blocks
 from .engine.replay import (DeviceReplay, SegmentedDeviceReplay,
                             can_device_replay, can_segmented_replay)
@@ -126,14 +131,18 @@ def _pair_tx(params: UsrpParams, rx_name: str) -> Optional[str]:
     return None
 
 
-def _replays_whole_blocks(source, rx) -> bool:
+def _replays_whole_blocks(source, rx, mesh=None) -> bool:
     """A recording that one of the replays takes: within the device
     budget or over it, and, when looped, a whole number of blocks (the
-    host-fed source's loop semantics need it)."""
+    host-fed source's loop semantics need it) of the plan, or of the
+    mesh's plan."""
     if not (can_device_replay(source) or can_segmented_replay(source)):
         return False
+    plan = plan_blocks(rx)
+    if mesh is not None:
+        plan = _mesh_plan(plan, mesh)
     loop = bool(getattr(source, "loop", False))
-    return not (loop and len(source.data) % plan_blocks(rx).block_len)
+    return not (loop and len(source.data) % plan.block_len)
 
 
 def run_measurement(params: UsrpParams, filename: Optional[str] = None,
@@ -145,12 +154,15 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
     """Execute a measurement described by `params` on `device`.
 
     With an active TX, TX drives RX through `channel`; with no channel
-    model the ideal loopback runs fused on the device.  A `source` feeds
-    RX instead: a recording of whole blocks (or one that is not looped)
-    with no channel model is replayed from device memory.  With neither,
-    RX consumes white noise.  With `mesh` (parallel.make_mesh) the front
-    end runs sharded over the mesh's devices, which replace `device`.
-    Data goes to `extra_sinks`."""
+    model the ideal loopback runs fused on the device: every front end
+    in lock-step where two or more can (engine/dual.py, packets coded
+    with the full antenna name), else one after the other (coded with
+    the front end's letter).  A `source` feeds RX instead: a recording
+    of whole blocks (or one that is not looped) with no channel model is
+    replayed from device memory.  With neither, RX consumes white noise.
+    With `mesh` (parallel.make_mesh) the front ends run sharded over the
+    mesh's devices, which replace `device`.  Data goes to
+    `extra_sinks`."""
     if filename is not None or trigger is not None:
         raise NotImplementedError(
             "HDF5 output is not ported yet (ROADMAP Queue 1 item 3: "
@@ -158,16 +170,17 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
     dev = mesh.first if mesh is not None else resolve_device(device)
     params.validate()
     rx_list = list(params.active_antennas(AntMode.RX))
-    if len(rx_list) > 1:
+    if any(_is_mixed(rx) for _name, rx in rx_list):
         raise NotImplementedError(
-            "more than one RX front end (dual / sequential) is not ported "
-            "yet, with or without a mesh (ROADMAP Queue 1 item 7)")
+            "mixed wave types on one antenna are not ported yet "
+            "(ROADMAP Queue 1 item 3)")
     LAST_DISPATCH.clear()
+    # concurrent A/B front ends: >= 2 fusable RX chains advance in
+    # lock-step on a shared sample timebase (engine/dual.py)
+    if source is None and channel is None and \
+            _run_dual(params, mesh, dev, extra_sinks):
+        return None
     for rx_name, rx in rx_list:
-        if _is_mixed(rx):
-            raise NotImplementedError(
-                "mixed wave types on one antenna are not ported yet "
-                "(ROADMAP Queue 1 item 3)")
         tx_name = _pair_tx(params, rx_name)
         tx = params.antenna(tx_name) if tx_name else None
         sinks = list(extra_sinks)
@@ -209,6 +222,27 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
     return None
 
 
+def _run_dual(params, mesh, dev, extra_sinks) -> bool:
+    """The lock-step branch, first in the JAX package's order
+    (gpu_sdr_tpu/measure.py:154-185): DualFused, or DualShardedFused
+    under a mesh, when plan_dual gives the pairs and the sharded chains
+    share a plan.  Whether it ran; if not, the caller streams each RX in
+    turn."""
+    pairs = plan_dual(params, mesh=mesh)
+    if pairs is None:
+        return False
+    dual = (DualFused(pairs, device=dev) if mesh is None
+            else DualShardedFused(pairs, mesh))
+    if not getattr(dual, "ok", True):
+        return False                   # untileable: the sequential path
+    path = "dual_fused" if mesh is None else "dual_sharded_fused"
+    for (rx_name, _tx, _rx), ch in zip(pairs, dual.chains):
+        _record_dispatch(rx_name, path, ch.path)
+    dual.run([list(extra_sinks) for _ in pairs],
+             usrp_number=params.usrp_number)
+    return True
+
+
 def _run_on_mesh(rx_name, tx, rx, mesh, source, channel, sinks,
                  run_kw) -> bool:
     """The mesh branches, in the JAX package's order: the sharded fused
@@ -218,7 +252,6 @@ def _run_on_mesh(rx_name, tx, rx, mesh, source, channel, sinks,
     in whole blocks of the sharded plan.  Whether a branch ran; if none
     did, the caller takes the host pipeline with the sharded
     demodulator."""
-    from .engine.demodulator import _mesh_plan
     from .parallel.fused_sharded import (can_fuse_sharded,
                                          make_sharded_fused,
                                          plan_sharded_block)
@@ -235,13 +268,10 @@ def _run_on_mesh(rx_name, tx, rx, mesh, source, channel, sinks,
         _record_dispatch(rx_name, "sharded_fused", sf.path)
         sf.run(sinks, n_blocks=nb, **run_kw)
         return True
-    if source is None or channel is not None or not (
-            can_device_replay(source) or can_segmented_replay(source)):
+    if source is None or channel is not None or \
+            not _replays_whole_blocks(source, rx, mesh):
         return False
     loop = bool(getattr(source, "loop", False))
-    if loop and len(source.data) % _mesh_plan(plan_blocks(rx),
-                                              mesh).block_len:
-        return False
     if can_device_replay(source):
         replay = ShardedDeviceReplay(rx, source.data, mesh, loop=loop)
         _record_dispatch(rx_name, "sharded_replay", replay.path)

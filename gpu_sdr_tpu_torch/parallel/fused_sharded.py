@@ -303,6 +303,19 @@ class ShardedFusedVNA:
         return _run(self, sinks, usrp_number, front_end, n_blocks)
 
 
+def plan_sharded_fold(tx, rx, mesh: Mesh, block_len: int) -> bool:
+    """The gate of ShardedFusedDirect (its ``ok``): a TX comb, whole DDC
+    rows per block that split over the time shards, and tones that split
+    over the channel shards.  The port's fold takes every such geometry
+    (no TPU row tile, no lane padding), so fold_kernel is its sub-path
+    wherever this holds."""
+    freqs = tuple(int(f) for f in tx.freq)
+    M = int(rx.decim)
+    nb = block_len // M if M > 0 and block_len % M == 0 else 0
+    return bool(nb and freqs and nb % mesh.T == 0 and
+                len(rx.freq) % mesh.Kc == 0)
+
+
 class ShardedFusedDirect:
     """The sharded TONES -> DIRECT loopback: no collective.  P and ramp
     rows split over 'time', G (or G2) and ramp columns over 'channels'.
@@ -326,8 +339,7 @@ class ShardedFusedDirect:
         self.n_tones = len(rx_freqs)
         M = dcfg.M
         nb = L // M if dcfg.decim > 0 and L % M == 0 else 0
-        self.ok = bool(nb and freqs and nb % self.T == 0 and
-                       len(rx_freqs) % self.Kc == 0)
+        self.ok = plan_sharded_fold(tx, rx, mesh, L)
         self.use_fold = use_fold
         if self.ok and not use_fold:
             self.chain = TonesDirectChain(rate, freqs, ampls, dcfg, L,

@@ -86,6 +86,17 @@ def plan_sharded_channelizer_replay(rx: AntennaParams, n: int, L: int,
     return can_channelizer_at_halo(pfb_config(rx), ftl, (n // L) * ftl)
 
 
+def sharded_replay_path(rx: AntennaParams, n: int, L: int, loop: bool,
+                        mesh: Mesh) -> str:
+    """The sub-path ShardedDeviceReplay takes for a recording of n
+    samples in blocks of L, in the JAX package's try-order."""
+    if plan_sharded_replay_kernel(rx, n, L, loop, mesh):
+        return "replay_kernel"
+    if plan_sharded_channelizer_replay(rx, n, L, loop, mesh):
+        return "channelizer_at"
+    return "scan"
+
+
 class _ReplayKernel:
     """DIRECT through kernel #10 per time shard.  State: the replay
     DDC's (block index, int64 phase, started flag)."""
@@ -194,12 +205,7 @@ class ShardedDeviceReplay:
         if loop and n % L:
             raise ValueError(f"looped sharded replay needs whole blocks: "
                              f"{n} samples, blocks of {L}")
-        if plan_sharded_replay_kernel(rx, n, L, loop, mesh):
-            self.path = "replay_kernel"
-        elif plan_sharded_channelizer_replay(rx, n, L, loop, mesh):
-            self.path = "channelizer_at"
-        else:
-            self.path = "scan"
+        self.path = sharded_replay_path(rx, n, L, loop, mesh)
         if self.path == "scan":
             nblk = -(-n // L)
             X = upload(data, mesh.first, (nblk + (0 if loop else 1)) * L)
@@ -233,7 +239,9 @@ class ShardedSegmentedReplay:
     is copied, each time shard's span of each of its blocks into that
     shard's pinned buffer, and sent to the shard's device on a copy
     stream the moment segment s starts; the sharded demodulator's state
-    carries across segments as across blocks.  ``stage_seconds`` keeps
+    carries across segments as across blocks: the state is (sharded
+    demodulator state, block index), and after init_state a replay
+    resumes from a saved state at any block.  ``stage_seconds`` keeps
     the host time of each segment's staging."""
 
     def __init__(self, rx: AntennaParams, data, mesh: Mesh,
@@ -319,48 +327,54 @@ class ShardedSegmentedReplay:
             out.append(ready_shard)
         return out
 
+    def init_state(self):
+        """(sharded demodulator state, block index) at the stream's
+        start; the staging buffers are made anew and the first segment's
+        upload started (set-up)."""
+        S, L, T = self.seg_blocks, self.L, self.mesh.T
+        self.stage_seconds = []
+        self._n_seg = -(-self.demod.plan.n_blocks // S)
+        cuda = sorted({d for ds in self._dests for d in ds
+                       if d.type == "cuda"}, key=str)
+        self._copy = {d: torch.cuda.Stream(device=d) for d in cuda}
+        self._host, self._pinned = [], []
+        if cuda:
+            n_buf = min(self._n_seg, 2)
+            self._pinned = [[torch.empty((S, L // T), dtype=torch.complex64,
+                                         pin_memory=True) for _ in range(T)]
+                            for _ in range(n_buf)]
+            self._host = [np.empty((S, L), np.complex64)
+                          for _ in range(n_buf)]
+        self._done = [None, None]
+        self._cur = self._nxt = None      # (segment, staged per shard)
+        self._segment(0)
+        return (self.demod.init_state(), 0)
+
+    def _segment(self, s: int) -> None:
+        """Enter segment s: take it from the upload started a segment
+        earlier (or stage it now, on a restored state) and start the
+        next one's."""
+        staged = (self._nxt[1] if self._nxt and self._nxt[0] == s
+                  else self._stage(s))
+        self._cur = (s, self._enter(staged))
+        self._nxt = ((s + 1, self._stage(s + 1))
+                     if s + 1 < self._n_seg else None)
+
+    def step(self, state):
+        """One block: (state', Sharded y (rows, channels))."""
+        st, b = state
+        S = self.seg_blocks
+        if self._cur[0] != b // S:
+            self._segment(b // S)
+        j, cur = b % S, self._cur[1]
+        xs = self.mesh.grid(lambda t, c, d: cur[t][d][j])
+        st, y = self.demod.step(st, xs)
+        return (st, b + 1), y
+
     def run(self, sinks=(), usrp_number: int = 0,
             front_end: str = "A") -> PipelineResult:
-        plan, mesh = self.demod.plan, self.mesh
-        S, L, T = self.seg_blocks, self.L, mesh.T
-        n_seg = -(-plan.n_blocks // S)
-        slot = {}
-
-        def init():
-            self.stage_seconds = []
-            cuda = sorted({d for ds in self._dests for d in ds
-                           if d.type == "cuda"}, key=str)
-            self._copy = {d: torch.cuda.Stream(device=d) for d in cuda}
-            self._host = []
-            self._pinned = []
-            if cuda:
-                self._pinned = [[torch.empty((S, L // T),
-                                             dtype=torch.complex64,
-                                             pin_memory=True)
-                                 for _ in range(T)]
-                                for _ in range(min(n_seg, 2))]
-                self._host = [np.empty((S, L), np.complex64)
-                              for _ in range(min(n_seg, 2))]
-            self._done = [None, None]
-            slot["cur"] = self._enter(self._stage(0))
-            slot["nxt"] = self._stage(1) if n_seg > 1 else None
-            slot["b"] = 0
-            return self.demod.init_state()
-
-        def step(state):
-            b = slot["b"]
-            if b and b % S == 0:            # entering segment b // S
-                s = b // S
-                slot["cur"] = self._enter(slot["nxt"])
-                slot["nxt"] = self._stage(s + 1) if s + 1 < n_seg else None
-            j = b % S
-            cur = slot["cur"]
-            xs = mesh.grid(lambda t, c, d: cur[t][d][j])
-            state, y = self.demod.step(state, xs)
-            slot["b"] = b + 1
-            return state, y
-
-        return run_chunked(step, init, plan.n_blocks, L,
-                           self.demod.n_channels, plan.total_out_rows,
-                           mesh.first, sinks, usrp_number=usrp_number,
-                           front_end=front_end)
+        plan = self.demod.plan
+        return run_chunked(self.step, self.init_state, plan.n_blocks,
+                           self.L, self.demod.n_channels,
+                           plan.total_out_rows, self.mesh.first, sinks,
+                           usrp_number=usrp_number, front_end=front_end)

@@ -1,10 +1,10 @@
 """The main-path cells, and where their time goes on one CUDA card.
 
-    python -m gpu_sdr_tpu_torch.probe
+    python -m gpu_sdr_tpu_torch.probe [CELL ...]
 
-Run from the root of a checkout.  The cells are the runs that
-``chip_smoke.py`` drives through ``measure.run_measurement`` (it takes
-its configurations from here):
+Run from the root of a checkout; with CELL names, only those cells.
+The cells are the runs that ``chip_smoke.py`` drives through
+``measure.run_measurement`` (it takes its configurations from here):
 
 * TONES fused and host-fed: the reference's network-stress
   configuration, 1000 bin-quantized tones at 100 Msps into a 1000-bin
@@ -18,6 +18,9 @@ its configurations from here):
   86-95), a -40 to +40 MHz chirp of 5000 steps over 1 s at 100 Msps,
   lock-in at decim 1 (ppt 20,000), 4,000,000-sample blocks of 200
   segments, a 100,000,000-sample (800 MB) period;
+* TONES config 5 dual fused: BASELINE config 5, the dual-channel
+  readout, the network-stress configuration on front ends A and B in
+  lock-step (engine/dual.py), B's tones at half A's amplitude;
 * replay through ``run_measurement(source=ReplaySource(..., loop=True))``
   of a recording of the TX signal of a loopback cell, made by the port's
   generator and uploaded once: TONES (8 blocks, ``channelizer_at``),
@@ -32,7 +35,9 @@ called to the sink's start) and its rate (input Msamples/s, host clock,
 sink start to sink end); then one run of PROFILE_BLOCKS blocks under
 ``torch.profiler`` with the device's busy share (the union of its
 kernel and copy intervals over the sink's window) and the device
-milliseconds per block of the largest operations.  The profiler's own
+milliseconds per block of the largest operations (a dual cell's rates
+are per front end, its totals beside them, and its device ms per block
+cover both front ends' blocks).  The profiler's own
 host cost slows that run, so its rate is printed beside it.  The last
 line of the output is one JSON object with every number.
 """
@@ -85,6 +90,18 @@ def loopback_params(n_blocks: int):
                             pf_average=AVG, buffer_len=BLOCK,
                             samples=n_blocks * BLOCK, freq=freqs,
                             wave_type=[WaveType.TONES] * NFFT)
+    return p
+
+
+def config5_params(n_blocks: int):
+    """BASELINE config 5, the dual-channel readout: the network-stress
+    configuration on front end A, and on B the same 1000 bins at half
+    the amplitude (so a swap of A and B shows), `n_blocks` blocks each."""
+    from .params import AntennaParams
+    p = loopback_params(n_blocks)
+    p.B_TXRX = AntennaParams(**{**p.A_TXRX.__dict__,
+                                "ampl": [0.5 / NFFT] * NFFT})
+    p.B_RX2 = AntennaParams(**p.A_RX2.__dict__)
     return p
 
 
@@ -186,27 +203,37 @@ def _cells():
         ("CHIRP config 2 replay", chirp_params, False, 50, C_BLOCK, 10),
         ("CHIRP config 2 replay, 6M blocks", chirp6m_params, False, 50,
          AT_BLOCK, 8),
+        ("TONES config 5 dual fused", config5_params, False, 100, BLOCK,
+         None),
     )
+
+
+def front_ends(params) -> int:
+    """The active RX antennas of a configuration."""
+    from .params import AntMode
+    return len(list(params.active_antennas(AntMode.RX)))
 
 
 def run_once(dev, params, host_fed: bool, window=None, source=None,
              mesh=None):
     """One run_measurement into a dropping sink, fed from `source` when
     given, on `mesh` when given: (dispatch, packets, set-up s, streaming
-    s).  With `window`, a profiler span of that name covers the sink's
-    start to its end."""
+    s).  The sink serves every front end: the window runs from the
+    first start to the last end.  With `window`, a profiler span of that
+    name covers it."""
     import torch
     from . import measure
     from .engine.channel import IdealChannel
     from .engine.sinks import Sink
     stamps, span = [], []
+    n_fe = front_ends(params)
 
     class DropSink(Sink):
-        packets = 0
+        packets = ends = 0
 
         def on_start(self, n_channels, expected_rows):
             stamps.append(time.perf_counter())
-            if window:
+            if window and not span:
                 span.append(torch.profiler.record_function(window))
                 span[0].__enter__()
 
@@ -214,7 +241,8 @@ def run_once(dev, params, host_fed: bool, window=None, source=None,
             self.packets += 1
 
         def on_end(self):
-            if span:
+            self.ends += 1
+            if span and self.ends == n_fe:
                 span[0].__exit__(None, None, None)
             stamps.append(time.perf_counter())
 
@@ -224,7 +252,7 @@ def run_once(dev, params, host_fed: bool, window=None, source=None,
                             channel=IdealChannel() if host_fed else None,
                             source=source, mesh=mesh)
     return (measure.last_dispatch(), sink.packets, stamps[0] - t0,
-            stamps[1] - stamps[0])
+            stamps[-1] - stamps[0])
 
 
 def _short(name: str, cat: str) -> str:
@@ -294,12 +322,14 @@ def probe_cell(dev, name, params, host_fed, n_blocks, block, rec_blocks,
             return ReplaySource(path, loop=True) if path else None
         run_once(dev, params(2), host_fed, source=source(),
                  mesh=mesh)                                    # warm-up
+        n_fe = front_ends(params(1))
         setup, msps, disp = [], [], None
         for _ in range(RUNS):
             disp, n, s, t = run_once(dev, params(n_blocks), host_fed,
                                      source=source(), mesh=mesh)
-            if n != n_blocks:
-                raise RuntimeError(f"{name}: {n} of {n_blocks} packets")
+            if n != n_blocks * n_fe:
+                raise RuntimeError(f"{name}: {n} of {n_blocks * n_fe} "
+                                   "packets")
             setup.append(s)
             msps.append(n_blocks * block / t / 1e6)
         with profile(activities=[ProfilerActivity.CPU,
@@ -310,14 +340,19 @@ def probe_cell(dev, name, params, host_fed, n_blocks, block, rec_blocks,
         prof.export_chrome_trace(trace)
         busy, top = device_breakdown(trace, PROFILE_BLOCKS)
     prof_msps = PROFILE_BLOCKS * block / t / 1e6
+    total = (f" per front end, {[round(n_fe * m, 1) for m in msps]} in "
+             "total" if n_fe > 1 else "")
     print(f"{name}: {disp}; set-up s {[round(s, 4) for s in setup]}; "
-          f"{[round(m, 1) for m in msps]} Msps; profiled {PROFILE_BLOCKS} "
-          f"blocks: {prof_msps:.1f} Msps, device busy {100 * busy:.1f}%, "
-          "device ms per block: "
+          f"{[round(m, 1) for m in msps]} Msps{total}; profiled "
+          f"{PROFILE_BLOCKS} blocks: {prof_msps:.1f} Msps, device busy "
+          f"{100 * busy:.1f}%, device ms per block: "
           + ", ".join(f"{op} {ms:.4f}" for op, ms in top), flush=True)
-    return dict(cell=name, dispatch=[list(d) for d in disp], blocks=n_blocks,
-                setup_s=setup, msps=msps, profiled_msps=prof_msps,
-                device_busy=busy, device_ms_per_block=dict(top))
+    out = dict(cell=name, dispatch=[list(d) for d in disp], blocks=n_blocks,
+               setup_s=setup, msps=msps, profiled_msps=prof_msps,
+               device_busy=busy, device_ms_per_block=dict(top))
+    if n_fe > 1:
+        out.update(front_ends=n_fe, msps_total=[n_fe * m for m in msps])
+    return out
 
 
 def main() -> int:
@@ -332,8 +367,15 @@ def main() -> int:
         else torch.cuda.get_device_name(0)
     print(card)
     dev = torch.device("cuda", 0)
+    names = sys.argv[1:]
+    unknown = set(names) - {c[0] for c in cells()}
+    if unknown:
+        print(f"probe: no cell {sorted(unknown)}", file=sys.stderr)
+        return 1
     out = []
     for c in cells():
+        if names and c[0] not in names:
+            continue
         try:
             out.append(probe_cell(dev, *c))
         except RuntimeError as e:       # the next cells still run

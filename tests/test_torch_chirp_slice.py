@@ -214,7 +214,7 @@ def test_resume_fused_chain_from_jax_state(monkeypatch):
     assert st == (3 * BLOCK % 128_000, 1)
     ys = []
     for _ in range(2):
-        st, y = chain._step(st)
+        st, y = chain.step(st)
         ys.append(y.numpy())
     assert st == convert.chirp_state(jst2)
     assert golden.snr_db(jcplx.to_np(jy), np.concatenate(ys)) > 120.0

@@ -213,8 +213,10 @@ def test_slice_runs_with_jax_blocked():
     unimportable it still runs both branches of the slice, through both
     kernel wrappers, the CHIRP readout fused and host-fed (its table
     step), a device replay (engine/replay.py) directly and through
-    run_measurement, and both again on a (2, 1) mesh of the CPU
-    (parallel/), and loads no module of either."""
+    run_measurement, both again on a (2, 1) mesh of the CPU
+    (parallel/), two front ends in lock-step (engine/dual.py) against
+    their plan (engine/dispatch.py) and a checkpoint of their state
+    (engine/checkpoint.py), and loads no module of either."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -298,6 +300,24 @@ def test_slice_runs_with_jax_blocked():
             assert s.data.shape == (128, 8), s.data.shape
             np.testing.assert_allclose(abs(s.data[3:]), 0.125, rtol=1e-2)
             print(":".join(map(str, measure.last_dispatch()[0][1:])))
+        # two front ends in lock-step, the dispatch plan, a checkpoint
+        from gpu_sdr_tpu_torch.engine import dispatch, dual
+        from gpu_sdr_tpu_torch.engine.checkpoint import (load_state,
+                                                         save_state)
+        p.B_TXRX = AntennaParams(**p.A_TXRX.__dict__)
+        p.B_RX2 = AntennaParams(**p.A_RX2.__dict__)
+        plan = [d.key() for d in dispatch.plan_dispatch(p)]
+        s = MemorySink()
+        measure.run_measurement(p, extra_sinks=[s], device="cpu")
+        assert plan == list(measure.last_dispatch()), plan
+        print(":".join(map(str, measure.last_dispatch()[1][1:])))
+        d = dual.DualFused(dual.plan_dual(p), device="cpu")
+        st, _ = d.step(d.init_state())
+        import tempfile, os
+        with tempfile.TemporaryDirectory() as tmp:
+            save_state(st, os.path.join(tmp, "c"), block_index=1)
+            st2, k = load_state(os.path.join(tmp, "c"), d.init_state())
+        assert k == 1 and all(torch.equal(a, b) for a, b in zip(st, st2))
         assert sys.modules["jax"] is None
         assert sys.modules["gpu_sdr_tpu"] is None
         assert not [m for m in sys.modules
@@ -312,7 +332,8 @@ def test_slice_runs_with_jax_blocked():
                                   "chirp_wavetable", "None",
                                   "channelizer_at", "device_replay:scan",
                                   "sharded_fused:channelizer_wavetable",
-                                  "host_pipeline:None"]
+                                  "host_pipeline:None",
+                                  "dual_fused:channelizer_wavetable"]
 
 
 def test_kernel_wrappers_count_no_cpu_launch():
@@ -336,9 +357,7 @@ def _dual(p):
 
 
 def _chirp_tx(p):
-    """A CHIRP loopback on both front ends (the dual VNA): the CHIRP
-    readout itself is ported (tests/test_torch_chirp_slice.py), two
-    front ends are not."""
+    """A CHIRP loopback on both front ends (the dual VNA)."""
     for a in (p.A_TXRX, p.A_RX2):
         a.wave_type, a.freq = [WaveType.CHIRP], [1000]
         a.chirp_f, a.chirp_t = [2000], [0.1]
@@ -353,9 +372,6 @@ def _mixed(p):
 
 @pytest.mark.parametrize("case, edit, kwargs", [
     ("hdf5", None, dict(filename="out.h5")),
-    ("mesh", _dual, dict(mesh=make_mesh((2, 1), devices=["cpu"] * 2))),
-    ("dual", _dual, {}),
-    ("chirp_tx", _chirp_tx, dict(channel=IdealChannel())),
     ("mixed", _mixed, {}),
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_unported_branches_raise(case, edit, kwargs):
@@ -365,3 +381,52 @@ def test_unported_branches_raise(case, edit, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         measure.run_measurement(p, extra_sinks=[MemorySink()],
                                 device="cpu", **kwargs)
+
+
+def _edited(edit):
+    """make_params(TONES, 2) with `edit`."""
+    p = make_params(WaveType.TONES, 2)
+    edit(p)
+    return p
+
+
+@pytest.mark.parametrize("case, edit, mesh_shape, channel, want", [
+    ("dual", _dual, None, False,
+     ("dual_fused", "channelizer_wavetable")),
+    ("mesh", _dual, (2, 1), False,
+     ("dual_sharded_fused", "channelizer_wavetable")),
+    ("chirp_tx", _chirp_tx, None, True, ("host_pipeline", None)),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_two_front_ends_match_jax(monkeypatch, case, edit, mesh_shape,
+                                  channel, want):
+    """The edits that raised before the dual front ends were ported:
+    both front ends in lock-step (on a (2, 1) CPU mesh too), and the
+    dual VNA through a channel model, one front end after the other;
+    each front end within 90 dB of the JAX package's."""
+    from gpu_sdr_tpu.parallel import make_mesh as jmake_mesh
+    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+    js, ts = JMemorySink(), MemorySink()
+    jmeasure.run_measurement(
+        _edited(edit), extra_sinks=[js],
+        channel=JIdealChannel() if channel else None,
+        mesh=jmake_mesh(mesh_shape, ("time", "channels"))
+        if mesh_shape else None)
+    jdisp = jmeasure.last_dispatch()
+    kw = (dict(mesh=make_mesh(mesh_shape, devices=["cpu"] * 2))
+          if mesh_shape else dict(device="cpu"))
+    measure.run_measurement(_edited(edit), extra_sinks=[ts],
+                            channel=IdealChannel() if channel else None,
+                            **kw)
+    disp = measure.last_dispatch()
+    assert disp == (("A_RX2",) + want, ("B_RX2",) + want)
+    assert [d[:2] for d in disp] == [d[:2] for d in jdisp]
+    codes = sorted({m.front_end_code for m in ts.metas})
+    assert codes == sorted({m.front_end_code for m in js.metas})
+    for code in codes:
+        def stream(sink):
+            return np.concatenate([d for m, d in zip(sink.metas,
+                                                     sink.packets)
+                                   if m.front_end_code == code])
+        j, t = stream(js), stream(ts)
+        assert t.shape == j.shape and len(t)
+        assert golden.snr_db(j, t) > 90.0
