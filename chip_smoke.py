@@ -183,7 +183,32 @@ and exits non-zero at the first phase that fails:
    blocks bit-identically.  Every ``run_measurement`` of the smoke, in
    every phase, is held against ``engine/dispatch.plan_dispatch``.
 
-Phases 4, 5, 7, 9, 11, 13, 13b, 15 and 17 are the main path.  Their
+18. HDF5 output, mixed wave types, a channel model, socket ingest and
+   NODSP through ``run_measurement``, the files in a temporary
+   directory on local disk (its free space checked, the files deleted):
+   TONES fused (10 x 6M blocks, 480 MB of data; #1), config 3 fused
+   (#11) and config 2 fused (#16) into a file and a keeping sink in one
+   run (the file's ``data`` the packets transposed bit for bit,
+   ``samples`` the rows, no ``errors`` rows, ``get_rx_info`` the
+   parameters), then each cell into a dropping sink and into the file
+   alone (Msps to the file's close, seconds of ``on_packet`` a block);
+   one RX carrying config 3's 100 DIRECT tones and config 2's sweep at
+   decim 100 (ppt 2,000,000), 10 x 4M blocks made on the card by the
+   port's generators and held on the host: exactly 10 launches of #7
+   and of #17, ``data`` and ``mixed_1`` each bit for bit its wave type's
+   host-fed run alone, and on a (2, 1) mesh >= 90 dB against the one
+   card; its state saved after 2 blocks, restored on the card and
+   continued bit for bit; config 3 host-fed through a delay, a resonator at each tone and
+   dropouts (4 blocks) bit for bit the run fed the channel's output
+   computed on the host, the ``errors`` rows the dropout blocks; a
+   producer thread streaming 10 config-3 blocks over 127.0.0.1 into
+   ``SocketIngestSource`` (the receiver built by g++ from
+   native/stream_ingest.cpp) bit for bit the ArraySource run, and one
+   gone after 6 blocks: aborted, 4 blocks short, the file shrunk and
+   stamped; NODSP host-fed and replayed, 5 x 4M blocks, bit for bit its
+   input.
+
+Phases 4, 5, 7, 9, 11, 13, 13b, 15, 17 and 18 are the main path.  Their
 CallbackSink checks rows ::97 of every packet (finite; PFB tones within
 1% of their amplitude; DIRECT rows within 2.5% of the TX amplitude, the
 sum of the other tones' leakage through the 400-tap FIR's stopband at
@@ -194,7 +219,8 @@ to its end, after a warm-up of each branch.  Every kernel launch
 counter is set to 0 just before each run and read just after it.
 The line before the last is a JSON object with one entry per kernel,
 all 19 (the channelizer's times are const-frame mode, the main path's,
-its ``config5_launches`` those of phase 13b's config-5 run;
+its ``config5_launches`` those of phase 13b's config-5 run; the
+kernels phase 18 runs, their ``io_launches`` there;
 its ``stream_*`` fields are stream mode; the DDC-family kernels carry
 their deep-FIR rows in ``deep``; the channelizers, #1 and #3-#5, their
 SNR against the float64 PFB over the whole block, ``snr_db``, and the
@@ -790,13 +816,14 @@ PLAN_CHECKS = []                    # each run_measurement's planned paths
 
 
 def run_path(dev, params, channel, pkt, n_blocks, block, channels,
-             source=None, mesh=None, sinks=()):
+             source=None, mesh=None, sinks=(), filename=None, h5=None):
     """One run_measurement (fed from `source` when given, on `mesh` when
-    given) with `pkt` as the CallbackSink's check, beside `sinks`: (pkt,
-    dispatch, Msps from the first sink start to the last end over
-    n_blocks blocks of `block` samples, seconds with set-up).  The
-    dispatch must be engine/dispatch.plan_dispatch's, asked just
-    before."""
+    given, into the HDF5 file `filename` when given) with `pkt` as the
+    CallbackSink's check, beside `sinks`: (pkt, dispatch, Msps from the
+    first sink start to the last end over n_blocks blocks of `block`
+    samples, the end the file's close where `h5` (an H5Timing) times it,
+    seconds with set-up).  The dispatch must be engine/dispatch.
+    plan_dispatch's, asked just before."""
     from gpu_sdr_tpu_torch import measure
     from gpu_sdr_tpu_torch.engine.dispatch import plan_dispatch
     from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
@@ -813,15 +840,18 @@ def run_path(dev, params, channel, pkt, n_blocks, block, channels,
             stamps.append(time.perf_counter())
 
     t0 = time.perf_counter()
-    measure.run_measurement(params, channel=channel, source=source,
-                            extra_sinks=[TimedSink(pkt), *sinks],
-                            device=dev, mesh=mesh)
+    fn = measure.run_measurement(params, channel=channel, source=source,
+                                 extra_sinks=[TimedSink(pkt), *sinks],
+                                 device=dev, mesh=mesh, filename=filename)
     wall = time.perf_counter() - t0
     check(measure.last_dispatch() == plan, f"dispatch "
           f"{measure.last_dispatch()}, planned {plan}")
+    check(fn == (None if filename is None else
+                 os.path.splitext(filename)[0] + ".h5"), f"file name {fn}")
     PLAN_CHECKS.append(plan)
     check(pkt.n == n_blocks, f"{pkt.n} of {n_blocks} packets")
-    msps = n_blocks * block / (stamps[-1] - stamps[0]) / 1e6
+    end = stamps[-1] if h5 is None else max(stamps[-1], h5.ended)
+    msps = n_blocks * block / (end - stamps[0]) / 1e6
     return pkt, measure.last_dispatch(), msps, wall
 
 
@@ -3263,6 +3293,526 @@ def phase_new_main_path(dev):
     return launches
 
 
+# the sizes of the HDF5, mixed, channel, socket and NODSP phase
+IO_BLOCKS = 10                      # the HDF5 cells, mixed, socket ingest
+IO_SHORT = 6                        # blocks a short socket producer sends
+CH_BLOCKS = 4                       # the channel model's run (host numpy)
+NODSP_BLOCKS = 5
+IO_FREE_BYTES = 4 << 30             # free space the phase's files need
+IO_WAIT_S = 60.0                    # each socket wait
+
+
+class H5Timing:
+    """Times client/files.H5Sink for the runs inside it: the seconds of
+    each on_packet (the write into the file) and when the last on_end
+    (the file's close) returned."""
+
+    def __enter__(self):
+        from gpu_sdr_tpu_torch.client.files import H5Sink
+        self.cls = H5Sink
+        self.orig = (H5Sink.on_packet, H5Sink.on_end)
+        self.packet_s, self.ended = [], 0.0
+        on_packet, on_end = self.orig
+
+        def timed_packet(sink, meta, data):
+            t0 = time.perf_counter()
+            on_packet(sink, meta, data)
+            self.packet_s.append(time.perf_counter() - t0)
+
+        def timed_end(sink):
+            on_end(sink)
+            self.ended = time.perf_counter()
+        H5Sink.on_packet, H5Sink.on_end = timed_packet, timed_end
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.on_packet, self.cls.on_end = self.orig
+        return False
+
+
+class Keep:
+    """A packet callback keeping every packet (a copy), in order."""
+
+    def __init__(self, rows: int, channels: int):
+        self.rows, self.channels = rows, channels
+        self.packets, self.n = [], 0
+
+    def __call__(self, meta, d):
+        check(meta.packet_number == self.n, "packet order")
+        check(d.shape == (self.rows, self.channels) and
+              d.dtype == np.complex64, f"packet {self.n}: {d.shape} "
+              f"{d.dtype}")
+        self.packets.append(d.copy())
+        self.n += 1
+
+    @property
+    def data(self) -> np.ndarray:
+        return np.concatenate(self.packets)
+
+
+class Drop:
+    """A packet callback that drops every packet."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self, meta, d):
+        self.n += 1
+
+
+def host_blocks(x: np.ndarray):
+    """A Source serving consecutive blocks of `x` that is not a
+    recording: run_measurement feeds it through the host pipeline."""
+    from gpu_sdr_tpu_torch.engine.sources import Source
+
+    class HostBlocks(Source):
+        def blocks(self, block_len, n_blocks):
+            for i in range(n_blocks):
+                yield x[i * block_len:(i + 1) * block_len]
+    return HostBlocks()
+
+
+def disk_of(path: str) -> str:
+    """The mount holding `path`: its device, mount point and type."""
+    best = ("?", "/", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            if path.startswith(mnt) and len(mnt) >= len(best[1]):
+                best = (dev, mnt, fstype)
+    return f"{best[0]} on {best[1]} ({best[2]})"
+
+
+def same_bits(name, ref, got):
+    check(ref.shape == got.shape and ref.dtype == got.dtype,
+          f"{name}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
+    check(bool(np.isfinite(got).all()), f"{name}: non-finite")
+    check(np.array_equal(ref, got), f"{name}: not bit-identical")
+    print(f"{name}: bit-identical, {got.shape}")
+
+
+def check_file(fn, params, rx_name, sink_data, dataset="data",
+               errors=0):
+    """An HDF5 file of run_measurement: `dataset` is `sink_data`
+    transposed bit for bit, its `samples` attribute the rows written,
+    `errors` holds `errors` rows, and the attributes read back through
+    the port's get_rx_info give the parameters."""
+    from gpu_sdr_tpu_torch.client import h5
+    from gpu_sdr_tpu_torch.client import files
+    params.validate()
+    with h5.File(fn, "r") as f:
+        g = f[f"raw_data{params.usrp_number}"][rx_name]
+        data = g[dataset][()]
+        samples = int(g[dataset].attrs["samples"])
+        n_err = g["errors"].shape[0]
+    same_bits(f"{os.path.basename(fn)} {dataset} vs the sink", sink_data.T,
+              data)
+    check(samples == data.shape[1], f"samples {samples} of {data.shape}")
+    check(n_err == errors, f"{n_err} errors rows, expected {errors}")
+    check(files.get_rx_info(fn, rx_name) == params.antenna(rx_name),
+          f"{fn}: get_rx_info differs from the parameters")
+    return data
+
+
+def io_h5_cell(dev, tmp, name, params, n, block, rows, channels):
+    """One HDF5 cell: a checked run into a file beside a MemorySink-like
+    keeper (launches counted), then the same cell twice more in this
+    process, into a dropping sink and into the file alone (Msps,
+    seconds of on_packet a block).  Returns (launches, numbers)."""
+    fn = os.path.join(tmp, name.replace(" ", "_") + ".h5")
+    (keep, disp, _msps, _wall), counts = counted(
+        lambda: run_path(dev, params(n), None, Keep(rows, channels), n,
+                         block, channels, filename=fn))
+    check_file(fn, params(n), "A_RX2", keep.data)
+    os.remove(fn)
+    del keep
+    _, _, drop_msps, _ = run_path(dev, params(n), None, Drop(), n, block,
+                                  channels)
+    with H5Timing() as h5:
+        _, _, h5_msps, _ = run_path(dev, params(n), None, Drop(), n,
+                                    block, channels, filename=fn, h5=h5)
+    size = os.path.getsize(fn)
+    os.remove(fn)
+    per = np.array(h5.packet_s)
+    print(f"HDF5 {name}: {disp}; {drop_msps:.1f} Msps into a dropping "
+          f"sink, {h5_msps:.1f} Msps into the H5Sink ({size} bytes); "
+          f"on_packet {np.median(per):.4f} s a block (median; "
+          f"{per.min():.4f}-{per.max():.4f}), "
+          f"{size / per.sum() / 1e9:.2f} GB/s")
+    return counts, dict(dispatch=disp, drop_msps=drop_msps,
+                        h5_msps=h5_msps, write_s=float(np.median(per)),
+                        bytes=size)
+
+
+def mixed_params(n_blocks: int, mesh_ok=True):
+    """One RX at 100 Msps carrying config 3's 100 DIRECT tones and config
+    2's sweep at the shared decim of 100 (ppt 2,000,000: 2 points a
+    4,000,000-sample block), `n_blocks` blocks."""
+    from gpu_sdr_tpu_torch.params import (AntMode, AntennaParams,
+                                          UsrpParams, WaveType)
+    n = len(CONFIG3)
+    p = UsrpParams()
+    p.A_RX2 = AntennaParams(
+        mode=AntMode.RX, rate=D_RATE, buffer_len=D_BLOCK, decim=D_DECIM,
+        pf_average=D_AVG, samples=n_blocks * D_BLOCK,
+        freq=list(CONFIG3) + CONFIG2["freq"],
+        wave_type=[WaveType.DIRECT] * n + [WaveType.CHIRP],
+        chirp_f=[0] * n + CONFIG2["chirp_f"],
+        chirp_t=[0.0] * n + CONFIG2["chirp_t"],
+        swipe_s=[0] * n + CONFIG2["swipe_s"])
+    return p
+
+
+def io_mixed(dev, tmp, n):
+    """The mixed cell: comb + chirp made on the card by the port's
+    generators and held on the host, through run_measurement into a
+    file (`data`, `mixed_1`), each group bit for bit against its wave
+    type's host-fed run alone on the same samples; on a (2, 1) mesh of
+    the card against the single-card output.  Returns (launches,
+    numbers)."""
+    from gpu_sdr_tpu_torch.client import h5
+    import torch
+    from gpu_sdr_tpu_torch.engine import make_demodulator, make_generator
+    from gpu_sdr_tpu_torch.parallel import make_mesh
+    from gpu_sdr_tpu_torch.params import UsrpParams
+    comb = make_generator(direct_params(CONFIG3, 0.01, n).A_TXRX, D_BLOCK,
+                          dev)
+    sweep = make_generator(chirp_params(n, D_BLOCK).A_TXRX, D_BLOCK, dev)
+    x = np.concatenate([a + b for a, b in zip(comb.blocks(n),
+                                              sweep.blocks(n))])
+    del comb, sweep
+    p = mixed_params(n)
+    groups = make_demodulator(p.A_RX2, dev).groups
+    rows0, rows1 = D_BLOCK // D_DECIM, D_BLOCK // (
+        groups[1].demod.plan.stride)
+    fn = os.path.join(tmp, "mixed.h5")
+    (keep, disp, msps, wall), counts = counted(
+        lambda: run_path(dev, p, None, Keep(rows0, len(CONFIG3)), n,
+                         D_BLOCK, len(CONFIG3), source=host_blocks(x),
+                         filename=fn))
+    print(f"mixed: {disp}, {n} blocks of {D_BLOCK} samples, "
+          f"{counts['ddc']} ddc and {counts['lockin_table']} lockin_table "
+          f"launches; {msps:.1f} Msps into the file, {wall:.3f} s with "
+          "set-up")
+    check(disp == (("A_RX2", "host_pipeline_mixed", None),),
+          f"mixed dispatch {disp}")
+    torch.cuda.empty_cache()
+    check_file(fn, p, "A_RX2", keep.data)
+    with h5.File(fn, "r") as f:
+        chirp = f["raw_data0"]["A_RX2"]["mixed_1"][()].T
+    os.remove(fn)
+    for k, g in enumerate(groups):
+        q = UsrpParams()
+        q.A_RX2 = g.params
+        q.A_RX2.samples = n * D_BLOCK
+        alone, d, _m, _w = run_path(dev, q, None,
+                                    Keep(g.demod.plan.out_rows,
+                                         g.demod.n_channels),
+                                    n, D_BLOCK, g.demod.n_channels,
+                                    source=host_blocks(x))
+        check(d == (("A_RX2", "host_pipeline", None),), f"dispatch {d}")
+        same_bits(f"mixed group {k} ({g.wave_type.value}) vs its host-fed "
+                  "run alone", alone.data, keep.data if k == 0 else chirp)
+        torch.cuda.empty_cache()
+    check(chirp.shape == (n * 2, 1) and rows1 == 2, f"{chirp.shape}")
+    mesh = make_mesh((2, 1), devices=[dev, dev])
+    fn = os.path.join(tmp, "mixed_mesh.h5")
+    (mkeep, mdisp, mmsps, _w), mcounts = counted(
+        lambda: run_path(dev, p, None, Keep(rows0, len(CONFIG3)), n,
+                         D_BLOCK, len(CONFIG3), source=host_blocks(x),
+                         mesh=mesh, filename=fn))
+    with h5.File(fn, "r") as f:
+        mchirp = f["raw_data0"]["A_RX2"]["mixed_1"][()].T
+    os.remove(fn)
+    snr0 = snr_db(keep.data, mkeep.data)
+    snr1 = snr_db(chirp, mchirp)
+    print(f"mixed on (2, 1): {mdisp}, {mmsps:.1f} Msps; SNR vs one card "
+          f"{snr0:.1f} dB (DIRECT), {snr1:.1f} dB (CHIRP); launches "
+          f"{ {k: v for k, v in mcounts.items() if v} }")
+    check(mdisp == disp, f"mesh dispatch {mdisp}")
+    check(min(snr0, snr1) >= SNR_BAR_DB, f"mixed mesh {snr0:.1f} / "
+          f"{snr1:.1f} dB")
+    del mesh, mkeep
+    torch.cuda.empty_cache()
+    io_mixed_resume(dev, tmp, p, x)
+    _, _, drop_msps, _ = run_path(dev, p, None, Drop(), n, D_BLOCK,
+                                  len(CONFIG3), source=host_blocks(x))
+    print(f"mixed: {drop_msps:.1f} Msps into a dropping sink, {msps:.1f} "
+          "into the file")
+    torch.cuda.empty_cache()
+    return counts, dict(drop_msps=drop_msps, h5_msps=msps,
+                        mesh_h5_msps=mmsps)
+
+
+def io_mixed_resume(dev, tmp, p, x, k=RESUME_BLOCKS):
+    """The mixed demodulator's state (a tuple of its groups' states)
+    saved after k[0] blocks, restored on the card into a fresh
+    template and continued k[1] blocks, bit for bit the uninterrupted
+    stream."""
+    import torch
+    from gpu_sdr_tpu_torch.engine import (load_state, make_demodulator,
+                                          save_state)
+    d = make_demodulator(p.A_RX2, dev)
+    L = d.plan.block_len
+
+    def run(st, a, b):
+        outs = []
+        for i in range(a, b):
+            st, ys = d.step(st, torch.from_numpy(x[i * L:(i + 1) * L]).to(
+                dev))
+            outs.append([y.cpu().numpy() for y in ys])
+        return st, outs
+    _, ref = run(d.init_state(), 0, sum(k))
+    st, _ = run(d.init_state(), 0, k[0])
+    path = os.path.join(tmp, "mixed_state")
+    save_state(st, path, block_index=k[0])
+    st, at = load_state(path, like=d.init_state())
+    check(at == k[0], f"resumed at {at}")
+    _, got = run(st, k[0], sum(k))
+    for a, b in zip(ref[k[0]:], got):
+        for ga, gb in zip(a, b):
+            check(np.array_equal(ga, gb), "mixed resume: not bit-identical")
+    print(f"mixed state saved after {k[0]} blocks, restored on the card "
+          f"and continued {k[1]}: bit-identical ({len(d.groups)} groups)")
+
+
+def io_channel(dev, tmp, n):
+    """Config 3 host-fed through ChainChannel(DelayChannel,
+    make_resonator_channel (a resonator at each tone), DropoutChannel)
+    into a file, bit for bit the run fed the same channel output
+    computed on the host; the `errors` rows are the dropout events.
+    Returns (launches, numbers)."""
+    from gpu_sdr_tpu_torch.client import h5
+    from gpu_sdr_tpu_torch.engine import make_generator
+    from gpu_sdr_tpu_torch.engine import channel as ch
+
+    def chain():
+        return ch.ChainChannel([
+            ch.DelayChannel(12_345),
+            ch.make_resonator_channel(D_RATE, [
+                dict(f0=float(f), Qr=1e4, Qe_re=2e4) for f in CONFIG3]),
+            ch.DropoutChannel(rate=D_RATE, events_per_second=30.0,
+                              dropout_len=1000, seed=31)])
+    p = direct_params(CONFIG3, 0.01, n)
+    rows = D_BLOCK // D_DECIM
+    fn = os.path.join(tmp, "channel.h5")
+    t0 = time.perf_counter()
+    (keep, disp, msps, wall), counts = counted(
+        lambda: run_path(dev, p, chain(), Keep(rows, len(CONFIG3)), n,
+                         D_BLOCK, len(CONFIG3), filename=fn))
+    check(disp == (("A_RX2", "host_pipeline", None),),
+          f"channel dispatch {disp}")
+    t1 = time.perf_counter()
+    ref_ch, outs, events = chain(), [], []
+    for blk in make_generator(p.A_TXRX, D_BLOCK, dev).blocks(n):
+        outs.append(ref_ch(blk))
+        events.append(ref_ch.take_errors())
+    host_s = time.perf_counter() - t1
+    check(sum(events) > 0, "no dropout events")
+    with h5.File(fn, "r") as f:
+        errs = f["raw_data0"]["A_RX2"]["errors"][()].tolist()
+    check(errs == [[k * rows, (k + 1) * rows]
+                   for k, e in enumerate(events) if e],
+          f"errors rows {errs}, dropout events {events}")
+    check_file(fn, p, "A_RX2", keep.data, errors=len(errs))
+    os.remove(fn)
+    ref, d, _m, _w = run_path(dev, receiver_only(direct_params(
+        CONFIG3, 0.01, n)), None, Keep(rows, len(CONFIG3)), n, D_BLOCK,
+        len(CONFIG3), source=host_blocks(np.concatenate(outs)))
+    check(d == (("A_RX2", "host_pipeline", None),), f"dispatch {d}")
+    same_bits("channel run vs the host-computed channel output",
+              ref.data, keep.data)
+    print(f"channel: {disp}, {n} blocks, {counts['ddc']} ddc launches, "
+          f"dropout events {events}; {msps:.1f} Msps streaming (the "
+          f"channel on the host: {host_s / n:.2f} s a block), "
+          f"{t1 - t0:.1f} s")
+    return counts, dict(msps=msps, channel_s=host_s / n)
+
+
+def io_socket(dev, tmp, n, short):
+    """A producer thread streams `n` config-3 blocks over 127.0.0.1 into
+    SocketIngestSource; the run is bit for bit the ArraySource run
+    through run_pipeline.  Then a producer that stops after `short`
+    blocks: aborted, the shortfall counted, the file shrunk to the rows
+    delivered and stamped.  Returns (launches, numbers)."""
+    import socket
+    import threading
+
+    from gpu_sdr_tpu_torch.client import h5
+    from gpu_sdr_tpu_torch.engine import (make_demodulator, make_generator,
+                                          run_pipeline)
+    from gpu_sdr_tpu_torch.engine.ingest import SocketIngestSource
+    from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
+    from gpu_sdr_tpu_torch.engine.sources import ArraySource
+    from gpu_sdr_tpu_torch.server import native
+    t0 = time.perf_counter()
+    native.load_library()
+    print(f"socket: ingest library {native.library_path().name} "
+          f"({'built by g++' if native.built_here else 'cached'}, "
+          f"{time.perf_counter() - t0:.2f} s)")
+    p = direct_params(CONFIG3, 0.01, n)
+    x = np.concatenate(list(make_generator(p.A_TXRX, D_BLOCK,
+                                           dev).blocks(n)))
+    rows = D_BLOCK // D_DECIM
+    ref = Keep(rows, len(CONFIG3))
+    p.validate()
+    run_pipeline(make_demodulator(p.A_RX2, dev), ArraySource(x),
+                 [CallbackSink(ref)])
+
+    def stream(k):
+        src = SocketIngestSource(block_len=D_BLOCK, queue_len=n + 2,
+                                 timeout=IO_WAIT_S)
+        wire = {}
+
+        def send():
+            t = time.perf_counter()
+            with socket.create_connection(("127.0.0.1", src.port),
+                                          timeout=IO_WAIT_S) as c:
+                c.sendall(memoryview(x[:k * D_BLOCK]).cast("B"))
+            wire["s"] = time.perf_counter() - t
+        th = threading.Thread(target=send, daemon=True)
+        th.start()
+        return src, th, wire
+
+    def joined(src, th):
+        th.join(timeout=IO_WAIT_S)
+        src.close()
+        check(not th.is_alive(), "the socket producer did not finish")
+
+    src, th, wire = stream(n)
+    try:
+        (got, disp, msps, wall), counts = counted(
+            lambda: run_path(dev, receiver_only(direct_params(
+                CONFIG3, 0.01, n)), None, Keep(rows, len(CONFIG3)), n,
+                D_BLOCK, len(CONFIG3), source=src))
+        stats = src.stats
+    finally:
+        joined(src, th)
+    check(disp == (("A_RX2", "host_pipeline", None),),
+          f"socket dispatch {disp}")
+    check(not src.aborted and stats["overflows"] == 0 and
+          stats["padded"] == 0, f"socket stats {stats}")
+    same_bits("socket ingest vs the ArraySource run", ref.data, got.data)
+    wire_msps = n * D_BLOCK / wire["s"] / 1e6
+    print(f"socket: {disp}, {n} blocks, {counts['ddc']} ddc launches; "
+          f"{msps:.1f} Msps streaming ({wire_msps:.1f} Msps on the wire, "
+          f"{stats['fragments']} recv calls), {wall:.3f} s with set-up")
+
+    src, th, _wire = stream(short)
+    fn = os.path.join(tmp, "short.h5")
+    try:
+        short_keep, sdisp, _m, _w = run_path(
+            dev, receiver_only(direct_params(CONFIG3, 0.01, n)), None,
+            Keep(rows, len(CONFIG3)), short, D_BLOCK, len(CONFIG3),
+            source=src, filename=fn)
+    finally:
+        joined(src, th)
+    check(src.aborted and src.shortfall_blocks == n - short,
+          f"short producer: aborted {src.aborted}, shortfall "
+          f"{src.shortfall_blocks}")
+    with h5.File(fn, "r") as f:
+        g = f["raw_data0"]["A_RX2"]
+        shape, stamp = g["data"].shape, (bool(g.attrs["aborted"]),
+                                         int(g.attrs["shortfall_blocks"]))
+    os.remove(fn)
+    check(shape == (len(CONFIG3), short * rows) and stamp == (True,
+                                                              n - short),
+          f"short file {shape}, stamp {stamp}")
+    same_bits(f"socket, {short} of {n} blocks, vs the ArraySource run",
+              ref.data[:short * rows], short_keep.data)
+    print(f"socket, producer gone after {short} of {n} blocks: aborted, "
+          f"shortfall {n - short}, file {shape}, stamped {stamp}")
+    return counts, dict(msps=msps, wire_msps=wire_msps)
+
+
+def io_nodsp(dev, n):
+    """NODSP: the raw stream, host-fed and replayed (scan), bit for bit
+    the input.  Returns (launches, numbers)."""
+    from gpu_sdr_tpu_torch.engine.sources import ArraySource
+    from gpu_sdr_tpu_torch.params import (AntMode, AntennaParams,
+                                          UsrpParams, WaveType)
+    rng = np.random.default_rng(4321)
+    x = (rng.standard_normal(n * D_BLOCK, dtype=np.float32) +
+         1j * rng.standard_normal(n * D_BLOCK, dtype=np.float32)
+         ).astype(np.complex64)
+    p = UsrpParams()
+    p.A_RX2 = AntennaParams(mode=AntMode.RX, rate=D_RATE,
+                            buffer_len=D_BLOCK, samples=n * D_BLOCK,
+                            wave_type=[WaveType.NODSP])
+    out = {}
+    for name, src, want in (
+            ("host-fed", host_blocks(x), ("host_pipeline", None)),
+            ("replayed", ArraySource(x), ("device_replay", "scan"))):
+        (keep, disp, msps, _w), counts = counted(
+            lambda: run_path(dev, p, None, Keep(D_BLOCK, 1), n, D_BLOCK, 1,
+                             source=src))
+        check(disp == (("A_RX2",) + want,), f"NODSP dispatch {disp}")
+        check(all(v == 0 for v in counts.values()),
+              f"NODSP launched {counts}")
+        same_bits(f"NODSP {name} vs its input", x[:, None], keep.data)
+        print(f"NODSP {name}: {disp}, {n} blocks, {msps:.1f} Msps")
+        out[name] = msps
+    return out
+
+
+def phase_io_main_path(dev):
+    """HDF5 output, mixed wave types, a channel model, socket ingest and
+    NODSP through run_measurement on the card, each run held against
+    plan_dispatch (run_path) and its launches counted.  HDF5: TONES
+    fused (#1, 10 x 6M blocks, 480 MB of data), config 3 fused (#11) and
+    config 2 fused (#16), each file's data bit for bit the packets,
+    `samples` the rows, no errors rows, get_rx_info the parameters; each
+    cell's Msps into a dropping sink and into the file, in this process.
+    Mixed: config 3's tones and config 2's sweep on one RX (exactly 10
+    launches of #7 and of #17), each group bit for bit its wave type
+    alone, and >= 90 dB on a (2, 1) mesh.  Channel: config 3 through
+    delay, resonators and dropouts, bit for bit the host-computed
+    output, the errors rows the dropout events.  Socket: bit for bit the
+    ArraySource run, and a producer gone after 6 of 10 blocks aborts
+    and shrinks the file.  NODSP: the input, bit for bit.  The files
+    go to a temporary directory, deleted after."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"files in {tmp}: {disk_of(os.path.realpath(tmp))}, "
+              f"{free / 1e9:.1f} GB free")
+        check(free >= IO_FREE_BYTES, f"{free} bytes free in {tmp}")
+        numbers, launches = {}, {}
+
+        def expect(name, counts, want):
+            check(all(counts[k] == v for k, v in want.items()) and
+                  all(v == 0 for k, v in counts.items() if k not in want),
+                  f"{name} launches {counts}, expected {want}")
+            for k, v in want.items():
+                launches[k] = launches.get(k, 0) + v
+
+        n = IO_BLOCKS
+        for name, params, block, rows, chans, kernel in (
+                ("TONES fused", loopback_params, BLOCK, FRAMES, NFFT,
+                 "channelizer"),
+                ("config 3 fused", lambda k: direct_params(CONFIG3, 0.01,
+                                                           k),
+                 D_BLOCK, D_ROWS, len(CONFIG3), "fold"),
+                ("config 2 fused", chirp_params, C_BLOCK, C_ROWS, 1,
+                 "lockin_self")):
+            counts, numbers[name] = io_h5_cell(dev, tmp, name, params, n,
+                                               block, rows, chans)
+            expect(f"HDF5 {name}", counts, {kernel: n})
+        counts, numbers["mixed"] = io_mixed(dev, tmp, n)
+        expect("mixed", counts, {"ddc": n, "lockin_table": n})
+        counts, numbers["channel"] = io_channel(dev, tmp, CH_BLOCKS)
+        expect("channel", counts, {"ddc": CH_BLOCKS})
+        counts, numbers["socket"] = io_socket(dev, tmp, n, IO_SHORT)
+        expect("socket", counts, {"ddc": n})
+        numbers["NODSP"] = io_nodsp(dev, NODSP_BLOCKS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("io numbers:", json.dumps(numbers, default=str))
+    return launches
+
+
 def check_line(kernels) -> None:
     """Every kernel of the repo is in the kernels line once, launched
     by its main path's run, with every key of the line."""
@@ -3323,6 +3873,8 @@ def main() -> int:
         rows.update(timed("new kernels", phase_new_kernels, dev))
         launches.update(timed("new kernels' entry points",
                               phase_new_main_path, dev))
+        io_launches = timed("HDF5, mixed, channel, socket and NODSP",
+                            phase_io_main_path, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3373,6 +3925,9 @@ def main() -> int:
             k["deep"] = deep[k["name"]]
     kernels[[k["name"] for k in kernels].index("ddc")]["deep_launches"] = \
         deep_launches
+    for k in kernels:           # the HDF5 / mixed / channel / socket runs
+        if k["name"] in io_launches:
+            k["io_launches"] = io_launches[k["name"]]
     check_line(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

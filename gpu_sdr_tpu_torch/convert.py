@@ -283,3 +283,40 @@ def dual_state(jax_states, dual):
         raise ValueError(f"{len(jax_states)} chain states for "
                          f"{len(dual.chains)} chains")
     return [fused_state(st, ch) for st, ch in zip(jax_states, dual.chains)]
+
+
+# ---------------------------------------------------------------------
+# Mixed wave types (gpu_sdr_tpu/engine/demodulator.MixedDemodulator): a
+# tuple of the groups' states.
+
+
+def mixed_state(jax_states, mdemod):
+    """A JAX MixedDemodulator's state (one state a group) -> the port's
+    MixedDemodulator `mdemod`'s, group by group through the converter of
+    the group's mode: the host-fed demodulators' (ddc_state, host_spare,
+    chirp_state; NODSP carries nothing) or, on a mesh, the sharded ones
+    (sharded_ddc_state, sharded_pfb_state, sharded_chirp_state).  Where
+    JAX's CHIRP group carries the stream position alone (its plain
+    lock-in step) and the port's takes the table step, the oscillator
+    block is the position's block: the period is whole blocks."""
+    from .params import WaveType
+    if len(jax_states) != len(mdemod.groups):
+        raise ValueError(f"{len(jax_states)} group states for "
+                         f"{len(mdemod.groups)} groups")
+    out = []
+    for st, g, like in zip(jax_states, mdemod.groups, mdemod.init_state()):
+        d, w = g.demod, g.wave_type
+        if w == WaveType.NODSP:
+            out.append(())
+        elif d.sharded is not None:
+            out.append(sharded_ddc_state(st, d.sharded)
+                       if w == WaveType.DIRECT else
+                       sharded_chirp_state(st) if w == WaveType.CHIRP
+                       else sharded_pfb_state(st, d.sharded))
+        else:
+            s = _demod_state(st, g.params, d.device)
+            if w == WaveType.CHIRP and isinstance(like, tuple) and \
+                    not isinstance(s, tuple):
+                s = (s, s // d.plan.block_len)
+            out.append(s)
+    return tuple(out)

@@ -6,11 +6,14 @@ once per complex64 block on the demodulator's device; every mode emits
 a (out_rows, n_channels) tensor per block (sample-major, channel-minor,
 the reference's interleaved layout, cpp/USRP_demodulator.cpp:422-433).
 
-Ported: TONES (channelizer + tone select), NOISE (full spectrum),
-DIRECT (fused multi-tone DDC + decimating FIR) and CHIRP (integer-phase
-chirp mix-down + lock-in); each also under a mesh (``make_demodulator(p,
-mesh=...)``: the sharded steps of parallel/, whose output is a
-parallel.mesh.Sharded block the pipeline's fetch gathers).
+Every mode is ported: TONES (channelizer + tone select), NOISE (full
+spectrum), DIRECT (fused multi-tone DDC + decimating FIR), CHIRP
+(integer-phase chirp mix-down + lock-in) and NODSP (raw passthrough);
+all but NODSP also under a mesh (``make_demodulator(p, mesh=...)``: the
+sharded steps of parallel/, whose output is a parallel.mesh.Sharded
+block the pipeline's fetch gathers).  An antenna of mixed wave types
+gets a :class:`MixedDemodulator`: one demodulator a wave type over the
+same block, on one device or a mesh.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,8 +31,8 @@ from ..ops import lockin as lockin_ops
 from ..ops import pfb as pfb_ops
 from ..ops.lockin_table import lockin_table
 from ..ops.presum import pfb_frames_fused
-from ..params import AntennaParams, WaveType
-from .planner import BlockPlan, plan_blocks
+from ..params import DEFAULT_BUFFER_LEN, AntennaParams, WaveType
+from .planner import BlockPlan, _commensurate, mode_stride, plan_blocks
 
 
 @dataclasses.dataclass
@@ -268,6 +271,18 @@ def _build_chirp_sharded(p: AntennaParams, plan: BlockPlan,
                        device=mesh.first, mesh=mesh, sharded=sc)
 
 
+def _build_nodsp(plan: BlockPlan, device) -> Demodulator:
+    """NODSP: the raw stream, one channel (reference process_nodsp,
+    cpp/USRP_demodulator.cpp:335-339).  The output is a view of the
+    block: the pipeline's fetch copies it before the block is freed."""
+
+    def step(state, x):
+        return state, x[:, None]
+
+    return Demodulator(plan=plan, n_channels=1, init_state=lambda: (),
+                       step=step, wave_type=WaveType.NODSP, device=device)
+
+
 def _build_sharded(p: AntennaParams, plan: BlockPlan, w: WaveType,
                    mesh) -> Demodulator:
     if w == WaveType.DIRECT:
@@ -280,20 +295,9 @@ def _build_sharded(p: AntennaParams, plan: BlockPlan, w: WaveType,
         f"sharded demodulation for {w} not implemented")
 
 
-def make_demodulator(p: AntennaParams, device=None,
-                     mesh=None) -> Demodulator:
-    """Build the streaming demodulator for one RX antenna on `device`
-    (the factory switch of the reference ctor,
-    cpp/USRP_demodulator.cpp:56-326).  With `mesh` (parallel.mesh.Mesh)
-    every mode but NODSP runs sharded over its devices: ``step`` takes a
-    block on the mesh's first device (or a per-shard grid) and returns a
-    parallel.mesh.Sharded result, and `device` is the mesh's first."""
-    w = p.wave_type[0] if p.wave_type else WaveType.NODSP
-    if any(x != w for x in p.wave_type):
-        raise NotImplementedError(
-            "mixed wave types on one antenna are not ported yet (ROADMAP "
-            "Queue 1 item 3)")
-    plan = plan_blocks(p)
+def _build_for(p: AntennaParams, plan: BlockPlan, w: WaveType, device,
+               mesh) -> Demodulator:
+    """The demodulator of one wave type on `device`, or over `mesh`."""
     if mesh is not None:
         return _build_sharded(p, plan, w, mesh)
     if device is None:
@@ -305,6 +309,138 @@ def make_demodulator(p: AntennaParams, device=None,
     if w == WaveType.CHIRP:
         return _build_chirp(p, plan, device)
     if w == WaveType.NODSP:
-        raise NotImplementedError(
-            "NODSP passthrough is not ported yet (ROADMAP Queue 1 item 3)")
+        return _build_nodsp(plan, device)
     raise NotImplementedError(f"demodulation for {w} not implemented")
+
+
+@dataclasses.dataclass
+class MixedGroup:
+    """One homogeneous sub-stream of a mixed-mode antenna."""
+
+    wave_type: WaveType
+    channel_idx: Tuple[int, ...]    # original positions in p.freq
+    demod: Demodulator              # shares the common block geometry
+    params: AntennaParams           # the homogeneous sub-antenna
+
+
+@dataclasses.dataclass
+class MixedDemodulator:
+    """One demodulator a wave type over the same block (port of
+    gpu_sdr_tpu/engine/demodulator.MixedDemodulator).
+
+    The reference rejects mixed wave types on one antenna
+    (cpp/USRP_demodulator.cpp:36-39).  Here each homogeneous group runs
+    its own demodulator on a common block commensurate with every
+    group's stride, so e.g. a DIRECT readout and a CHIRP sweep share one
+    RX stream.  ``step(states, x) -> (states, outputs)``: a tuple of the
+    groups' states and of their (rows_g, C_g) outputs; every group reads
+    the same block and none writes into it.  H5 layout: group 0 writes
+    `data`, group k > 0 `mixed_<k>` (client/files.H5Sink)."""
+
+    plan: BlockPlan                 # common geometry (stride = lcm)
+    groups: Tuple[MixedGroup, ...]
+    init_state: Callable[[], Any]
+    step: Callable[[Any, torch.Tensor], Tuple[Any, Tuple[Any, ...]]]
+    device: torch.device
+    mesh: Optional[Any] = None
+    wave_type: WaveType = WaveType.NODSP
+
+    @property
+    def n_channels(self) -> int:
+        return sum(g.demod.n_channels for g in self.groups)
+
+
+def _build_mixed(p: AntennaParams, samples, device,
+                 mesh=None) -> MixedDemodulator:
+    """Partition the channel list by wave type, in first-seen order, and
+    run every group's demodulator on the same block.  The common block
+    is the multiple of every group's stride (times the time shards under
+    `mesh`, so each group's sharded demodulator splits it evenly) nearest
+    buffer_len."""
+    order: List[WaveType] = []
+    members: Dict[WaveType, List[int]] = {}
+    for i, w in enumerate(p.wave_type):
+        if w not in members:
+            members[w] = []
+            order.append(w)
+        members[w].append(i)
+    n_all = len(p.wave_type)
+
+    def _sub(lst, idx):
+        """Subset a per-channel list; a list shorter than the channel
+        count (one chirp_f for the single CHIRP channel) is taken in
+        listed order."""
+        if not lst:
+            return []
+        if len(lst) == n_all:
+            return [lst[i] for i in idx]
+        return list(lst[:len(idx)])
+
+    subs = []
+    for w in order:
+        idx = members[w]
+        chirp = w == WaveType.CHIRP
+        sub = dataclasses.replace(
+            p, freq=_sub(p.freq, idx), wave_type=[w] * len(idx),
+            ampl=_sub(p.ampl, idx),
+            chirp_f=_sub(p.chirp_f, idx) if chirp else list(p.chirp_f or []),
+            chirp_t=_sub(p.chirp_t, idx) if chirp else list(p.chirp_t or []),
+            swipe_s=_sub(p.swipe_s, idx) if chirp else list(p.swipe_s or []))
+        if chirp and len(idx) > 1:
+            raise NotImplementedError(
+                "Multiple chirp demodulation not implemented (matches "
+                "reference)")
+        subs.append((w, tuple(idx), sub))
+
+    q = 1
+    for _w, _idx, sub in subs:
+        q = math.lcm(q, mode_stride(sub))
+    t_shards = mesh.T if mesh is not None else 1
+    block = _commensurate(p.buffer_len or DEFAULT_BUFFER_LEN, q * t_shards)
+    total = int(samples if samples is not None else p.samples)
+    if total <= 0:
+        total = block
+    n_blocks = max(1, math.ceil(total / block))
+
+    groups = []
+    for w, idx, sub in subs:
+        sg = mode_stride(sub)
+        gplan = BlockPlan(block_len=block, stride=sg, out_rows=block // sg,
+                          n_blocks=n_blocks, total_samples=n_blocks * block)
+        gd = _build_for(sub, gplan, w, device, mesh)
+        assert gd.plan.block_len == block, (w, gd.plan.block_len, block)
+        groups.append(MixedGroup(wave_type=w, channel_idx=idx, demod=gd,
+                                 params=sub))
+
+    def init_state():
+        return tuple(g.demod.init_state() for g in groups)
+
+    def step(states, x):
+        new_states, outs = [], []
+        for g, st in zip(groups, states):
+            st, y = g.demod.step(st, x)
+            new_states.append(st)
+            outs.append(y)
+        return tuple(new_states), tuple(outs)
+
+    plan = BlockPlan(block_len=block, stride=q, out_rows=block // q,
+                     n_blocks=n_blocks, total_samples=n_blocks * block)
+    return MixedDemodulator(plan=plan, groups=tuple(groups),
+                            init_state=init_state, step=step,
+                            device=groups[0].demod.device, mesh=mesh)
+
+
+def make_demodulator(p: AntennaParams, device=None, mesh=None,
+                     samples: Optional[int] = None):
+    """Build the streaming demodulator for one RX antenna on `device`
+    (the factory switch of the reference ctor,
+    cpp/USRP_demodulator.cpp:56-326), for `samples` raw samples (default
+    p.samples).  With `mesh` (parallel.mesh.Mesh) every mode but NODSP
+    runs sharded over its devices: ``step`` takes a block on the mesh's
+    first device (or a per-shard grid) and returns a parallel.mesh.
+    Sharded result, and `device` is the mesh's first.  An antenna of
+    mixed wave types gets a MixedDemodulator, on `device` or `mesh`."""
+    w = p.wave_type[0] if p.wave_type else WaveType.NODSP
+    if any(x != w for x in p.wave_type):
+        return _build_mixed(p, samples, device, mesh=mesh)
+    return _build_for(p, plan_blocks(p, samples), w, device, mesh)

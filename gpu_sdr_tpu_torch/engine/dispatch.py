@@ -45,7 +45,7 @@ SHARDED_SEGMENTED = "sharded_segmented_replay"
 DEVICE_REPLAY = "device_replay"
 SEGMENTED_REPLAY = "segmented_replay"
 HOST_PIPELINE = "host_pipeline"
-HOST_MIXED = "host_pipeline_mixed"   # planned; run_measurement raises
+HOST_MIXED = "host_pipeline_mixed"
 
 # the sub-paths the port's builders can take under each path
 FUSED_SUBPATHS = ("replay_kernel_t", "replay_kernel", "fold_kernel",
@@ -66,6 +66,7 @@ PATHS = {
     DEVICE_REPLAY: DEVICE_REPLAY_SUBPATHS,
     SEGMENTED_REPLAY: (None,),
     HOST_PIPELINE: (None,),
+    HOST_MIXED: (None,),
 }
 
 _FUSED_WHY = {

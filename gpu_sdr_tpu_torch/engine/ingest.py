@@ -1,4 +1,5 @@
-"""Host-fed streaming ingest (port of gpu_sdr_tpu/engine/ingest.HostFeed).
+"""Host-fed streaming ingest (port of gpu_sdr_tpu/engine/ingest.py:
+HostFeed and SocketIngestSource).
 
 The reference's real-time loop lands radio blocks in pinned host buffers
 and overlaps the host->device copy of buffer i+1 with the kernels of
@@ -9,10 +10,15 @@ and issues a ``non_blocking`` host->device copy on its own CUDA stream,
 recording an event the consumer's stream waits on.  The bounded queue is
 the double buffer; `depth=2` is the classic scheme.  On the CPU the
 block is handed over as it is.
+
+:class:`SocketIngestSource` is a Source whose blocks arrive from an
+external producer over TCP, through the native receiver
+(server/native.py).
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 from typing import Optional
@@ -109,3 +115,76 @@ class HostFeed:
         finally:
             self._stop.set()
             thread.join(timeout=5.0)
+
+
+class SocketIngestSource(Source):
+    """Blocks arriving from an external producer over TCP.
+
+    Backed by the native ingest receiver (native/stream_ingest.cpp,
+    built by server/native.py): a C++ thread reassembles the raw
+    complex64 byte stream into fixed-size blocks in a lock-free ring;
+    `blocks()` pops them here.  Ring overflows (the consumer falling
+    behind the wire) and the zero-padded samples of a partial tail block
+    are reported through `take_errors`, like the reference's UHD error
+    counters (cpp/USRP_server_diagnostic.cpp:14-106).
+
+    Use `port=0` for an ephemeral port; read `.port` to tell the
+    producer where to connect.  A producer that disconnects, or delivers
+    nothing for `timeout` seconds, ends the stream short: no block is
+    fabricated, `aborted` is set and `shortfall_blocks` counts the
+    blocks not delivered (the reference declares "USRP is not
+    streaming" and aborts, cpp/USRP_hardware_manager.cpp:1546-1560);
+    the pipeline's accounting and the H5 sink's end-of-run shrink take
+    the short stream."""
+
+    def __init__(self, block_len: int, port: int = 0, queue_len: int = 16,
+                 timeout: float = 30.0):
+        from ..server.native import NativeIngest
+        self._ingest = NativeIngest(block_len, port=port,
+                                    queue_len=queue_len)
+        self.port = self._ingest.port
+        self.block_len = int(block_len)
+        self.timeout = float(timeout)
+        self._errors_reported = 0
+        self.aborted = False
+        self.shortfall_blocks = 0
+
+    def take_errors(self) -> int:
+        st = self._ingest.stats
+        total = st["overflows"] + st["padded"]
+        delta = total - self._errors_reported
+        self._errors_reported = total
+        return int(delta)
+
+    @property
+    def stats(self) -> dict:
+        return self._ingest.stats
+
+    def blocks(self, block_len: int, n_blocks: int):
+        if block_len != self.block_len:
+            raise ValueError(f"ingest blocks are {self.block_len} samples "
+                             f"(the native ring's slots), not {block_len}")
+        for i in range(n_blocks):
+            try:
+                blk = self._ingest.pop_block(timeout=self.timeout)
+            except TimeoutError:
+                blk = None
+            if blk is None:
+                self.aborted = True
+                self.shortfall_blocks = n_blocks - i
+                logging.getLogger("gpu_sdr_tpu_torch.ingest").error(
+                    "ingest producer is not streaming: ending measurement "
+                    "%d blocks short (%d/%d delivered)",
+                    self.shortfall_blocks, i, n_blocks)
+                return
+            yield blk
+
+    def close(self) -> None:
+        self._ingest.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

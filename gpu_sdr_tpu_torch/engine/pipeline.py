@@ -5,7 +5,9 @@ the loop keeps a short queue of in-flight results: block i's output is
 copied to pinned host memory on a separate CUDA stream while block i+1
 computes, and handed to the sinks only after block i+depth has been
 launched (the reference's pinned-buffer double buffering,
-headers/USRP_server_memory_management.hpp:103-273).
+headers/USRP_server_memory_management.hpp:103-273).  A mixed-mode
+antenna's groups (run_pipeline_mixed) share each staged block and fetch
+their outputs one by one.
 """
 
 from __future__ import annotations
@@ -138,13 +140,44 @@ def run_pipeline(demod: Demodulator, source: Source,
     `feed_depth` blocks ahead, so the host->device copy of block i+1
     overlaps the compute of block i.  The demodulator's state is built
     before the sinks start: it is set-up."""
+    def step(state, x):
+        state, y = demod.step(state, x)
+        return state, (y,)
+    return _host_fed(demod, step, source, [sinks],
+                     [(demod.n_channels, demod.plan.total_out_rows)],
+                     n_blocks, usrp_number, front_end, depth, feed_depth)
+
+
+def run_pipeline_mixed(mdemod, source: Source,
+                       sinks_per_group: Sequence[Sequence[Sink]],
+                       n_blocks: Optional[int] = None, usrp_number: int = 0,
+                       front_end: str = "A", depth: int = 2,
+                       feed_depth: int = 2) -> PipelineResult:
+    """Stream blocks through a MixedDemodulator (engine/demodulator.py):
+    each block is staged on the device once and every wave-type group's
+    step reads it; each group's output takes its own device -> host copy
+    and drains to sinks_per_group[g], packet by packet in block order,
+    with the block's error count.  Accounting as in run_pipeline, the
+    rows counted every group's.  (Mixed wave types exceed the
+    reference, which rejects them, cpp/USRP_demodulator.cpp:36-39.)"""
+    return _host_fed(mdemod, mdemod.step, source, sinks_per_group,
+                     [(g.demod.n_channels, g.demod.plan.total_out_rows)
+                      for g in mdemod.groups],
+                     n_blocks, usrp_number, front_end, depth, feed_depth)
+
+
+def _host_fed(demod, step, source, sinks_per_output, starts, n_blocks,
+              usrp_number, front_end, depth, feed_depth) -> PipelineResult:
+    """The host-fed loop: `step(state, x) -> (state, outputs)`, output k
+    to sinks_per_output[k], which start with starts[k] (channels, rows)."""
     from .ingest import HostFeed
     plan = demod.plan
     nb = n_blocks if n_blocks is not None else plan.n_blocks
     state = demod.init_state()
     _end_setup(demod.device)
-    for s in sinks:
-        s.on_start(demod.n_channels, plan.total_out_rows)
+    for sinks, (channels, rows) in zip(sinks_per_output, starts):
+        for s in sinks:
+            s.on_start(channels, rows)
     stream = HostFeed(source, demod.device, depth=feed_depth).device_blocks(
         plan.block_len, nb)
     fetch = _HostFetch(demod.device)
@@ -155,21 +188,22 @@ def run_pipeline(demod: Demodulator, source: Source,
 
     def drain_one():
         nonlocal rows, pkt
-        pending, errs = inflight.popleft()
-        data = fetch.result(pending)
-        meta = PacketMeta(
-            usrp_number=usrp_number, front_end_code=front_end,
-            packet_number=pkt, length=int(data.size),
-            errors=errs, channels=int(data.shape[1]))
-        for s in sinks:
-            s.on_packet(meta, data)
-        rows += data.shape[0]
+        pendings, errs = inflight.popleft()
+        for pending, sinks in zip(pendings, sinks_per_output):
+            data = fetch.result(pending)
+            meta = PacketMeta(
+                usrp_number=usrp_number, front_end_code=front_end,
+                packet_number=pkt, length=int(data.size), errors=errs,
+                channels=int(data.shape[1]))
+            for s in sinks:
+                s.on_packet(meta, data)
+            rows += data.shape[0]
         pkt += 1
 
     try:
         for x, errs in stream:
-            state, y = demod.step(state, x)
-            inflight.append((fetch.start(y), errs))
+            state, ys = step(state, x)
+            inflight.append((tuple(fetch.start(y) for y in ys), errs))
             if len(inflight) > depth:
                 drain_one()
         while inflight:
@@ -184,8 +218,9 @@ def run_pipeline(demod: Demodulator, source: Source,
             while inflight:
                 drain_one()
         finally:
-            for s in sinks:
-                s.on_end()
+            for sinks in sinks_per_output:
+                for s in sinks:
+                    s.on_end()
     return PipelineResult(n_blocks=pkt, rows=rows, channels=demod.n_channels,
                           elapsed_s=elapsed,
                           samples_in=pkt * plan.block_len)

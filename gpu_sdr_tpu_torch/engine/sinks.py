@@ -2,8 +2,7 @@
 gpu_sdr_tpu/engine/sinks.py).
 
 A sink receives per-block (metadata, (rows, channels) complex64 numpy)
-packets.  The HDF5 sink (gpu_sdr_tpu/client/files.H5Sink) is not usable
-here yet: that module imports the JAX engine's sinks.
+packets.  The HDF5 sink is client/files.H5Sink.
 """
 
 from __future__ import annotations

@@ -17,7 +17,10 @@ branch in turn, in the JAX package's order:
   device segment by segment (engine/replay.SegmentedDeviceReplay);
 * ``host_pipeline``: a generator (or white noise) on the host through a
   channel model, or any other source (a looped recording that is not
-  whole blocks among them), fed block by block to the demodulator.
+  whole blocks among them), fed block by block to the demodulator;
+* ``host_pipeline_mixed``: an antenna of mixed wave types, always, one
+  demodulator a wave type over the same host-fed stream
+  (engine/pipeline.run_pipeline_mixed).
 
 With ``mesh`` (parallel.mesh.Mesh, one process driving every shard) the
 mesh branches replace the first three, in the JAX package's order:
@@ -26,8 +29,8 @@ mesh branches replace the first three, in the JAX package's order:
 replay`` (ShardedSegmentedReplay), else ``host_pipeline`` with the
 sharded demodulator.  The mesh names the devices; `device` is not read.
 
-HDF5 output and mixed wave types raise NotImplementedError naming the
-ROADMAP item that will port them; no branch falls back to another path.
+Every branch also writes the HDF5 file (client/files.H5Sink) when given
+a file name, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from .engine import (FusedLoopback, can_fuse, make_demodulator,
 from .engine.channel import Channel, IdealChannel
 from .engine.demodulator import _mesh_plan
 from .engine.dual import DualFused, DualShardedFused, plan_dual
+from .engine.pipeline import run_pipeline_mixed
 from .engine.planner import plan_blocks
 from .engine.replay import (DeviceReplay, SegmentedDeviceReplay,
                             can_device_replay, can_segmented_replay)
@@ -150,7 +154,7 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
                     source: Optional[Source] = None,
                     extra_sinks: Sequence[Sink] = (),
                     trigger=None, mesh=None, device="cuda",
-                    **tags) -> None:
+                    **tags) -> Optional[str]:
     """Execute a measurement described by `params` on `device`.
 
     With an active TX, TX drives RX through `channel`; with no channel
@@ -160,42 +164,42 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
     the front end's letter).  A `source` feeds RX instead: a recording
     of whole blocks (or one that is not looped) with no channel model is
     replayed from device memory.  With neither, RX consumes white noise.
-    With `mesh` (parallel.make_mesh) the front ends run sharded over the
-    mesh's devices, which replace `device`.  Data goes to
-    `extra_sinks`."""
-    if filename is not None or trigger is not None:
-        raise NotImplementedError(
-            "HDF5 output is not ported yet (ROADMAP Queue 1 item 3: "
-            "client/files.H5Sink imports the JAX engine)")
+    An antenna of mixed wave types streams through the host pipeline,
+    one demodulator a wave type.  With `mesh` (parallel.make_mesh) the
+    front ends run sharded over the mesh's devices, which replace
+    `device`.
+
+    Data goes to `extra_sinks` and, with `filename`, to an HDF5 file in
+    the reference layout (client/files.H5Sink: `tags` become attributes
+    of its raw_data group, `trigger` filters what is written); returns
+    the file's name, else None.  A source that ends short stamps the
+    antenna's group `aborted`."""
     dev = mesh.first if mesh is not None else resolve_device(device)
     params.validate()
-    rx_list = list(params.active_antennas(AntMode.RX))
-    if any(_is_mixed(rx) for _name, rx in rx_list):
-        raise NotImplementedError(
-            "mixed wave types on one antenna are not ported yet "
-            "(ROADMAP Queue 1 item 3)")
     LAST_DISPATCH.clear()
+    run = _Run(params, filename, trigger, tags, extra_sinks)
     # concurrent A/B front ends: >= 2 fusable RX chains advance in
     # lock-step on a shared sample timebase (engine/dual.py)
-    if source is None and channel is None and \
-            _run_dual(params, mesh, dev, extra_sinks):
-        return None
-    for rx_name, rx in rx_list:
+    if source is None and channel is None and _run_dual(run, mesh, dev):
+        return run.out_name
+    for rx_name, rx in params.active_antennas(AntMode.RX):
         tx_name = _pair_tx(params, rx_name)
         tx = params.antenna(tx_name) if tx_name else None
-        sinks = list(extra_sinks)
+        mixed = _is_mixed(rx)
         run_kw = dict(usrp_number=params.usrp_number, front_end=rx_name[0])
         if mesh is None and source is None and channel is None and \
-                tx is not None and can_fuse(tx, rx) and rx.delay <= tx.delay:
+                not mixed and tx is not None and can_fuse(tx, rx) and \
+                rx.delay <= tx.delay:
             fused = FusedLoopback(tx, rx, device=dev)
             _record_dispatch(rx_name, "fused_loopback", fused.path)
-            fused.run(sinks, **run_kw)
+            fused.run(run.sinks(rx_name), **run_kw)
             continue
-        if mesh is not None and _run_on_mesh(rx_name, tx, rx, mesh, source,
-                                             channel, sinks, run_kw):
+        if mesh is not None and not mixed and \
+                _run_on_mesh(run, rx_name, tx, rx, mesh, source, channel,
+                             run_kw):
             continue
         if mesh is None and source is not None and channel is None and \
-                _replays_whole_blocks(source, rx):
+                not mixed and _replays_whole_blocks(source, rx):
             loop = bool(getattr(source, "loop", False))
             if can_device_replay(source):
                 replay = DeviceReplay(rx, source.data, loop=loop, device=dev)
@@ -204,7 +208,7 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
                 replay = SegmentedDeviceReplay(rx, source.data, loop=loop,
                                                device=dev)
                 _record_dispatch(rx_name, "segmented_replay")
-            replay.run(sinks, **run_kw)
+            replay.run(run.sinks(rx_name), **run_kw)
             continue
         demod = make_demodulator(rx, dev, mesh=mesh)
         if source is not None:
@@ -217,18 +221,71 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
                                 skip_samples=skip)
         else:
             src = WhiteNoiseSource()
-        _record_dispatch(rx_name, "host_pipeline")
-        run_pipeline(demod, src, sinks, **run_kw)
-    return None
+        if mixed:
+            # one demodulator a wave type over the same stream; group 0
+            # fills `data` and takes the trigger, group k a `mixed_<k>`
+            _record_dispatch(rx_name, "host_pipeline_mixed")
+            run_pipeline_mixed(demod, src, [
+                run.sinks(rx_name, k, g) for k, g in enumerate(demod.groups)],
+                **run_kw)
+        else:
+            _record_dispatch(rx_name, "host_pipeline")
+            run_pipeline(demod, src, run.sinks(rx_name), **run_kw)
+        if run.out_name is not None and getattr(src, "aborted", False):
+            _flag_aborted(run.out_name, params.usrp_number, rx_name, src)
+    return run.out_name
 
 
-def _run_dual(params, mesh, dev, extra_sinks) -> bool:
+class _Run:
+    """The sinks of one run_measurement call: `extra_sinks`, and with a
+    file name an H5Sink an antenna (or a mixed antenna's group) into the
+    one file, in the JAX package's arguments."""
+
+    def __init__(self, params, filename, trigger, tags, extra_sinks):
+        self.params, self.filename = params, filename
+        self.trigger, self.tags = trigger, tags
+        self.extra = list(extra_sinks)
+        self.out_name = None
+
+    def sinks(self, rx_name: str, k: int = 0, group=None) -> list:
+        """The sinks of antenna `rx_name`, or of group `k` (a
+        demodulator.MixedGroup) of its mixed demodulator: the extra
+        sinks take the antenna's (group 0's) packets."""
+        sinks = list(self.extra) if k == 0 else []
+        if self.filename is None:
+            return sinks
+        from .client.files import H5Sink
+        kw = {} if group is None else dict(
+            dataset="data" if k == 0 else f"mixed_{k}",
+            sub_params=group.params, channel_index=group.channel_idx)
+        sink = H5Sink(self.filename, self.params, ant_name=rx_name,
+                    trigger=self.trigger if k == 0 else None, **kw,
+                    **self.tags)
+        self.out_name = sink.filename
+        return sinks + [sink]
+
+
+def _flag_aborted(filename, usrp_number, rx_name, src) -> None:
+    """Stamp an aborted (under-delivered) acquisition on its H5 group so
+    analysis can tell a short file from a complete one: the reference
+    declares "USRP is not streaming" and aborts instead of fabricating
+    samples (cpp/USRP_hardware_manager.cpp:1546-1560)."""
+    from .client import h5
+    with h5.File(filename, "a") as f:
+        g = f[f"raw_data{int(usrp_number)}"][rx_name]
+        g.attrs["aborted"] = True
+        g.attrs["shortfall_blocks"] = int(
+            getattr(src, "shortfall_blocks", 0))
+
+
+def _run_dual(run, mesh, dev) -> bool:
     """The lock-step branch, first in the JAX package's order
     (gpu_sdr_tpu/measure.py:154-185): DualFused, or DualShardedFused
     under a mesh, when plan_dual gives the pairs and the sharded chains
-    share a plan.  Whether it ran; if not, the caller streams each RX in
-    turn."""
-    pairs = plan_dual(params, mesh=mesh)
+    share a plan; each front end has its own sinks (one H5Sink each,
+    into the one file).  Whether it ran; if not, the caller streams each
+    RX in turn."""
+    pairs = plan_dual(run.params, mesh=mesh)
     if pairs is None:
         return False
     dual = (DualFused(pairs, device=dev) if mesh is None
@@ -238,12 +295,12 @@ def _run_dual(params, mesh, dev, extra_sinks) -> bool:
     path = "dual_fused" if mesh is None else "dual_sharded_fused"
     for (rx_name, _tx, _rx), ch in zip(pairs, dual.chains):
         _record_dispatch(rx_name, path, ch.path)
-    dual.run([list(extra_sinks) for _ in pairs],
-             usrp_number=params.usrp_number)
+    dual.run([run.sinks(rx_name) for rx_name, _tx, _rx in pairs],
+             usrp_number=run.params.usrp_number)
     return True
 
 
-def _run_on_mesh(rx_name, tx, rx, mesh, source, channel, sinks,
+def _run_on_mesh(run, rx_name, tx, rx, mesh, source, channel,
                  run_kw) -> bool:
     """The mesh branches, in the JAX package's order: the sharded fused
     chain (an ideal loopback, no channel model), then a recording
@@ -266,7 +323,7 @@ def _run_on_mesh(rx_name, tx, rx, mesh, source, channel, sinks,
         if sf is None:                 # untileable: the host pipeline
             return False
         _record_dispatch(rx_name, "sharded_fused", sf.path)
-        sf.run(sinks, n_blocks=nb, **run_kw)
+        sf.run(run.sinks(rx_name), n_blocks=nb, **run_kw)
         return True
     if source is None or channel is not None or \
             not _replays_whole_blocks(source, rx, mesh):
@@ -278,5 +335,5 @@ def _run_on_mesh(rx_name, tx, rx, mesh, source, channel, sinks,
     else:
         replay = ShardedSegmentedReplay(rx, source.data, mesh, loop=loop)
         _record_dispatch(rx_name, "sharded_segmented_replay")
-    replay.run(sinks, **run_kw)
+    replay.run(run.sinks(rx_name), **run_kw)
     return True

@@ -6,8 +6,9 @@ chk_param, cpp/USRP_JSON_interpreter.cpp:268-439).
 ``WaveType`` and ``AntMode`` are ``str`` enums, so their members compare
 equal, and hash alike, to the JAX package's members of the same value:
 either package's parameter structs drive the other's entry points.
-The JSON wire protocol and the server settings are not copied: nothing
-in the port reads them.
+The antenna's wire dictionary (``to_json_dict``) is copied for the HDF5
+attributes; the JSON wire protocol and the server settings are not:
+nothing in the port reads them.
 """
 
 from __future__ import annotations
@@ -87,11 +88,42 @@ class AntennaParams:
     fft_tones: int = 0              # number of PFB bins
     pf_average: int = 4             # PFB taps per bin / FIR taps per phase
 
+    def n_channels(self) -> int:
+        return len(self.wave_type)
+
     def is_pfb_active(self) -> bool:
         """True when any channel uses the PFB channelizer
         (reference cpp/USRP_JSON_interpreter.cpp:259-265)."""
         return any(w in (WaveType.TONES, WaveType.NOISE)
                    for w in self.wave_type)
+
+    def to_json_dict(self) -> dict:
+        """The reference's wire key names ('rf' for tone, ...,
+        cpp/USRP_JSON_interpreter.cpp:38-251); the HDF5 attributes
+        (client/files.py) are written from it."""
+        return {
+            "mode": self.mode.value,
+            "rf": int(self.tone),
+            "tuning_mode": int(self.tuning_mode),
+            "rate": int(self.rate),
+            "decim": int(self.decim),
+            "fft_tones": int(self.fft_tones),
+            "pf_average": int(self.pf_average),
+            "samples": int(self.samples),
+            "buffer_len": int(self.buffer_len),
+            "burst_off": float(self.burst_off),
+            "burst_on": float(self.burst_on),
+            "bw": int(self.bw),
+            "delay": float(self.delay),
+            "gain": int(self.gain),
+            "freq": [int(f) for f in self.freq],
+            "ampl": [float(a) for a in self.ampl],
+            "wave_type": [w.value for w in self.wave_type],
+            "chirp_t": [float(t) for t in self.chirp_t],
+            "chirp_f": [int(f) for f in self.chirp_f],
+            "swipe_s": [int(s) for s in self.swipe_s],
+            "data_mem_mult": int(self.data_mem_mult),
+        }
 
     def validate(self, name: str = "antenna",
                  strict: bool = False) -> List[str]:

@@ -424,3 +424,73 @@ def test_jax_checkpoint_resumes_in_port(tmp_path, monkeypatch, wave):
     for b, ref in zip(blocks[2:], jref):
         tst, y = td.step(tst, torch.from_numpy(b))
         assert golden.snr_db(ref, y.numpy()) > 90.0
+
+
+# ---------------------------------------------------------------------
+# mixed wave types: a tuple of the groups' states (DIRECT + CHIRP, the
+# geometry of tests/test_mixed_modes.py)
+
+
+def mixed_rx(P):
+    W = P.WaveType
+    return P.AntennaParams(
+        mode=P.AntMode.RX, rate=RATE, buffer_len=100_000, samples=400_000,
+        decim=100, pf_average=4, freq=[100_000, -200_000, -300_000],
+        wave_type=[W.DIRECT, W.DIRECT, W.CHIRP], chirp_f=[0, 0, 300_000],
+        chirp_t=[0.0, 0.0, 0.1], swipe_s=[0, 0, 1000])
+
+
+class MixedFed:
+    """A mixed demodulator over fixed blocks, as a chain whose output is
+    its groups' outputs side by side."""
+
+    def __init__(self, blocks, mesh_shape=None):
+        mesh = (make_mesh(mesh_shape, devices=["cpu"] * 2)
+                if mesh_shape else None)
+        self.demod = make_demodulator(mixed_rx(tparams), "cpu", mesh=mesh)
+        self.blocks = blocks
+
+    def init_state(self):
+        return (self.demod.init_state(), 0)
+
+    def step(self, state):
+        st, i = state
+        st, ys = self.demod.step(st, torch.from_numpy(self.blocks[i]))
+        return (st, i + 1), torch.cat([torch.from_numpy(host(y)).flatten()
+                                       for y in ys])
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 1)], ids=["one", "mesh"])
+def test_mixed_resume_bit_identical(tmp_path, mesh_shape):
+    blocks = [crandn(100_000) for _ in range(4)]
+    ref, out, st = resumed(lambda: MixedFed(blocks, mesh_shape), 2, 2,
+                           tmp_path)
+    assert_bit_identical(ref, out)
+    groups, i = st
+    assert i == 2 and isinstance(groups, tuple) and len(groups) == 2
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 1)], ids=["one", "mesh"])
+def test_jax_mixed_state_continues_in_port(monkeypatch, mesh_shape):
+    """A JAX MixedDemodulator stopped after two blocks: its state through
+    convert.mixed_state into the port's, which continues within 90 dB of
+    JAX's continuation, group by group."""
+    from gpu_sdr_tpu.parallel import make_mesh as jmake_mesh
+    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+    jmesh = (jmake_mesh(mesh_shape, ("time", "channels"))
+             if mesh_shape else None)
+    jd = jmake_demodulator(mixed_rx(jparams), mesh=jmesh)
+    blocks = [crandn(100_000, np.random.default_rng(30 + i))
+              for i in range(4)]
+    st = jd.init_state()
+    for b in blocks[:2]:
+        st, _ = jd.step(st, jcplx.from_np(b))
+    tst = convert.mixed_state(st, MixedFed(blocks, mesh_shape).demod)
+    td = MixedFed(blocks, mesh_shape).demod
+    for b in blocks[2:]:
+        st, jys = jd.step(st, jcplx.from_np(b))
+        tst, ys = td.step(tst, torch.from_numpy(b))
+        for jy, y in zip(jys, ys):
+            assert golden.snr_db(jcplx.to_np(jy), host(y)) > 90.0
+    with pytest.raises(ValueError, match="group states"):
+        convert.mixed_state(st[:1], td)

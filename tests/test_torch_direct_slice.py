@@ -152,6 +152,8 @@ def test_direct_runs_with_jax_blocked():
                                               ingest, pipeline, planner,
                                               sinks, sources)
         from gpu_sdr_tpu_torch.kernels import build
+        from gpu_sdr_tpu_torch.client import files, triggers
+        from gpu_sdr_tpu_torch.server import native
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "gpu_sdr_tpu")], \
             "importing the port loaded jax or the JAX package"

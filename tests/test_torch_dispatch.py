@@ -119,6 +119,7 @@ def receiver(kind):
                                    wave_type=[W.CHIRP], **CHIRP),
             "chirp96k": lambda: rx(96_000, decim=1, chirp_t=[0.128],
                                    wave_type=[W.CHIRP], **CHIRP),
+            "nodsp": lambda: rx(50_000, wave_type=[W.NODSP]),
         }[kind]()
         return p
     return build
@@ -240,6 +241,21 @@ BATTERY = {
     "sharded_segmented_replay": case(
         receiver("direct2"), [("A_RX2", "sharded_segmented_replay", None)],
         source=(100_000, False), mesh=(2, 1), segmented=True),
+    # mixed wave types: the mixed host pipeline, whatever else applies
+    "host_mixed": case(loopback("fold_kernel", "A", edit=_mixed),
+                       [("A_RX2", "host_pipeline_mixed", None)]),
+    "host_mixed_mesh": case(loopback("fold_kernel", "A", edit=_mixed),
+                            [("A_RX2", "host_pipeline_mixed", None)],
+                            mesh=(2, 1)),
+    "host_mixed_recording": case(
+        loopback("fold_kernel", "A", edit=lambda P, p: (_mixed(P, p),
+                                                        _no_tx(P, p))),
+        [("A_RX2", "host_pipeline_mixed", None)], source=(100_000, True)),
+    # NODSP: the raw stream, replayed (scan) or host-fed
+    "nodsp_replay": case(receiver("nodsp"), [("A_RX2", DR, "scan")],
+                         source=(100_000, True)),
+    "nodsp_host": case(receiver("nodsp"),
+                       [("A_RX2", "host_pipeline", None)]),
     # the host pipeline
     "host_white_noise": case(receiver("direct2"),
                              [("A_RX2", "host_pipeline", None)]),
@@ -298,14 +314,31 @@ def test_battery_reaches_every_declared_path():
 
 
 def test_mixed_is_planned_and_raises():
-    """Mixed wave types: planned as the JAX package's host_pipeline_mixed,
-    which run_measurement does not run yet (ROADMAP Queue 1 item 3)."""
+    """Mixed wave types: planned and run as the JAX package's
+    host_pipeline_mixed, group 0's packets to the extra sinks; a second
+    chirp on the antenna is planned the same and raises when run, as in
+    JAX (the reference demodulates one chirp)."""
     params = loopback("fold_kernel", "A", edit=_mixed)(tparams)
     plan = dispatch.plan_dispatch(params)
     assert [d.key() for d in plan] == [("A_RX2", dispatch.HOST_MIXED, None)]
     assert plan[0].key() == jdispatch.plan_dispatch(
         loopback("fold_kernel", "A", edit=_mixed)(jparams))[0].key()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    sink = MemorySink()
+    measure.run_measurement(params, extra_sinks=[sink], device="cpu")
+    assert list(measure.last_dispatch()) == [d.key() for d in plan]
+    assert sink.data.shape == (2_000, 1)        # the DIRECT group's rows
+
+    def two_chirps(P, p):
+        _mixed(P, p)
+        p.A_RX2.wave_type.append(P.WaveType.CHIRP)
+        p.A_RX2.freq.append(-100_000)
+        p.A_RX2.chirp_f.append(100_000)
+        p.A_RX2.chirp_t.append(0.1)
+        p.A_RX2.swipe_s.append(1000)
+    params = loopback("fold_kernel", "A", edit=two_chirps)(tparams)
+    assert [d.key() for d in dispatch.plan_dispatch(params)] == \
+        [("A_RX2", dispatch.HOST_MIXED, None)]
+    with pytest.raises(NotImplementedError, match="matches reference"):
         measure.run_measurement(params, extra_sinks=[MemorySink()],
                                 device="cpu")
 

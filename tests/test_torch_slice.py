@@ -216,11 +216,15 @@ def test_slice_runs_with_jax_blocked():
     run_measurement, both again on a (2, 1) mesh of the CPU
     (parallel/), two front ends in lock-step (engine/dual.py) against
     their plan (engine/dispatch.py) and a checkpoint of their state
-    (engine/checkpoint.py), and loads no module of either."""
+    (engine/checkpoint.py), their HDF5 file (client/files.py), a mixed
+    DIRECT + CHIRP antenna through a trigger (client/triggers.py) into a
+    file, the channel models and a NODSP stream over the socket ingest
+    (server/native.py), and loads no module of either."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["gpu_sdr_tpu"] = None
+        sys.modules["h5py"] = None          # the port writes HDF5 itself
         import gpu_sdr_tpu_torch
         import numpy as np, torch
         torch.set_num_threads(2)
@@ -318,6 +322,48 @@ def test_slice_runs_with_jax_blocked():
             save_state(st, os.path.join(tmp, "c"), block_index=1)
             st2, k = load_state(os.path.join(tmp, "c"), d.init_state())
         assert k == 1 and all(torch.equal(a, b) for a, b in zip(st, st2))
+        # HDF5 output, triggers, mixed wave types, NODSP, the channel
+        # models and socket ingest (client/, engine/, server/native.py)
+        import socket, threading
+        from gpu_sdr_tpu_torch.client import files, triggers
+        from gpu_sdr_tpu_torch.engine import channel
+        from gpu_sdr_tpu_torch.engine.ingest import SocketIngestSource
+        with tempfile.TemporaryDirectory() as tmp:
+            fn = measure.run_measurement(p, filename=os.path.join(tmp, "m"),
+                                         device="cpu", note="blocked")
+            assert files.openH5file(fn, front_end="B_RX2").shape == (8, 128)
+            rx = AntennaParams(mode=AntMode.RX, rate=1_000_000,
+                               buffer_len=50_000, samples=100_000, decim=100,
+                               freq=[1000, -300_000], chirp_f=[0, 300_000],
+                               chirp_t=[0.0, 0.1], swipe_s=[0, 1000],
+                               wave_type=[WaveType.DIRECT, WaveType.CHIRP])
+            q = UsrpParams()
+            q.A_RX2 = rx
+            ch = channel.ChainChannel([channel.DelayChannel(10),
+                                       channel.DropoutChannel(1e6, seed=1)])
+            fn = measure.run_measurement(
+                q, filename=os.path.join(tmp, "x"), device="cpu",
+                source=ArraySource(x[:100_000]),
+                trigger=triggers.deriv_test())
+            print(measure.last_dispatch()[0][1], files.mixed_streams(fn)[1][0])
+            q.A_RX2 = AntennaParams(mode=AntMode.RX, rate=1_000_000,
+                                    buffer_len=50_000, samples=100_000,
+                                    wave_type=[WaveType.NODSP])
+            raw = (x[:100_000] * ch.channels[0](x[:100_000])).astype(
+                np.complex64)
+            with SocketIngestSource(block_len=50_000, timeout=30.0) as src:
+                def send():
+                    with socket.create_connection(("127.0.0.1", src.port),
+                                                  timeout=30) as c:
+                        c.sendall(raw.tobytes())
+                th = threading.Thread(target=send, daemon=True)
+                th.start()
+                s = MemorySink()
+                measure.run_measurement(q, source=src, extra_sinks=[s],
+                                        device="cpu")
+                th.join(timeout=30)
+            assert np.array_equal(s.data[:, 0], raw)
+            print(measure.last_dispatch()[0][1])
         assert sys.modules["jax"] is None
         assert sys.modules["gpu_sdr_tpu"] is None
         assert not [m for m in sys.modules
@@ -333,7 +379,9 @@ def test_slice_runs_with_jax_blocked():
                                   "channelizer_at", "device_replay:scan",
                                   "sharded_fused:channelizer_wavetable",
                                   "host_pipeline:None",
-                                  "dual_fused:channelizer_wavetable"]
+                                  "dual_fused:channelizer_wavetable",
+                                  "host_pipeline_mixed", "mixed_1",
+                                  "host_pipeline"]
 
 
 def test_kernel_wrappers_count_no_cpu_launch():
@@ -374,13 +422,53 @@ def _mixed(p):
     ("hdf5", None, dict(filename="out.h5")),
     ("mixed", _mixed, {}),
 ], ids=lambda v: v if isinstance(v, str) else "")
-def test_unported_branches_raise(case, edit, kwargs):
-    p = make_params(WaveType.TONES, 1)
-    if edit is not None:
-        edit(p)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        measure.run_measurement(p, extra_sinks=[MemorySink()],
-                                device="cpu", **kwargs)
+def test_unported_branches_raise(monkeypatch, tmp_path, case, edit, kwargs):
+    """The two branches that raised before ROADMAP Queue 1 item 3 was
+    ported now run as in JAX: HDF5 output (the same file, its name
+    returned) and mixed wave types (the same dispatch, group 0's packets
+    to the extra sinks at >= 90 dB against JAX's).  What still raises
+    beside them: amplitude_trigger(vna=...), whose resonator fit is item
+    3b, and a second chirp on a mixed antenna, which the reference
+    refuses too."""
+    from test_torch_files import assert_same_file
+    from gpu_sdr_tpu_torch.client import triggers
+    from gpu_sdr_tpu_torch.engine import make_demodulator
+    monkeypatch.setenv("GPU_SDR_TPU_PALLAS", "1")
+    out = []
+    for run, sink, kw in ((jmeasure.run_measurement, JMemorySink(), {}),
+                          (measure.run_measurement, MemorySink(),
+                           dict(device="cpu"))):
+        p = make_params(WaveType.TONES, 1)
+        if edit is not None:
+            edit(p)
+        side = tmp_path / ("torch" if kw else "jax")
+        side.mkdir()
+        monkeypatch.chdir(side)
+        fn = run(p, extra_sinks=[sink], **kwargs, **kw)
+        disp = (measure if kw else jmeasure).last_dispatch()
+        out.append((fn, disp, sink.data))
+    (jfn, jdisp, jdata), (fn, disp, data) = out
+    assert disp == jdisp
+    assert data.shape == jdata.shape
+    assert golden.snr_db(jdata, data) >= 90.0
+    if case == "hdf5":
+        assert (jfn, fn) == ("out.h5", "out.h5")
+        assert_same_file(str(tmp_path / "jax" / jfn),
+                         str(tmp_path / "torch" / fn))
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 3b"):
+            triggers.amplitude_trigger(sample_rate=RATE, threshold=3.0,
+                                       vna="vna.h5")
+    else:
+        assert disp == (("A_RX2", "host_pipeline_mixed", None),)
+        assert (jfn, fn) == (None, None)
+        p = make_params(WaveType.TONES, 1)
+        _mixed(p)
+        p.A_RX2.wave_type[1:3] = [WaveType.CHIRP] * 2
+        p.A_RX2.chirp_f = [0, 10_000, 20_000]
+        p.A_RX2.chirp_t = [0.0, 0.1, 0.1]
+        with pytest.raises(NotImplementedError, match="matches reference"):
+            make_demodulator(p.A_RX2, "cpu")
 
 
 def _edited(edit):
