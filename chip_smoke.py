@@ -206,9 +206,39 @@ and exits non-zero at the first phase that fails:
    native/stream_ingest.cpp) bit for bit the ArraySource run, and one
    gone after 6 blocks: aborted, 4 blocks short, the file shrunk and
    stamped; NODSP host-fed and replayed, 5 x 4M blocks, bit for bit its
-   input.
+   input;
+19. the science loop through the analysis client's entry points, the
+   files in a temporary directory on local disk (free space checked,
+   deleted after), written and read by client/h5.py, the channel models
+   on the host, 1M-sample blocks (the client's commands fix buffer_len
+   at 1e6): (a) measure_line_delay at 100 Msps (0.1 s, decim 200)
+   through a channel of four resonators (7-31 MHz, 250 kHz wide, a
+   16,384-tap response), analysed, written and loaded: within 20
+   samples of the channel's group delay, LINE_DELAY["100"] set; (b)
+   Single_VNA at BASELINE config 2's widths (-40 to +40 MHz, 5000
+   points, 1 s) through the same channel, compensated from LINE_DELAY,
+   VNA_analysis (|S21| within 0.05 of 1 away from the dips),
+   initialize_peaks + vna_fit (each f0 within one 16 kHz point; Qr's
+   error printed); (c) Get_noise at the four fitted tones (DIRECT,
+   decim 100, 0.4 s) through the channel plus noise, the Resonators
+   copied in, calculate_noise with backend "torch" on the card and
+   "scipy" on the host (every channel's PSD within 0.05 dB), the
+   frequency timestreams (4, 400,000) finite; (d) Get_noise at config
+   3's 100 tones (pf_average 4) through an ideal channel plus noise,
+   torch against scipy again, and the Welch on the card (welch_psd,
+   CUDA events; batched_welch host to host) beside scipy's on the host
+   over the same (100, 400,000) rows and nperseg; (e) Get_full_spec
+   (config 4: 1000 channels, a 100-tone comb on the bin grid, 4 blocks)
+   fused, the file's data the packets bit for bit.  Each step prints
+   its seconds and the channel model's share; every run's dispatch is
+   plan_dispatch's for the parameters its file holds; each step's
+   launches are its 1M-sample blocks exactly (10, 100, 40, 40, 4), and
+   after each step its kernel (#17, #7 in row mode at C 4, #7 in
+   channel mode at C 100, #1) runs once more on seeded data at the
+   step's own configuration and block, held against its plain version
+   at 90 dB.
 
-Phases 4, 5, 7, 9, 11, 13, 13b, 15, 17 and 18 are the main path.  Their
+Phases 4, 5, 7, 9, 11, 13, 13b, 15, 17, 18 and 19 are the main path.  Their
 CallbackSink checks rows ::97 of every packet (finite; PFB tones within
 1% of their amplitude; DIRECT rows within 2.5% of the TX amplitude, the
 sum of the other tones' leakage through the 400-tap FIR's stopband at
@@ -220,7 +250,9 @@ counter is set to 0 just before each run and read just after it.
 The line before the last is a JSON object with one entry per kernel,
 all 19 (the channelizer's times are const-frame mode, the main path's,
 its ``config5_launches`` those of phase 13b's config-5 run; the
-kernels phase 18 runs, their ``io_launches`` there;
+kernels phase 18 runs, their ``io_launches`` there; those phase 19
+runs, their ``analysis_launches`` and, held against their plain
+versions at phase 19's shapes, ``analysis_max_abs_err``;
 its ``stream_*`` fields are stream mode; the DDC-family kernels carry
 their deep-FIR rows in ``deep``; the channelizers, #1 and #3-#5, their
 SNR against the float64 PFB over the whole block, ``snr_db``, and the
@@ -989,7 +1021,8 @@ def report(name, k, p, oracle=None, times=None, rows=None, cost=None,
     version's `p` and, when given, the float64 oracle of its first
     ORACLE_ROWS rows; with `times` (kernel ms, plain ms) and `cost`
     (bytes in and out, operations), keep its row of the kernels line in
-    `rows`, its bound the tensor cores' with `tc`."""
+    `rows`, its bound the tensor cores' with `tc`.  Returns the max
+    |err| against plain."""
     import torch
     torch.cuda.synchronize()
     kn, pn = k.cpu().numpy(), p.cpu().numpy()
@@ -1012,6 +1045,7 @@ def report(name, k, p, oracle=None, times=None, rows=None, cost=None,
         rows[name] = dict(max_abs_err=err, ms=times[0], plain_ms=times[1],
                           library_ms=None,
                           **(bound_tc if tc else bound)(*cost))
+    return err
 
 
 def phase_direct_kernels(dev):
@@ -3813,6 +3847,397 @@ def phase_io_main_path(dev):
     return launches
 
 
+# the science loop (phase 19): four resonators inside config 2's sweep,
+# each dip 250 kHz wide (15.6 VNA points); Qe = 2 Qr, depth 0.5
+SCI_RESOS = [dict(f0=f, Qr=f / 250e3, Qe_re=2 * f / 250e3)
+             for f in (7e6, 15e6, 23e6, 31e6)]
+SCI_FFT_LEN = 1 << 16               # the channel's response: 16,384 taps
+SCI_GROUP_DELAY = SCI_FFT_LEN // 8  # their causal shift, samples
+SCI_DELAY_BAR = 20                  # samples (tests/test_vna_delay.py:64)
+# the beat of a delay t is t * rate / duration, under the analysis'
+# Nyquist rate / 800 (decimation 400) for t < duration / 800: 125 us
+SCI_DELAY_T = 0.1
+SCI_VNA = dict(start_f=-40e6, last_f=40e6, measure_t=1.0, n_points=5000,
+               tx_gain=0, Rate=100e6, RF=0)          # BASELINE config 2
+SCI_POINT = 80e6 / 5000             # 16 kHz between VNA points
+SCI_PEAK_WIDTH = 750e3              # 3 linewidths: the fit windows
+SCI_NOISE_T = 0.4                   # 40M samples, 400,000 rows at decim 100
+SCI_NOISE_RMS = 1e-2
+SCI_WELCH = 10                      # calculate_noise's welch: nperseg L/10
+SCI_DB = 0.05                       # torch against scipy, every bin
+SCI_FULL_T = 0.04                   # Get_full_spec: 4 blocks of 1M
+SCI_FREE_BYTES = 2 << 30
+SCI_BUFFER = 1_000_000              # the client commands' buffer_len
+
+
+def sci_blocks(t: float, rate: float) -> int:
+    """Blocks of a client acquisition of t seconds at `rate`."""
+    return int(t * rate) // SCI_BUFFER
+
+
+class TimedChannel:
+    """A channel model whose calls are timed (its share of a step)."""
+
+    def __init__(self, inner):
+        self.inner, self.s = inner, 0.0
+
+    def __call__(self, block):
+        t0 = time.perf_counter()
+        out = self.inner(block)
+        self.s += time.perf_counter() - t0
+        return out
+
+    def take_errors(self) -> int:
+        take = getattr(self.inner, "take_errors", None)
+        return int(take()) if take else 0
+
+
+class Packets:
+    """A push_queue keeping a copy of every packet's data, in order."""
+
+    def __init__(self):
+        self.packets = []
+
+    def put(self, item):
+        meta, d = item
+        check(meta.packet_number == len(self.packets), "packet order")
+        self.packets.append(np.array(d))
+
+
+def client_step(dev, name, call, channel):
+    """One client acquisition (its run_measurement inside): (file,
+    launches, seconds, the channel's seconds).  The dispatch is
+    engine/dispatch.plan_dispatch's for the parameters the file holds."""
+    from gpu_sdr_tpu_torch import measure
+    from gpu_sdr_tpu_torch.client import files
+    from gpu_sdr_tpu_torch.engine.dispatch import plan_dispatch
+    timed = TimedChannel(channel) if channel is not None else None
+    t0 = time.perf_counter()
+    fn, counts = counted(lambda: call(timed))
+    wall = time.perf_counter() - t0
+    plan = tuple(d.key() for d in plan_dispatch(
+        files.retrieve_params_from_file(fn), channel=timed))
+    check(measure.last_dispatch() == plan,
+          f"{name}: dispatch {measure.last_dispatch()}, planned {plan}")
+    PLAN_CHECKS.append(plan)
+    ch_s = timed.s if timed is not None else 0.0
+    print(f"{name}: {plan}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }; {wall:.1f} s, the "
+          f"channel model {ch_s:.1f} s of it ({ch_s / wall:.0%})")
+    return fn, counts, wall, ch_s
+
+
+def welch_times(dev, x: np.ndarray, fs: float, nperseg: int) -> dict:
+    """ops/spectral.welch_psd on the card (CUDA events, its input
+    resident) and batched_welch from and to the host, beside
+    scipy.signal.welch on the host in float64 (calculate_noise's
+    scipy backend), over the same rows and nperseg."""
+    import torch
+    from scipy import signal
+    from gpu_sdr_tpu_torch.ops import spectral
+    xt = torch.from_numpy(x).to(dev)
+    ms = time_ms(lambda: spectral.welch_psd(xt, fs, nperseg), runs=10)
+    t0 = time.perf_counter()
+    _f, p = spectral.batched_welch(x, fs, nperseg, dev)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _fs, ps = signal.welch(x.astype(np.float64), fs=fs, nperseg=nperseg,
+                           detrend="linear", scaling="density")
+    scipy_s = time.perf_counter() - t0
+    err = float(np.max(np.abs(p - ps) / ps))
+    print(f"Welch {x.shape} nperseg {nperseg}: welch_psd {ms:.3f} ms on "
+          f"the card, batched_welch {host_s * 1e3:.1f} ms host to host, "
+          f"scipy {scipy_s * 1e3:.1f} ms on the host; max relative "
+          f"difference {err:.2e}")
+    check(err < 1e-3, f"Welch: torch against scipy {err:.2e}")
+    return dict(welch_psd_ms=ms, batched_welch_ms=host_s * 1e3,
+                scipy_ms=scipy_s * 1e3, max_rel=err)
+
+
+def noise_psds_agree(dev, fn: str, name: str) -> float:
+    """calculate_noise with backend="torch" on the card, then "scipy" on
+    the host, on one file: every channel's PSD (real and imaginary)
+    within SCI_DB dB.  Returns the largest difference in dB."""
+    from gpu_sdr_tpu_torch.client import files, noise
+    out, secs = [], []
+    for backend in ("torch", "scipy"):
+        t0 = time.perf_counter()
+        noise.calculate_noise(fn, welch=SCI_WELCH, backend=backend,
+                              device=dev)
+        secs.append(time.perf_counter() - t0)
+        out.append(files.get_noise(fn))
+    (ti, tf, tre, tim), (si, sf, sre, sim) = out
+    check(ti == si and np.array_equal(tf, sf), f"{name}: noise info")
+    gaps = np.stack([np.abs(a - b) for a, b in zip(tre + tim, sre + sim)])
+    row, k = np.unravel_index(int(np.argmax(gaps)), gaps.shape)
+    gap = float(gaps[row, k])
+    finite = all(np.isfinite(a).all() for a in tre + tim)
+    print(f"{name}: calculate_noise torch {secs[0]:.2f} s, scipy "
+          f"{secs[1]:.2f} s, {ti['n_chan']} channels x {len(tf)} bins, "
+          f"largest gap {gap:.2e} dB ({'real' if row < len(tre) else 'imag'}"
+          f" part of channel {row % len(tre)}, {tf[k]:.1f} Hz, "
+          f"{(sre + sim)[row][k]:.1f} dB; the part's median "
+          f"{np.median((sre + sim)[row]):.1f} dB)")
+    check(finite and gap < SCI_DB, f"{name}: torch and scipy PSDs "
+          f"{gap:.3f} dB apart")
+    return gap
+
+
+def held_on_path(dev, fn: str, tag: str) -> dict:
+    """The kernel a phase-19 step ran, at that step's shapes: its
+    receiver's parameters and block length read back from the step's
+    file, one block of seeded data through the kernel's wrapper on the
+    card (via_kernel) against its plain version on the same inputs, at
+    SNR_BAR_DB as in the kernel phases.  DIRECT: the DDC (#7) in the
+    mode its channel count takes, block 1 of the stream (the plain
+    version's phase, a random history); CHIRP: the lock-in's table mode
+    (#17) at the first and last oscillator block; NOISE fused: the
+    channelizer (#1) in const-frame mode on the chain's own comb frame,
+    a random spare.  Returns {kernel: max |err|}."""
+    import torch
+    from gpu_sdr_tpu_torch.client import files
+    from gpu_sdr_tpu_torch.engine import demodulator as dm
+    from gpu_sdr_tpu_torch.engine.fused import FusedLoopback
+    from gpu_sdr_tpu_torch.ops import chirp, ddc, lockin
+    from gpu_sdr_tpu_torch.ops import lockin_table as lt
+    from gpu_sdr_tpu_torch.ops.channelizer import (channelizer,
+                                                   channelizer_plain)
+    from gpu_sdr_tpu_torch.params import AntMode, WaveType
+    params = files.retrieve_params_from_file(fn)
+    (_, rx), = params.active_antennas(AntMode.RX)
+    L = dm.make_demodulator(rx, dev).plan.block_len
+    check(L == SCI_BUFFER, f"{tag}: block {L}, expected {SCI_BUFFER}")
+    rng = np.random.default_rng(1919)
+
+    def on_card(*shape):
+        return torch.from_numpy(crandn(rng, *shape)).to(dev)
+    wave = rx.wave_type[0]
+    if wave == WaveType.DIRECT:
+        cfg = dm.direct_config(rx)
+        C = len(cfg.freqs)
+        a = (cfg.modulated_taps(dev), cfg.carrier_ramp(L // cfg.M, dev),
+             ddc.ddc_carrier_step(cfg, L, dev), cfg.rate, cfg.M, cfg.f)
+        hist = on_card((cfg.f - 1) * cfg.M)
+        ph = ddc.direct_ddc_fir(*a, ddc.ddc_carrier_init(cfg, dev), hist,
+                                on_card(L))[0]
+        x = on_card(L)
+        yk = via_kernel("ddc", lambda: ddc.ddc_fused(*a, ph, hist, x))[2]
+        mode = "row" if ddc.few_channels(C) else "channel"
+        return {"ddc": report(
+            f"{tag} ddc [{mode} mode, C {C}, M {cfg.M}, f {cfg.f}, block 1]",
+            yk, ddc.direct_ddc_fir(*a, ph, hist, x)[2])}
+    if wave == WaveType.CHIRP:
+        cfg = chirp.chirp_config(rx)
+        ppt = cfg.length * int(rx.decim)
+        nseg, nblk = L // ppt, cfg.period // L
+        check(chirp.chirp_table_fits(cfg, L, ppt), f"{tag}: no table")
+        w = torch.from_numpy(lockin.lockin_profile(ppt)).to(dev)
+        table = chirp.chirp_period_table(cfg, L, ppt, device=dev)
+        x = on_card(nseg, ppt)
+        err = 0.0
+        for o in sorted({0, nblk - 1}):
+            yk = via_kernel("lockin_table", lambda: lt.lockin_table(
+                w, table, x, o, 0, nseg))
+            err = max(err, report(
+                f"{tag} lockin_table [{nseg} x {ppt}, oscillator block {o} "
+                f"of {nblk}]", yk[:, None],
+                lt.lockin_table_plain(w, table, x, o, 0, nseg)[:, None]))
+        return {"lockin_table": err}
+    (_, tx), = params.active_antennas(AntMode.TX)
+    chain = FusedLoopback(tx, rx, dev)
+    check(chain.path == "channelizer_wavetable", f"{tag}: {chain.path}")
+    c = chain._chain
+    w2, F1, G = c._consts
+    spare = on_card(*c._spare0.shape)
+    yk = via_kernel("channelizer", lambda: channelizer(
+        w2, F1, G, spare, c._frame, c.T))
+    return {"channelizer": report(
+        f"{tag} channelizer [const frame, {c.T} x {w2.shape[1]}]", yk,
+        channelizer_plain(w2, F1, G, spare, c._frame, c.T))}
+
+
+def phase_science_loop(dev):
+    """The analysis client's science loop at full width on the card
+    (get_VNA -> fit_VNA -> get_noise -> analyze_noise, BASELINE configs
+    2-4), every step through the client entry points, the files in a
+    temporary directory written and read by client/h5.py: (a) the line
+    delay at 100 Msps through the resonator channel of (b), within 20
+    samples of its group delay; (b) the VNA at config 2's widths,
+    compensated from LINE_DELAY, analysed and fitted: |S21| within 0.05
+    of 1 away from the dips, each f0 within one point; (c) noise at the
+    fitted tones through the same channel plus noise, the Resonators
+    copied in, calculate_noise on the card and with scipy within 0.05
+    dB, the frequency timestreams; (d) config 3's 100 tones, torch
+    against scipy again, and the Welch timed beside scipy; (e) config
+    4's full spectrum fused into a file, its data the packets bit for
+    bit.  Each step's launches are pinned to its blocks (1M each, the
+    client commands' buffer_len), and its kernel is held against its
+    plain version at the step's shapes (held_on_path).  Returns
+    (launches, {kernel: max |err| at those shapes})."""
+    import shutil
+    import tempfile
+    from gpu_sdr_tpu_torch.client import (delay, files, fitting, full_spec,
+                                          noise, vna)
+    from gpu_sdr_tpu_torch.engine import channel as ch
+    for r in SCI_RESOS:
+        check(r["f0"] / r["Qr"] >= 10 * SCI_POINT, f"dip {r} too narrow")
+
+    def resonators():
+        return ch.make_resonator_channel(D_RATE, SCI_RESOS,
+                                         fft_len=SCI_FFT_LEN)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sci_")
+    launches, numbers, errs = {}, {}, {}
+
+    def held(fn, tag):
+        for k, e in held_on_path(dev, fn, tag).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+
+    def add(counts, want):
+        check(all(counts[k] == v for k, v in want.items()) and
+              all(v == 0 for k, v in counts.items() if k not in want),
+              f"launches {counts}, expected {want}")
+        for k, v in want.items():
+            launches[k] = launches.get(k, 0) + v
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"files in {tmp}: {disk_of(os.path.realpath(tmp))}, "
+              f"{free / 1e9:.1f} GB free")
+        check(free >= SCI_FREE_BYTES, f"{free} bytes free in {tmp}")
+        delay.LINE_DELAY.clear()
+
+        # (a) line delay
+        fn, counts, wall, ch_s = client_step(
+            dev, "(a) line delay", lambda c: delay.measure_line_delay(
+                D_RATE, 0, "A", duration=SCI_DELAY_T,
+                output_filename=os.path.join(tmp, "delay"), channel=c,
+                device=dev), resonators())
+        t0 = time.perf_counter()
+        d = delay.analyze_line_delay(fn)
+        delay.write_delay_to_file(fn, d)
+        rate_msps, delay_ns = delay.load_delay_from_file(fn)
+        err = d * D_RATE - SCI_GROUP_DELAY
+        print(f"(a) delay {d * 1e9:.1f} ns ({d * D_RATE:.1f} samples; the "
+              f"channel's {SCI_GROUP_DELAY}), analysis "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(abs(err) <= SCI_DELAY_BAR, f"delay off by {err:.1f} samples")
+        msps = int(D_RATE / 1e6)
+        check(delay.LINE_DELAY.get(str(msps)) == delay_ns and
+              rate_msps == msps, f"LINE_DELAY {delay.LINE_DELAY}")
+        add(counts, {"lockin_table": sci_blocks(SCI_DELAY_T, D_RATE)})
+        held(fn, "(a)")
+        numbers["delay"] = dict(samples=d * D_RATE, s=wall, channel_s=ch_s,
+                                launches=counts["lockin_table"])
+
+        # (b) VNA at config 2's widths
+        fn, counts, wall, ch_s = client_step(
+            dev, "(b) VNA", lambda c: vna.Single_VNA(
+                **SCI_VNA, output_filename=os.path.join(tmp, "vna"),
+                channel=c, device=dev), resonators())
+        check(files.get_rx_info(fn).delay == 1.0 + delay_ns * 1e-9,
+              "(b) not compensated from LINE_DELAY")
+        add(counts, {"lockin_table": sci_blocks(SCI_VNA["measure_t"],
+                                                SCI_VNA["Rate"])})
+        held(fn, "(b)")
+        t0 = time.perf_counter()
+        vna.VNA_analysis(fn)
+        freq, s21 = vna.get_VNA_data(fn, calibrated=False)
+        check(len(freq) == SCI_VNA["n_points"], f"{len(freq)} VNA points")
+        away = np.ones(len(freq), bool)
+        away[:20] = False                       # the channel's start-up
+        for r in SCI_RESOS:
+            away &= np.abs(freq - r["f0"]) > 10 * r["f0"] / r["Qr"]
+        flat = float(np.max(np.abs(np.abs(s21[away]) - 1.0)))
+        check(flat < 0.05, f"(b) |S21| {flat:.3f} from 1 away from dips")
+        check(fitting.initialize_peaks(
+            fn, N_peaks=len(SCI_RESOS), peak_width=SCI_PEAK_WIDTH,
+            Qr_cutoff=5), "(b) initialize_peaks found too few")
+        check(fitting.vna_fit(fn, fit_range=SCI_PEAK_WIDTH),
+              "(b) vna_fit failed")
+        fits = sorted(fitting.get_fit_param(fn), key=lambda p: p["f0"])
+        f0_err = [p["f0"] * 1e6 - r["f0"] for p, r in zip(fits, SCI_RESOS)]
+        qr_err = [p["Qr"] / r["Qr"] - 1 for p, r in zip(fits, SCI_RESOS)]
+        fit_s = time.perf_counter() - t0
+        print(f"(b) {len(freq)} points, |S21| within {flat:.4f} of 1 away "
+              f"from the dips; f0 errors {[round(e) for e in f0_err]} Hz, "
+              f"Qr errors {[f'{e:+.2%}' for e in qr_err]}; analysis and "
+              f"fit {fit_s:.2f} s")
+        check(len(fits) == len(SCI_RESOS) and
+              max(abs(e) for e in f0_err) < SCI_POINT,
+              f"(b) f0 errors {f0_err}")
+        numbers["vna"] = dict(s=wall, channel_s=ch_s, flat=flat,
+                              f0_err_hz=f0_err, qr_err=qr_err, fit_s=fit_s,
+                              launches=counts["lockin_table"])
+
+        # (c) noise at the fitted tones
+        rf, tones = fitting.get_tones(fn)
+        nf, counts, wall, ch_s = client_step(
+            dev, "(c) noise at the fitted tones", lambda c: noise.Get_noise(
+                tones, measure_t=SCI_NOISE_T, rate=D_RATE,
+                decimation=D_DECIM, RF=rf,
+                output_filename=os.path.join(tmp, "noise"), channel=c,
+                device=dev),
+            ch.ChainChannel([resonators()], noise_rms=SCI_NOISE_RMS,
+                            seed=19))
+        add(counts, {"ddc": sci_blocks(SCI_NOISE_T, D_RATE)})
+        held(nf, "(c)")
+        noise.copy_resonator_group(fn, nf)
+        gap_c = noise_psds_agree(dev, nf, "(c)")
+        dff, dqr = noise.get_frequency_timestreams(nf)
+        rows = int(SCI_NOISE_T * D_RATE) // D_DECIM
+        check(dff.shape == dqr.shape == (len(SCI_RESOS), rows) and
+              np.isfinite(dff).all() and np.isfinite(dqr).all(),
+              f"(c) frequency timestreams {dff.shape}")
+        print(f"(c) frequency timestreams {dff.shape}, df/f rms "
+              f"{np.std(dff, axis=1)}")
+        numbers["noise"] = dict(s=wall, channel_s=ch_s, gap_db=gap_c,
+                                launches=counts["ddc"])
+
+        # (d) config 3's widths
+        nf, counts, wall, ch_s = client_step(
+            dev, "(d) config 3 noise", lambda c: noise.Get_noise(
+                CONFIG3, measure_t=SCI_NOISE_T, rate=D_RATE,
+                decimation=D_DECIM, pf_average=D_AVG, RF=0, delay=0.0,
+                output_filename=os.path.join(tmp, "noise3"), channel=c,
+                device=dev),
+            ch.ChainChannel([ch.IdealChannel()], noise_rms=SCI_NOISE_RMS,
+                            seed=3))
+        add(counts, {"ddc": sci_blocks(SCI_NOISE_T, D_RATE)})
+        held(nf, "(d)")
+        gap_d = noise_psds_agree(dev, nf, "(d)")
+        data = files.openH5file(nf)
+        check(data.shape == (len(CONFIG3), rows), f"(d) {data.shape}")
+        x = np.ascontiguousarray(data.real)
+        del data
+        numbers["config3"] = dict(s=wall, channel_s=ch_s, gap_db=gap_d,
+                                  launches=counts["ddc"],
+                                  welch=welch_times(dev, x, D_RATE / D_DECIM,
+                                                    rows // SCI_WELCH))
+        del x
+
+        # (e) config 4: the full spectrum
+        keep = Packets()
+        fn, counts, wall, _ = client_step(
+            dev, "(e) full spectrum", lambda c: full_spec.Get_full_spec(
+                QCOMB, channels=NFFT, measure_t=SCI_FULL_T, rate=D_RATE,
+                RF=0, delay=0.0, output_filename=os.path.join(tmp, "full"),
+                push_queue=keep, device=dev), None)
+        n_full = sci_blocks(SCI_FULL_T, D_RATE)
+        add(counts, {"channelizer": n_full})
+        held(fn, "(e)")
+        check(len(keep.packets) == n_full, f"{len(keep.packets)} packets")
+        from gpu_sdr_tpu_torch.client import h5
+        with h5.File(fn, "r") as f:
+            got = f["raw_data0"]["A_RX2"]["data"][()]
+        same_bits("(e) the file's data vs the packets",
+                  np.concatenate(keep.packets).reshape(1, -1), got)
+        numbers["full_spec"] = dict(s=wall, launches=n_full)
+    finally:
+        delay.LINE_DELAY.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("science numbers:", json.dumps(numbers, default=str))
+    return launches, errs
+
+
 def check_line(kernels) -> None:
     """Every kernel of the repo is in the kernels line once, launched
     by its main path's run, with every key of the line."""
@@ -3875,6 +4300,8 @@ def main() -> int:
                               phase_new_main_path, dev))
         io_launches = timed("HDF5, mixed, channel, socket and NODSP",
                             phase_io_main_path, dev)
+        analysis_launches, analysis_errs = timed(
+            "the science loop", phase_science_loop, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3928,6 +4355,9 @@ def main() -> int:
     for k in kernels:           # the HDF5 / mixed / channel / socket runs
         if k["name"] in io_launches:
             k["io_launches"] = io_launches[k["name"]]
+        if k["name"] in analysis_launches:      # the science loop's
+            k["analysis_launches"] = analysis_launches[k["name"]]
+            k["analysis_max_abs_err"] = analysis_errs[k["name"]]
     check_line(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,15 +13,22 @@ neither jax nor any module of the JAX package: it keeps its own copies
 of the parameter structs (``params.py``) and of the float64 helpers its
 constants are built with (``golden.py``).
 
-Ported slices of ``measure.run_measurement``, one front end, fused
-loopback, host-fed pipeline and device-resident replay of a recording:
-the TONES / NOISE PFB readout, the DIRECT readout (multi-tone DDC +
-decimating FIR) and the CHIRP / VNA readout (integer-phase chirp +
-lock-in); each of them also sharded over a (time, channels) mesh of
-devices driven by one process (``parallel/``, ``run_measurement(
-mesh=...)``).
-Every other branch raises ``NotImplementedError`` naming the ROADMAP
-item that will port it.
+What runs: ``measure.run_measurement`` on every path of the JAX
+package (one front end or two in lock-step, fused loopback, the host-fed
+pipeline through a channel model or a socket ingest, the device-resident
+replay of a recording, each also sharded over a (time, channels) mesh
+of devices driven by one process, ``parallel/``) for every wave type of
+the reference (TONES / NOISE PFB, DIRECT DDC + decimating FIR, CHIRP /
+VNA lock-in, NODSP raw, and mixed wave types on one antenna), with
+checkpoints (``engine/checkpoint.py``) and the reference's HDF5 files
+(``client/files.py``, written and read by ``client/h5.py``, with no
+h5py); and the analysis client: line delay, VNA sweeps and analysis,
+resonator fits, noise captures and their Welch PSDs (on the device,
+``ops/spectral.py``, or with scipy), full-spectrum and raw captures,
+triggers (``client/``).  What raises ``NotImplementedError`` is what
+the reference refuses too (two chirps on one antenna, TX of a wave type
+other than TONES or CHIRP).  The TCP client, the plotting, the
+``pyusrp`` facade and the server are ROADMAP Queue 1 item 3b step 3.
 """
 
 __version__ = "0.1.0"

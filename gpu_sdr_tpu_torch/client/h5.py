@@ -1,39 +1,43 @@
 """A small HDF5 reader and writer in numpy, for the measurement files.
 
 The port's hosts need not have h5py (nor the HDF5 library), so the file
-layer (client/files.py) writes and reads HDF5 through this module, which
-speaks the subset of the format those files use, in its earliest
-versions (what h5py writes by default):
+layer (client/files.py) and the analysis modules write and read HDF5
+through this module, which speaks the subset of the format those files
+use, in its earliest versions (what h5py writes by default):
 
 * a version-0 superblock; groups as symbol tables (a v1 B-tree, a local
   heap of names, symbol table nodes); version-1 object headers, with
   continuation blocks when reading;
-* attributes of 64-bit integers, 64-bit floats, booleans (h5py's enum
-  of FALSE / TRUE), and variable-length UTF-8 strings (a global heap),
-  scalars or arrays;
-* chunked datasets, resizable (unlimited maxshape), of complex64 (h5py's
-  compound of float32 'r', 'i'), int64 or float64, indexed by a v1
-  B-tree, with no filters; h5py's own chunk-shape guess for
-  ``chunks=True``.
+* attributes of 64-bit integers, 64-bit floats, complex numbers (h5py's
+  compound of 'r', 'i'), booleans (h5py's enum of FALSE / TRUE), and
+  variable-length UTF-8 strings (a global heap), scalars or arrays;
+* datasets of integers, float32, float64, complex64 and complex128,
+  contiguous or chunked (a v1 B-tree of chunks), the chunks raw or
+  deflated (the gzip filter, filter 1; a chunk's filter mask says which
+  filters it skipped); h5py's layout rule (chunked when chunks, maxshape
+  or compression is given) and its chunk-shape guess.
 
-The interface is the part of h5py's that the file layer calls: ``File``,
-groups, datasets (``shape``, ``dtype``, ``chunks``, ``maxshape``,
-``resize``, item reads and writes, ``attrs``) and ``string_dtype``.  A
-file's objects are parsed on opening and live in memory while it is
-open; a read takes only the chunks its selection overlaps.  Only what
-the sink does is written: chunked datasets created, appended to along
-the last axis (or, while none of their chunks is in the file, by row),
-shrunk, and attributes set; anything else raises.  A dataset streams:
-once a write has filled every chunk of a run of columns along its last
-axis (the way the H5 sink appends packets), those chunks go to the end
-of the file and leave memory; a dataset of a reopened file takes
-appends from the end of its last chunk column on.  Closing the
-file writes the rest of the data and then all metadata at the end of
-the file, and finally the superblock, so a file reopened to add an
-attribute keeps its data where it is.  Handles to one file in one
-process share its objects, as the HDF5 library's do; the file is
-written when the last one closes.  A process that dies before that
-leaves no readable file.
+The interface is the part of h5py's that the file layer and the
+analysis call: ``File``, groups (``create_group``, ``require_group``,
+``create_dataset``, ``del``, ``copy``), datasets (``shape``, ``dtype``,
+``chunks``, ``maxshape``, ``compression``, ``resize``, item reads and
+writes, ``attrs``) and ``string_dtype``.  A file's objects are parsed on
+opening and live in memory while it is open; a read takes only the
+chunks its selection overlaps.  Only what the sink and the analysis do
+is written: datasets created (a contiguous one with its data, once),
+chunked ones appended to along the last axis (or, while none of their
+chunks is in the file, by row), shrunk, objects deleted and attributes
+set; anything else raises.  A dataset streams: once a write has filled
+every chunk of a run of columns along its last axis (the way the H5
+sink appends packets), those chunks go to the end of the file and leave
+memory; a dataset of a reopened file takes appends from the end of its
+last chunk column on.  Closing the file writes the rest of the data and
+then all metadata at the end of the file, and finally the superblock,
+so a file reopened to add an attribute keeps its data where it is; the
+space of a deleted object is not reclaimed, as in h5py.  Handles to one
+file in one process share its objects, as the HDF5 library's do; the
+file is written when the last one closes.  A process that dies before
+that leaves no readable file.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from __future__ import annotations
 import mmap
 import os
 import struct
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -51,6 +56,10 @@ SIGNATURE = b"\x89HDF\r\n\x1a\n"
 SUPERBLOCK_BYTES = 96               # version 0, 8-byte offsets and lengths
 LEAF_K, GROUP_K, CHUNK_K = 16, 16, 32   # B-tree node widths
 FREE_NULL = 1                       # end of a local heap's free list
+DEFLATE, GZIP_LEVEL = 1, 4          # the gzip filter's id; h5py's level
+FILTER_OPTIONAL = 1                 # how h5py's set_deflate adds it
+FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip",
+                5: "nbit", 6: "scaleoffset", 32000: "lzf"}
 
 # h5py's chunk guess (h5py/_hl/filters.py): the target chunk grows with
 # the dataset, within [CHUNK_MIN, CHUNK_MAX] bytes
@@ -107,11 +116,13 @@ def _float(size: int) -> bytes:
                        size * 8, exp_loc, exp_size, 0, mant, bias)
 
 
-def _compound_complex() -> bytes:
-    out = struct.pack("<B3BI", 0x16, 2, 0, 0, 8)
+def _compound_complex(part: int) -> bytes:
+    """h5py's complex type: a compound of two floats of `part` bytes."""
+    out = struct.pack("<B3BI", 0x16, 2, 0, 0, 2 * part)
     for k, name in enumerate(_COMPLEX_NAMES):
-        out += _pad8(name + b"\0") + struct.pack("<IB3xI4x16x", 4 * k, 0, 0)
-        out += _float(4)
+        out += _pad8(name + b"\0") + struct.pack("<IB3xI4x16x", part * k, 0,
+                                                 0)
+        out += _float(part)
     return out
 
 
@@ -129,8 +140,8 @@ def encode_dtype(dt: np.dtype) -> bytes:
     """The datatype message of a numpy dtype the files use."""
     if dt.kind == "O":
         return _vlen_string()
-    if dt == np.complex64:
-        return _compound_complex()
+    if dt.kind == "c" and dt.itemsize in (8, 16):
+        return _compound_complex(dt.itemsize // 2)
     if dt == np.bool_:
         return _enum_bool()
     if dt.kind in "iu":
@@ -329,22 +340,93 @@ class Group(_Node):
         self._children[name] = node
         return node
 
-    def create_group(self, name: str) -> "Group":
-        return self._add(name, Group(self._file, f"{self.name}/{name}"))
+    def _path(self, name: str) -> str:
+        return f"{self.name.rstrip('/')}/{name}"
 
-    def create_dataset(self, name, shape, dtype, maxshape=None,
-                       chunks=None) -> "Dataset":
-        """A chunked dataset (the only layout written): `chunks` True or
-        None takes h5py's guess."""
-        dtype = np.dtype(dtype)
+    def create_group(self, name: str) -> "Group":
+        return self._add(name, Group(self._file, self._path(name)))
+
+    def require_group(self, name: str) -> "Group":
+        """The group `name`, created if it is missing."""
+        node = self.get(name)
+        if node is None:
+            return self.create_group(name)
+        if not isinstance(node, Group):
+            raise TypeError(f"h5: {name!r} in {self.name!r} is not a group")
+        return node
+
+    def __delitem__(self, path: str):
+        """Unlink an object; its space in the file is not reclaimed."""
+        self._file._check_writable()
+        head, _, tail = path.rstrip("/").rpartition("/")
+        parent = self._resolve(head) if head else self
+        if not isinstance(parent, Group) or tail not in parent._children:
+            raise KeyError(f"h5: no object {path!r} in {self.name!r}")
+        del parent._children[tail]
+
+    def create_dataset(self, name, shape=None, dtype=None, data=None,
+                       maxshape=None, chunks=None,
+                       compression=None) -> "Dataset":
+        """A dataset, laid out by h5py's rule: chunked when `chunks`,
+        `maxshape` or `compression` is given (`chunks` None or True then
+        takes h5py's guess), contiguous otherwise.  `compression` is None
+        or "gzip" (deflate at h5py's default level).  `data` fills it;
+        a contiguous dataset takes no later write."""
+        if data is not None:
+            data = np.asarray(data, dtype=dtype)
+            if shape is not None and tuple(shape) != data.shape:
+                raise ValueError(f"h5: shape {shape} is not the data's "
+                                 f"{data.shape}")
+            shape, dtype = data.shape, data.dtype
+        dtype = np.dtype(dtype if dtype is not None else np.float32)
+        encode_dtype(dtype)             # refuse what the files never hold
         shape = tuple(int(s) for s in shape)
+        if compression not in (None, "gzip"):
+            raise NotImplementedError(f"h5: compression {compression!r}")
+        path = self._path(name)
+        if chunks is None and maxshape is None and compression is None:
+            ds = Dataset(self._file, path, shape, dtype, shape, None)
+            ds._full = (np.zeros(shape, dtype) if data is None
+                        else np.array(data))
+            return self._add(name, ds)
+        if not shape:
+            raise TypeError("h5: a scalar dataset takes no chunks or filters")
         maxshape = shape if maxshape is None else tuple(
             UNLIMITED if m is None else int(m) for m in maxshape)
         if chunks is None or chunks is True:
             chunks = guess_chunk(shape, dtype.itemsize)
-        ds = Dataset(self._file, f"{self.name}/{name}", shape, dtype,
-                     maxshape, tuple(int(c) for c in chunks))
-        return self._add(name, ds)
+        filters = ((DEFLATE, FILTER_OPTIONAL, (GZIP_LEVEL,)),) \
+            if compression else ()
+        ds = self._add(name, Dataset(self._file, path, shape, dtype,
+                                     maxshape, tuple(int(c) for c in chunks),
+                                     filters=filters))
+        if data is not None and data.size:
+            ds[tuple(slice(None) for _ in shape)] = data
+        return ds
+
+    def copy(self, source, dest: "Group", name: Optional[str] = None):
+        """Copy the object `source` (a path here, or an object) into the
+        group `dest`, of this file or another, as `name` (by default its
+        own): groups recursively, datasets with their layout, filters
+        and attributes."""
+        node = self._resolve(source) if isinstance(source, str) else source
+        name = name or node.name.rstrip("/").rsplit("/", 1)[-1]
+        if isinstance(node, Dataset):
+            if any(f[0] != DEFLATE for f in node._filters):
+                raise NotImplementedError(
+                    f"h5: copying {node.name}, filtered by "
+                    f"{[f[0] for f in node._filters]}")
+            out = dest.create_dataset(
+                name, data=node[()], chunks=node.chunks,
+                maxshape=node.maxshape if node.chunks else None,
+                compression="gzip" if node._filters else None)
+        else:
+            out = dest.create_group(name)
+            for child in node.keys():
+                node.copy(child, out)
+        for k, v in node.attrs._d.items():
+            out.attrs[k] = v
+        return out
 
 
 class Dataset(_Node):
@@ -355,13 +437,18 @@ class Dataset(_Node):
     sends its whole chunk columns to the file at once; other writes (the
     rows of the small `errors` and `trigger` datasets) stay in the
     buffer until the file closes.  A dataset of a parsed file takes
-    writes from the end of its last chunk column on.  An unchunked
-    dataset (h5py's contiguous or compact layout) is read only; `_full`
-    holds the data of a compact one, `_layout` its layout message."""
+    writes from the end of its last chunk column on.  A chunk's index
+    entry is (address, bytes, filter mask); `_filters` is the filter
+    pipeline, (id, flags, values) a filter, applied to each chunk in
+    order when it is written and undone in reverse when it is read.  An
+    unchunked dataset (h5py's contiguous or compact layout) takes no
+    write once created; `_full` holds the data of a compact one and of
+    one created here, `_layout` the layout message of one parsed."""
 
     def __init__(self, file, name, shape, dtype, maxshape, chunks,
-                 index=None):
+                 index=None, filters=()):
         super().__init__(file, name)
+        self._filters = tuple(filters)
         self._shape = tuple(shape)
         self.dtype = np.dtype(dtype)
         self._maxshape = tuple(maxshape)
@@ -384,6 +471,32 @@ class Dataset(_Node):
     @property
     def maxshape(self):
         return tuple(None if m == UNLIMITED else m for m in self._maxshape)
+
+    @property
+    def compression(self):
+        return "gzip" if any(f[0] == DEFLATE for f in self._filters) \
+            else None
+
+    @property
+    def compression_opts(self):
+        return next((f[2][0] for f in self._filters if f[0] == DEFLATE),
+                    None)
+
+    def _chunk(self, where) -> np.ndarray:
+        """The chunk at `where` (its index entry), its filters undone."""
+        addr, n, mask = where
+        raw = self._file._read(addr, n)
+        for i in reversed(range(len(self._filters))):
+            if mask >> i & 1:           # this filter skipped this chunk
+                continue
+            fid = self._filters[i][0]
+            if fid != DEFLATE:
+                raise NotImplementedError(
+                    f"h5: {self.name} has filter {fid} "
+                    f"({FILTER_NAMES.get(fid, 'unknown')}); only deflate "
+                    f"({DEFLATE}) is read")
+            raw = zlib.decompress(raw)
+        return np.frombuffer(raw, self.dtype).reshape(self._cs)
 
     def __len__(self):
         return self._shape[0]
@@ -512,8 +625,7 @@ class Dataset(_Node):
             where = self._index.get(off)
             if where is None:
                 continue
-            blk = np.frombuffer(self._file._read(*where),
-                                self.dtype).reshape(cs)
+            blk = self._chunk(where)
             lo = [max(s.start, o) for s, o in zip(box, off)]
             hi = [min(s.stop, o + c) for s, o, c in zip(box, off, cs)]
             out[tuple(slice(a - s.start, b - s.start)
@@ -660,12 +772,22 @@ class _State:
             blocks[...] = padded.reshape(tuple(
                 x for g, c in zip(grid, cs) for x in (g, c))).transpose(
                 tuple(range(0, 2 * nd, 2)) + tuple(range(1, 2 * nd, 2)))
-        base = self._append(blocks.reshape(-1).view(np.uint8))
-        nbytes = int(np.prod(cs)) * ds.dtype.itemsize
-        for k, idx in enumerate(np.ndindex(*grid)):
-            off = tuple(i * c for i, c in zip(idx, cs))
-            ds._index[off[:-1] + (off[-1] + col0,)] = (base + k * nbytes,
-                                                       nbytes)
+        offs = [tuple(i * c for i, c in zip(idx, cs))
+                for idx in np.ndindex(*grid)]
+        data = blocks.reshape(-1).view(np.uint8)
+        sizes = [int(np.prod(cs)) * ds.dtype.itemsize] * len(offs)
+        if ds._filters:                 # deflate each chunk on its own
+            if [f[0] for f in ds._filters] != [DEFLATE]:
+                raise NotImplementedError(
+                    f"h5: writing {ds.name}, filtered by "
+                    f"{[f[0] for f in ds._filters]}")
+            packed = [zlib.compress(b.tobytes(), ds.compression_opts)
+                      for b in blocks.reshape((-1,) + cs)]
+            data, sizes = b"".join(packed), [len(b) for b in packed]
+        at = self._append(data)
+        for off, n in zip(offs, sizes):
+            ds._index[off[:-1] + (off[-1] + col0,)] = (at, n, 0)
+            at += n
 
     def close(self):
         try:
@@ -810,8 +932,8 @@ def _chunk_btree(file: _State, ds: Dataset) -> int:
         return UNDEF
     key_fmt = "<II" + "Q" * nd
 
-    def key(off, nbytes):
-        return struct.pack(key_fmt, nbytes, 0, *off, 0)
+    def key(off, nbytes, mask=0):
+        return struct.pack(key_fmt, nbytes, mask, *off, 0)
 
     def right(off):
         return tuple(o + c for o, c in zip(off, ds._cs))
@@ -823,8 +945,8 @@ def _chunk_btree(file: _State, ds: Dataset) -> int:
     entries = [(k, ds._index[k]) for k in keys]
     for i in range(0, len(entries), width):
         part = entries[i:i + width]
-        body = b"".join(key(off, nb) + struct.pack("<Q", addr)
-                        for off, (addr, nb) in part)
+        body = b"".join(key(off, nb, mask) + struct.pack("<Q", addr)
+                        for off, (addr, nb, mask) in part)
         body += key(right(part[-1][0]), 0)
         level.append((part[0][0], right(part[-1][0]), part[0][1][1],
                       b"TREE" + struct.pack("<BBHQQ", 1, 0, len(part),
@@ -851,21 +973,44 @@ def _chunk_btree(file: _State, ds: Dataset) -> int:
         level = nxt
 
 
+def _filter_pipeline(filters) -> bytes:
+    """A version-1 filter pipeline message's data (no filter names)."""
+    out = struct.pack("<BB6x", 1, len(filters))
+    for fid, flags, values in filters:
+        out += struct.pack("<HHHH", fid, 0, flags, len(values))
+        out += b"".join(struct.pack("<I", v) for v in values)
+        out += b"\0" * (4 * (len(values) % 2))
+    return out
+
+
+def _contiguous_layout(file: _State, ds: Dataset) -> bytes:
+    """Append a contiguous dataset's data; its layout message."""
+    raw = np.ascontiguousarray(ds._full).tobytes()
+    addr = file._append(raw) if raw else UNDEF
+    return _message(0x0008, struct.pack("<BBQQ", 3, 1, addr, len(raw)))
+
+
 def _write_dataset(file: _State, ds: Dataset, heap) -> int:
     ds._finish()
     item = ds.dtype.itemsize
-    layout = ds._layout if ds.chunks is None else _message(
-        0x0008, struct.pack("<BBBQ", 3, 2, len(ds._cs) + 1,
-                            _chunk_btree(file, ds)) +
-        b"".join(struct.pack("<I", c) for c in ds._cs) +
-        struct.pack("<I", item))
+    if ds.chunks is not None:
+        layout = _message(
+            0x0008, struct.pack("<BBBQ", 3, 2, len(ds._cs) + 1,
+                                _chunk_btree(file, ds)) +
+            b"".join(struct.pack("<I", c) for c in ds._cs) +
+            struct.pack("<I", item))
+    else:
+        layout = ds._layout or _contiguous_layout(file, ds)
+    # fill value: allocated incrementally (chunked) or late (contiguous)
+    alloc = 3 if ds.chunks is not None else 2
     msgs = [
         _message(0x0001, _dataspace(ds._shape, ds._maxshape)),
         _message(0x0003, encode_dtype(ds.dtype)),
-        _message(0x0005, struct.pack("<BBBBI", 2, 3, 2, 1, item) +
+        _message(0x0005, struct.pack("<BBBBI", 2, alloc, 2, 1, item) +
                  b"\0" * item),
-        layout,
-    ] + [_attribute(k, v, heap) for k, v in ds.attrs._d.items()]
+    ] + ([_message(0x000B, _filter_pipeline(ds._filters))]
+         if ds._filters else []) + [layout] + \
+        [_attribute(k, v, heap) for k, v in ds.attrs._d.items()]
     return file._append(_object_header(msgs))
 
 
@@ -873,9 +1018,6 @@ def _write_group(file: _State, g: Group, heap) -> Tuple[int, int, int]:
     """Write a group's children, then the group: (object header, B-tree,
     local heap) addresses."""
     names = sorted(g._children)             # symbol nodes keep name order
-    if len(names) > 2 * LEAF_K:
-        raise NotImplementedError(
-            f"h5: {len(names)} objects in one group (at most {2 * LEAF_K})")
     children = {}
     for n in names:
         c = g._children[n]
@@ -891,20 +1033,46 @@ def _write_group(file: _State, g: Group, heap) -> Tuple[int, int, int]:
     seg_addr = file._append(bytes(seg))
     local_heap = file._append(b"HEAP" + struct.pack(
         "<B3xQQQ", 0, len(seg), free_at, seg_addr))
-    width = 2 * GROUP_K
-    tree = b"TREE" + struct.pack("<BBHQQ", 0, 0, 1 if names else 0, UNDEF,
-                                 UNDEF)
-    if names:
-        entries = b"".join(struct.pack("<QQI4x16x", offs[n], children[n], 0)
-                           for n in names)
-        snod = b"SNOD" + struct.pack("<BBH", 1, 0, len(names)) + entries
-        snod += b"\0" * (8 + 2 * LEAF_K * 40 - len(snod))
-        tree += struct.pack("<QQQ", 0, file._append(snod), offs[names[-1]])
-    tree += b"\0" * (24 + (width + 1) * 8 + width * 8 - len(tree))
-    tree_addr = file._append(tree)
+    tree_addr = _group_btree(file, names, offs, children)
     msgs = [_message(0x0011, struct.pack("<QQ", tree_addr, local_heap))] + \
         [_attribute(k, v, heap) for k, v in g.attrs._d.items()]
     return file._append(_object_header(msgs)), tree_addr, local_heap
+
+
+def _group_btree(file: _State, names, offs, children) -> int:
+    """Write a group's symbol table nodes (up to 2 * LEAF_K names each,
+    in name order) and the v1 B-tree over them; its root's address.  A
+    child's keys bound its names: the heap offset of the last name
+    before it (0, the empty name, for the first) and of its own last."""
+    width = 2 * GROUP_K
+    node_bytes = 24 + (width + 1) * 8 + width * 8
+
+    def node(level, part):
+        body = b"".join(struct.pack("<QQ", lo, addr)
+                        for lo, _hi, addr in part)
+        raw = b"TREE" + struct.pack("<BBHQQ", 0, level, len(part), UNDEF,
+                                    UNDEF) + body
+        if part:
+            raw += struct.pack("<Q", part[-1][1])
+        return file._append(raw + b"\0" * (node_bytes - len(raw)))
+
+    level, lo = [], 0
+    for i in range(0, len(names), 2 * LEAF_K):
+        part = names[i:i + 2 * LEAF_K]
+        snod = b"SNOD" + struct.pack("<BBH", 1, 0, len(part)) + b"".join(
+            struct.pack("<QQI4x16x", offs[n], children[n], 0) for n in part)
+        snod += b"\0" * (8 + 2 * LEAF_K * 40 - len(snod))
+        level.append((lo, offs[part[-1]], file._append(snod)))
+        lo = offs[part[-1]]
+    depth = 0
+    while True:
+        nodes = [(part[0][0], part[-1][1], node(depth, part))
+                 for part in (level[i:i + width]
+                              for i in range(0, len(level), width))] \
+            or [(0, 0, node(0, []))]
+        if len(nodes) == 1:
+            return nodes[0][2]
+        level, depth = nodes, depth + 1
 
 
 def _write_metadata(st: _State) -> None:
@@ -1082,13 +1250,15 @@ def _read_object(buf, addr, node, file, cache):
     if 0x0008 in kinds:                         # a dataset
         shape = maxshape = dt = None
         chunks, btree, layout = None, UNDEF, 2
-        contiguous, compact = (UNDEF, 0), b""
+        contiguous, compact, filters = (UNDEF, 0), b"", ()
         for kind, off, _size in msgs:
             r = _Reader(buf, off)
             if kind == 0x0001:
                 shape, maxshape = _read_dataspace(r)
             elif kind == 0x0003:
                 dt, _ = decode_dtype(r)
+            elif kind == 0x000B:
+                filters = _read_filters(r)
             elif kind == 0x0008:
                 version, cls = r.take("BB")
                 if version != 3:
@@ -1107,7 +1277,7 @@ def _read_object(buf, addr, node, file, cache):
         if layout == 2 and btree != UNDEF:
             _read_chunk_tree(buf, btree, len(chunks) + 1, index)
         elif layout == 1 and shape and contiguous[0] != UNDEF:
-            index[(0,) * len(shape)] = contiguous   # one chunk: the array
+            index[(0,) * len(shape)] = contiguous + (0,)    # one chunk
         elif layout != 2:
             n = int(np.prod(shape)) * dt.itemsize
             raw = (compact if layout == 0 else bytes(
@@ -1117,7 +1287,7 @@ def _read_object(buf, addr, node, file, cache):
                                  int(np.prod(shape))).astype(dt).reshape(
                                      shape)
         ds = Dataset(file, node.name, shape, dt, maxshape,
-                     chunks if layout == 2 else None, index)
+                     chunks if layout == 2 else None, index, filters)
         ds._full = full
         if layout != 2:                 # kept as it is when rewritten
             ds._layout = next(_message(0x0008, bytes(buf[o:o + n]))
@@ -1136,6 +1306,27 @@ def _read_object(buf, addr, node, file, cache):
                 node._children[name] = _read_object(buf, child_addr, child,
                                                     file, cache)
     return node
+
+
+def _read_filters(r: _Reader):
+    """The filters, (id, flags, client values) each, of a filter
+    pipeline message of version 1 or 2."""
+    version, n = r.take("BB")
+    if version == 1:
+        r.take("6x")
+    elif version != 2:
+        raise NotImplementedError(f"h5: filter pipeline version {version}")
+    out = []
+    for _ in range(n):
+        fid = r.take("H")
+        name_len = r.take("H") if version == 1 or fid >= 256 else 0
+        flags, nvals = r.take("HH")
+        r.raw(name_len + (-name_len % 8 if version == 1 else 0))
+        vals = tuple(r.take("I") for _ in range(nvals))
+        if version == 1 and nvals % 2:
+            r.take("4x")
+        out.append((fid, flags, vals))
+    return tuple(out)
 
 
 def _local_heap(buf, addr) -> bytes:
@@ -1181,7 +1372,5 @@ def _read_chunk_tree(buf, addr, nd, index):
         if level > 0:
             _read_chunk_tree(buf, child, nd, index)
         else:
-            if vals[1]:
-                raise NotImplementedError("h5: filtered chunks")
-            index[tuple(vals[2:2 + nd - 1])] = (child, vals[0])
+            index[tuple(vals[2:2 + nd - 1])] = (child, vals[0], vals[1])
 

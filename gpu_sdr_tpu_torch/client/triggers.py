@@ -96,12 +96,13 @@ class amplitude_trigger(trigger_template):
         self.threshold = float(threshold)
         self.vna = vna
         if fit_params is None and vna is not None:
-            # the fit parameters come from a resonator fit of the VNA
-            # file (client/fitting), which the port does not have yet
-            raise NotImplementedError(
-                "amplitude_trigger(vna=...) fits the VNA file's resonators "
-                "(client/fitting), not ported yet (ROADMAP Queue 1 item "
-                "3b); pass fit_params")
+            from .fitting import get_fit_param
+            fit_params = get_fit_param(vna)
+            from . import h5
+            with h5.File(vna if vna.endswith(".h5") else vna + ".h5",
+                         "r") as f:
+                calibration = float(
+                    np.atleast_1d(f["VNA_0"].attrs["calibration"])[0])
         self.fit_params = fit_params
         self.cal = calibration
         self.channels = channels

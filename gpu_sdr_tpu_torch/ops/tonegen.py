@@ -98,3 +98,14 @@ def tone_comb_block(P: torch.Tensor, Q: torch.Tensor, step: torch.Tensor,
     The rotation angle is formed in float32 as in the JAX package."""
     x = (P * phase_rotation(phase, W)[None, :]) @ Q
     return advance_phase(phase, step, W), x.reshape(-1)
+
+
+def tone_comb_wavetable(freqs, ampls, rate: int,
+                        scale: float = 1.0) -> np.ndarray:
+    """Reference-style full-period wavetable via iFFT (host-side; for tests
+    and small rates only).  x[n] = scale * sum_c A_c exp(2j*pi*f_c*n/rate)
+    (reference tone_gen, cpp/kernels.cu:589-684)."""
+    spec = np.zeros(rate, dtype=np.complex128)
+    for f, a in zip(freqs, ampls):
+        spec[int(f) % rate] += a
+    return (np.fft.ifft(spec) * rate * scale).astype(np.complex64)

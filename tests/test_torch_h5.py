@@ -4,8 +4,15 @@ every kind the files use, datasets' shapes, dtypes, chunks, maxshapes
 and data), and what h5py writes it reads the same; appends in sizes
 that do and do not fill chunks, a shrink, a B-tree of more than one
 level, a file reopened to add an attribute, two handles on one file,
-h5py's chunk guess for many shapes.
+h5py's chunk guess for many shapes.  The analysis' writes both ways:
+contiguous datasets, gzip (deflate at level 4, h5py's chunk guess; a
+chunk's filter mask honoured, other filters refused by id), float32 and
+complex128 data, complex attributes, require_group, deletes and a
+rewrite in a second session, groups of many objects, copies between
+two open files.
 """
+
+import zlib
 
 import h5py
 import numpy as np
@@ -38,7 +45,9 @@ def items(path, module):
             attrs = {k: obj.attrs[k] for k in obj.attrs}
             if hasattr(obj, "shape"):
                 out[name] = ("dataset", attrs, (obj.shape, obj.dtype,
-                                                obj.chunks, obj.maxshape),
+                                                obj.chunks, obj.maxshape,
+                                                obj.compression,
+                                                obj.compression_opts),
                              obj[()])
             else:
                 out[name] = ("group", attrs, None, None)
@@ -334,3 +343,191 @@ def test_shrink_then_grow_reads_as_h5py(tmp_path, cuts):
             d[:, cuts[1] - 1:cuts[1]] = -1
     assert_same(items(tmp_path / "port.h5", h5py),
                 items(tmp_path / "h5py.h5", h5py))
+
+
+def test_gzip_reproducer_reads_bit_for_bit(tmp_path):
+    """h5py's gzip float32 dataset of 180 samples: the reader once took
+    the deflated bytes for the data (a chunk's filter mask of 0 means
+    every filter was applied)."""
+    x = np.random.default_rng(0).standard_normal(180).astype(np.float32)
+    with h5py.File(tmp_path / "g.h5", "w") as f:
+        f.create_dataset("real_0", data=x, compression="gzip")
+    with h5.File(tmp_path / "g.h5", "r") as f:
+        d = f["real_0"]
+        assert (d.compression, d.compression_opts) == ("gzip", 4)
+        y = np.asarray(d)
+    assert y.dtype == x.dtype and np.array_equal(y, x)
+
+
+def _data(dtype, shape, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape)
+    if np.dtype(dtype).kind == "c":
+        x = x + 1j * rng.standard_normal(shape)
+    return x.astype(dtype)
+
+
+@pytest.mark.parametrize("rows", [None, 3], ids=["1d", "2d"])
+@pytest.mark.parametrize("n", [1, 7, 180, 1000, 4097, 70_001])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64],
+                         ids=lambda d: np.dtype(d).name)
+def test_gzip_datasets_read_bit_for_bit(tmp_path, dtype, n, rows):
+    """gzip datasets at a sweep of lengths, 1-D and 2-D: h5py's read bit
+    for bit by the port, the port's by h5py, with h5py's chunk guess and
+    level 4 on both."""
+    shape = (n,) if rows is None else (rows, n)
+    x = _data(dtype, shape, n)
+    with h5py.File(tmp_path / "h.h5", "w") as f:
+        f.create_dataset("x", data=x, compression="gzip")
+    with h5.File(tmp_path / "p.h5", "w") as f:
+        f.create_dataset("x", data=x, compression="gzip")
+    want = (x.shape, x.dtype, h5.guess_chunk(shape, x.dtype.itemsize),
+            "gzip", 4)
+    for path in ("h.h5", "p.h5"):
+        for module in (h5, h5py):
+            with module.File(tmp_path / path, "r") as f:
+                d = f["x"]
+                assert (d.shape, d.dtype, d.chunks, d.compression,
+                        d.compression_opts) == want, (path, module)
+                assert np.array_equal(d[()], x), (path, module)
+
+
+def test_filter_mask_and_other_filters(tmp_path):
+    """A chunk whose mask says deflate was skipped is read raw; shuffle
+    (2) and fletcher32 (3) are refused by id on read, and kept through
+    a rewrite of the file."""
+    x = np.arange(2000, dtype=np.float64)
+    with h5py.File(tmp_path / "m.h5", "w") as f:
+        d = f.create_dataset("m", shape=(2000,), dtype=np.float64,
+                             chunks=(1000,), compression="gzip")
+        d.id.write_direct_chunk((0,), zlib.compress(x[:1000].tobytes(), 4))
+        d.id.write_direct_chunk((1000,), x[1000:].tobytes(), filter_mask=1)
+        f.create_dataset("s", data=x, chunks=(500,), shuffle=True)
+        f.create_dataset("g", data=x, chunks=(500,), compression="gzip",
+                         fletcher32=True)
+    before = items(tmp_path / "m.h5", h5py)
+    with h5.File(tmp_path / "m.h5", "a") as f:
+        assert np.array_equal(f["m"][()], x)
+        with pytest.raises(NotImplementedError, match=r"filter 2 \(shuffle"):
+            f["s"][()]
+        with pytest.raises(NotImplementedError,
+                           match=r"filter 3 \(fletcher32"):
+            f["g"][()]
+        f.attrs["touched"] = True
+    after = items(tmp_path / "m.h5", h5py)
+    for name in ("/m", "/s", "/g"):
+        assert_same({name: before[name]}, {name: after[name]})
+
+
+def analysis_writes(module, path, n_noise=40):
+    """The writes of the analysis modules (vna, fitting, noise, delay),
+    through either module, into a file of the sink's layout."""
+    rng = np.random.default_rng(8)
+    build(module, path, [300])
+    with module.File(path, "r+") as f:
+        g = f.require_group("VNA_0")
+        assert f.require_group("VNA_0").name == g.name
+        g.attrs.create("scan_lengths", [800])
+        g.attrs.create("calibration", [0.25])
+        g.create_dataset("frequency", data=np.linspace(9.6e6, 1.04e7, 800),
+                         dtype=np.float64)
+        g.create_dataset("S21", data=_data(np.complex64, 800, 1),
+                         dtype=np.complex128)
+        res = f.create_group("Resonators")
+        res.attrs["tones_init"] = np.asarray([9.85e6, 1.02e7])
+        r = res.create_group("reso_0")
+        r.create_dataset("freq", data=np.linspace(9.8e6, 9.9e6, 120))
+        r.create_dataset("fitted_S21", data=_data(np.complex128, 120, 2))
+        r.attrs["f0"] = np.float64(9.85)
+        r.attrs["Qe"] = 5e4 + 1j * -3e2
+        f.require_group("delay_info").attrs["1"] = 512_000
+        ng = f.require_group("Noise0")
+        sub = ng.create_group("A_RX2")
+        sub.attrs.create("dbc", False)
+        sub.attrs.create("rate", 1e4)
+        sub.create_dataset("freq", data=np.linspace(0, 5e3, 2501),
+                           compression="gzip")
+        for i in range(n_noise):
+            ds = sub.create_dataset(
+                f"real_{i}", data=rng.standard_normal(2501).astype(
+                    np.float32), compression="gzip")
+            ds.attrs.create("tone", 10_000_000 + i)
+        f.create_dataset("scalar", data=2.5)
+        f.create_dataset("empty", data=np.zeros(0, np.float32))
+
+
+def rewrite(module, path):
+    """A second session: delete and re-create what a second analysis
+    run does (calculate_noise, VNA_analysis), and add a group."""
+    with module.File(path, "r+") as f:
+        ng = f.require_group("Noise0")
+        del ng["A_RX2"]
+        sub = ng.create_group("A_RX2")
+        sub.create_dataset("freq", data=np.linspace(0, 5e3, 1251),
+                           compression="gzip")
+        sub.create_dataset("real_0", data=np.ones(1251, np.float32),
+                           compression="gzip")
+        del f["VNA_0/S21"]
+        f["VNA_0"].create_dataset("S21", data=_data(np.complex128, 800, 3))
+        del f["Resonators"]
+        f.require_group("Resonators").attrs["tones_init"] = [1.0]
+
+
+@pytest.mark.parametrize("second_session", [False, True],
+                         ids=["written", "rewritten"])
+def test_analysis_writes_read_the_same_both_ways(tmp_path, second_session):
+    """The analysis' writes through the port and through h5py: each
+    file reads the same in either module (data, dtypes, attributes,
+    contiguous or chunked, gzip at level 4), after a delete and a
+    rewrite in a second "r+" session too."""
+    for module, name in ((h5, "port.h5"), (h5py, "h5py.h5")):
+        analysis_writes(module, tmp_path / name)
+        if second_session:
+            rewrite(module, tmp_path / name)
+    theirs = items(tmp_path / "h5py.h5", h5py)
+    assert_same(items(tmp_path / "port.h5", h5py), theirs)
+    assert_same(items(tmp_path / "port.h5", h5), theirs)
+    assert_same(items(tmp_path / "h5py.h5", h5), theirs)
+    with h5py.File(tmp_path / "port.h5", "r") as f:
+        plist = f["VNA_0/frequency"].id.get_create_plist()
+        assert plist.get_layout() == h5py.h5d.CONTIGUOUS
+        assert f["Noise0/A_RX2/real_0"].id.get_create_plist(
+            ).get_filter(0)[:3] == (h5py.h5z.FILTER_DEFLATE, 1, (4,))
+        assert isinstance(f["VNA_0"].attrs["calibration"], np.ndarray)
+    with h5.File(tmp_path / "port.h5", "r+") as f:
+        with pytest.raises(NotImplementedError, match="not chunked"):
+            f["VNA_0/frequency"][0:1] = 0
+        with pytest.raises(KeyError):
+            del f["VNA_0/nothing"]
+        with pytest.raises(TypeError, match="not a group"):
+            f.require_group("scalar")
+
+
+@pytest.mark.parametrize("n", [1, 32, 33, 1025])
+def test_groups_of_many_objects(tmp_path, n):
+    """A group of more objects than one symbol table node holds (32): a
+    B-tree of nodes, of two levels past 32 nodes."""
+    for module, name in ((h5, "port.h5"), (h5py, "h5py.h5")):
+        with module.File(tmp_path / name, "w") as f:
+            g = f.create_group("Noise0")
+            for i in range(n):
+                g.create_dataset(f"imag_{i}", data=np.full(3, i, np.int64))
+    theirs = items(tmp_path / "h5py.h5", h5py)
+    assert_same(items(tmp_path / "port.h5", h5py), theirs)
+    assert_same(items(tmp_path / "port.h5", h5), theirs)
+
+
+def test_copy_between_open_files(tmp_path):
+    """Group.copy from one open file into another (copy_resonator_group):
+    groups, datasets with their layout and filter, and attributes."""
+    analysis_writes(h5py, tmp_path / "src.h5")
+    for module, name in ((h5, "port.h5"), (h5py, "h5py.h5")):
+        build(module, tmp_path / name, [100])
+        with module.File(tmp_path / "src.h5", "r") as src, \
+                module.File(tmp_path / name, "r+") as dst:
+            src.copy("Resonators", dst)
+            src.copy("Noise0", dst)
+            src.copy("VNA_0/S21", dst, name="S21_copy")
+    theirs = items(tmp_path / "h5py.h5", h5py)
+    assert_same(items(tmp_path / "port.h5", h5py), theirs)
+    assert_same(items(tmp_path / "port.h5", h5), theirs)

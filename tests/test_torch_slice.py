@@ -426,10 +426,11 @@ def test_unported_branches_raise(monkeypatch, tmp_path, case, edit, kwargs):
     """The two branches that raised before ROADMAP Queue 1 item 3 was
     ported now run as in JAX: HDF5 output (the same file, its name
     returned) and mixed wave types (the same dispatch, group 0's packets
-    to the extra sinks at >= 90 dB against JAX's).  What still raises
-    beside them: amplitude_trigger(vna=...), whose resonator fit is item
-    3b, and a second chirp on a mixed antenna, which the reference
-    refuses too."""
+    to the extra sinks at >= 90 dB against JAX's).  Beside them
+    amplitude_trigger(vna=...), which raised until the resonator fit
+    (item 3b) was ported, loads JAX's fit parameters and calibration
+    from a fitted VNA file; a second chirp on a mixed antenna still
+    raises, as the reference refuses it too."""
     from test_torch_files import assert_same_file
     from gpu_sdr_tpu_torch.client import triggers
     from gpu_sdr_tpu_torch.engine import make_demodulator
@@ -455,10 +456,31 @@ def test_unported_branches_raise(monkeypatch, tmp_path, case, edit, kwargs):
         assert (jfn, fn) == ("out.h5", "out.h5")
         assert_same_file(str(tmp_path / "jax" / jfn),
                          str(tmp_path / "torch" / fn))
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 3b"):
-            triggers.amplitude_trigger(sample_rate=RATE, threshold=3.0,
-                                       vna="vna.h5")
+        from gpu_sdr_tpu.client import fitting as jfit
+        from gpu_sdr_tpu.client import triggers as jtriggers
+        from gpu_sdr_tpu.client import vna as jvna
+        from gpu_sdr_tpu.engine.channel import make_resonator_channel
+        jvna.LINE_DELAY["1"] = 512e-6 * 1e9
+        try:
+            vna = jvna.Single_VNA(
+                start_f=-400_000, last_f=400_000, measure_t=0.2,
+                n_points=800, tx_gain=0, Rate=RATE, RF=10_000_000,
+                output_filename="vna", channel=make_resonator_channel(
+                    RATE, [dict(f0=150_000.0, Qr=25.0, Qe_re=50.0)],
+                    fft_len=1 << 12))
+        finally:
+            jvna.LINE_DELAY.clear()
+        jvna.VNA_analysis(vna)
+        assert jfit.initialize_peaks(vna, N_peaks=1, peak_width=50e3,
+                                     Qr_cutoff=5, Mag_depth_cutoff=0.5,
+                                     exclude_center=False)
+        jfit.vna_fit(vna, fit_range=60e3)
+        jt = jtriggers.amplitude_trigger(sample_rate=RATE, threshold=3.0,
+                                         vna=vna)
+        tt = triggers.amplitude_trigger(sample_rate=RATE, threshold=3.0,
+                                        vna=vna)
+        assert len(tt.fit_params) == 1 and tt.fit_params == jt.fit_params
+        assert tt.cal == jt.cal > 0
     else:
         assert disp == (("A_RX2", "host_pipeline_mixed", None),)
         assert (jfn, fn) == (None, None)
