@@ -236,9 +236,28 @@ and exits non-zero at the first phase that fails:
    after each step its kernel (#17, #7 in row mode at C 4, #7 in
    channel mode at C 100, #1) runs once more on seeded data at the
    step's own configuration and block, held against its plain version
-   at 90 dB.
+   at 90 dB;
+20. the server on the card: the port's ``Server`` (device cuda:0, the
+   native C++ streamer built by g++) answering in a thread of this
+   process, driven by the port's client (``gpu_sdr_tpu_torch.pyusrp``:
+   ``Connect``, ``send_params``, ``Packets_to_file`` into files read
+   back through client/h5.py) over 127.0.0.1 at the probe's widths: (a)
+   TONES config 4 (#1), (b) DIRECT config 3 (#11), (c) CHIRP config 2
+   (#16), 10 blocks each, fused; (d) config 3 host-fed from a producer
+   streaming 5 raw blocks to the server's ingest port (#7); (e) (a)
+   through the Python streamer, with the host's RSS and pinned memory;
+   (f) (b) through ``python -m gpu_sdr_tpu_torch.server.main
+   --one_shot`` in a subprocess (device cuda by default).  Each file's
+   data is the in-process run's packets (run_measurement on the card)
+   bit for bit, every packet the server sent is in it, the expected row
+   count (not the EOM's grace window) ends the client's wait, each
+   run's launches are its blocks exactly ((a)-(e)), and each kernel
+   launched is held against its plain version at the run's own shapes
+   (``held_on_path``).  Msps from send_params to the file's close
+   beside the in-process run's into a dropping sink, the bytes on the
+   wire, the RSS.
 
-Phases 4, 5, 7, 9, 11, 13, 13b, 15, 17, 18 and 19 are the main path.  Their
+Phases 4, 5, 7, 9, 11, 13, 13b, 15, 17, 18, 19 and 20 are the main path.  Their
 CallbackSink checks rows ::97 of every packet (finite; PFB tones within
 1% of their amplitude; DIRECT rows within 2.5% of the TX amplitude, the
 sum of the other tones' leakage through the 400-tap FIR's stopband at
@@ -252,7 +271,9 @@ all 19 (the channelizer's times are const-frame mode, the main path's,
 its ``config5_launches`` those of phase 13b's config-5 run; the
 kernels phase 18 runs, their ``io_launches`` there; those phase 19
 runs, their ``analysis_launches`` and, held against their plain
-versions at phase 19's shapes, ``analysis_max_abs_err``;
+versions at phase 19's shapes, ``analysis_max_abs_err``; those phase
+20's served runs (a)-(e) launch, their ``server_launches`` (the
+in-process reference runs not among them) and ``server_max_abs_err``;
 its ``stream_*`` fields are stream mode; the DDC-family kernels carry
 their deep-FIR rows in ``deep``; the channelizers, #1 and #3-#5, their
 SNR against the float64 PFB over the whole block, ``snr_db``, and the
@@ -3680,10 +3701,10 @@ def io_socket(dev, tmp, n, short):
     from gpu_sdr_tpu_torch.engine.sources import ArraySource
     from gpu_sdr_tpu_torch.server import native
     t0 = time.perf_counter()
-    native.load_library()
-    print(f"socket: ingest library {native.library_path().name} "
-          f"({'built by g++' if native.built_here else 'cached'}, "
-          f"{time.perf_counter() - t0:.2f} s)")
+    native.load_library("ingest")
+    built = "built by g++" if "ingest" in native.built_here else "cached"
+    print(f"socket: ingest library {native.library_path('ingest').name} "
+          f"({built}, {time.perf_counter() - t0:.2f} s)")
     p = direct_params(CONFIG3, 0.01, n)
     x = np.concatenate(list(make_generator(p.A_TXRX, D_BLOCK,
                                            dev).blocks(n)))
@@ -3983,17 +4004,21 @@ def noise_psds_agree(dev, fn: str, name: str) -> float:
     return gap
 
 
-def held_on_path(dev, fn: str, tag: str) -> dict:
-    """The kernel a phase-19 step ran, at that step's shapes: its
-    receiver's parameters and block length read back from the step's
-    file, one block of seeded data through the kernel's wrapper on the
-    card (via_kernel) against its plain version on the same inputs, at
-    SNR_BAR_DB as in the kernel phases.  DIRECT: the DDC (#7) in the
-    mode its channel count takes, block 1 of the stream (the plain
-    version's phase, a random history); CHIRP: the lock-in's table mode
-    (#17) at the first and last oscillator block; NOISE fused: the
-    channelizer (#1) in const-frame mode on the chain's own comb frame,
-    a random spare.  Returns {kernel: max |err|}."""
+def held_on_path(dev, fn: str, tag: str, block: int = SCI_BUFFER,
+                 fused: bool = False) -> dict:
+    """The kernel a phase-19 or phase-20 run ran, at that run's shapes:
+    its receiver's parameters and block length (`block`) read back from
+    the run's file, one block of seeded data through the kernel's
+    wrapper on the card (via_kernel) against its plain version on the
+    same inputs, at SNR_BAR_DB as in the kernel phases.  DIRECT: the DDC
+    (#7) in the mode its channel count takes, block 1 of the stream (the
+    plain version's phase, a random history), or with `fused` the fold
+    (#11) on the fused chain's stream-start rotations; CHIRP: the
+    lock-in's table mode (#17), or with `fused` its self mode (#16) on
+    the fused chain's table, at the first and last oscillator block;
+    TONES or NOISE fused: the channelizer (#1) in const-frame mode on
+    the chain's own comb frame, a random spare.  Returns {kernel: max
+    |err|}."""
     import torch
     from gpu_sdr_tpu_torch.client import files
     from gpu_sdr_tpu_torch.engine import demodulator as dm
@@ -4002,16 +4027,45 @@ def held_on_path(dev, fn: str, tag: str) -> dict:
     from gpu_sdr_tpu_torch.ops import lockin_table as lt
     from gpu_sdr_tpu_torch.ops.channelizer import (channelizer,
                                                    channelizer_plain)
+    from gpu_sdr_tpu_torch.ops.fold import fold, fold_plain
     from gpu_sdr_tpu_torch.params import AntMode, WaveType
     params = files.retrieve_params_from_file(fn)
     (_, rx), = params.active_antennas(AntMode.RX)
     L = dm.make_demodulator(rx, dev).plan.block_len
-    check(L == SCI_BUFFER, f"{tag}: block {L}, expected {SCI_BUFFER}")
+    check(L == block, f"{tag}: block {L}, expected {block}")
     rng = np.random.default_rng(1919)
 
     def on_card(*shape):
         return torch.from_numpy(crandn(rng, *shape)).to(dev)
     wave = rx.wave_type[0]
+    if fused and wave in (WaveType.DIRECT, WaveType.CHIRP):
+        (_, tx), = params.active_antennas(AntMode.TX)
+        fl = FusedLoopback(tx, rx, dev)
+        c = fl._chain
+    if fused and wave == WaveType.DIRECT:
+        check(fl.path == "fold_kernel", f"{tag}: {fl.path}")
+        st0 = c.init_state()
+        crot, qrot = c.block_rotations_factored(st0)
+        fargs = (c.P1, c.G2, crot, qrot, c.ramp1, c.nb)
+        yk = via_kernel("fold", lambda: fold(*fargs))
+        return {"fold": report(
+            f"{tag} fold [{c.G2.shape[0]} x {c.G2.shape[1]}, stream "
+            "start]", yk, fold_plain(*fargs))}
+    if fused and wave == WaveType.CHIRP:
+        check(fl.path == "chirp_wavetable", f"{tag}: {fl.path}")
+        err = 0.0
+        for o in sorted({0, c.nblk - 1}):
+            yk = via_kernel("lockin_self", lambda: lt.lockin_self(
+                c.profile, c.table, o, c.nseg))
+            torch.cuda.synchronize(dev)
+            check(bool((yk.imag == 0).all()),
+                  f"{tag}: lockin_self's imaginary half not exactly 0")
+            err = max(err, report(
+                f"{tag} lockin_self [{c.nseg} x {c.profile.shape[0]}, "
+                f"table block {o} of {c.nblk}]", yk[:, None],
+                lt.lockin_self_plain(c.profile, c.table, o,
+                                     c.nseg)[:, None]))
+        return {"lockin_self": err}
     if wave == WaveType.DIRECT:
         cfg = dm.direct_config(rx)
         C = len(cfg.freqs)
@@ -4238,6 +4292,389 @@ def phase_science_loop(dev):
     return launches, errs
 
 
+# the server on the card (phase 20): the port's daemon answering the
+# port's client over 127.0.0.1 at the probe's widths
+SRV_BLOCKS = 10                     # runs (a)-(c), (e), (f)
+SRV_INGEST = 5                      # run (d)'s blocks over the ingest port
+SRV_WAIT_S = 120.0                  # each socket and process wait
+SRV_FREE_BYTES = 4 << 30            # free space the phase's files need
+
+
+def rss_mb() -> float:
+    """This process's resident set, MB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return float("nan")
+
+
+def peak_rss_mb() -> float:
+    """This process's peak resident set since it began, MB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+
+
+def pinned_mb() -> dict:
+    """Pinned host memory of PyTorch's caching host allocator, MB: what
+    it owns (cached blocks included) and what is handed out now and at
+    most ({} where this PyTorch has no such counters)."""
+    import torch
+    stats = getattr(torch.cuda, "host_memory_stats", dict)()
+    return {k.split("_")[0] + "." + k.split(".")[1]: round(stats[k] / 1e6, 1)
+            for k in ("allocated_bytes.current", "active_bytes.current",
+                      "active_bytes.peak") if k in stats}
+
+
+class CountingQueue:
+    """Wraps a Connection's data queue: the packets and bytes the
+    client took from it, and when it took the last."""
+
+    def __init__(self):
+        import queue
+        from gpu_sdr_tpu_torch.server import wire
+        self._q, self._hdr = queue.Queue(), wire.HEADER_SIZE
+        self.n, self.bytes, self.last = 0, 0, 0.0
+
+    def put(self, item, *a, **k):
+        self._q.put(item, *a, **k)
+
+    def get(self, *a, **k):
+        item = self._q.get(*a, **k)
+        self.n += 1
+        self.bytes += self._hdr + item[1].nbytes
+        self.last = time.perf_counter()
+        return item
+
+
+class Serving:
+    """A port Server on `dev` answering in a thread of this process, so
+    counted() sees its launches; closed, and its thread joined, at the
+    end."""
+
+    def __init__(self, dev, **kw):
+        import threading
+
+        from gpu_sdr_tpu_torch.server.main import Server
+        self.srv = Server(async_port=0, data_port=0, host="127.0.0.1",
+                          device=dev, **kw)
+        self.srv.start()
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self):
+        while not self._stop.is_set():
+            self.srv.serve_one(timeout=0.2)
+
+    def __enter__(self):
+        self._th.start()
+        return self.srv
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join(timeout=SRV_WAIT_S)
+        self.srv.close()
+        check(not self._th.is_alive(), "the server's loop did not end")
+        return False
+
+
+def over_tcp(u, params, fn, n, block, sync=None, before=None):
+    """One measurement through the port's client: send_params, then
+    Packets_to_file into `fn` (read back through client/h5.py), told the
+    rows to expect.  Returns its numbers: Msps from send_params to the
+    file's close, the packets and bytes the client took, the seconds
+    from the last packet to the file's close, and, with `sync` (the
+    server's NativeSyncServer), the packets and bytes it sent."""
+    from gpu_sdr_tpu_torch.params import AntMode, expected_samples_per_channel
+    conn = u.get_connection()
+    conn.data_queue = q = CountingQueue()
+    params.validate()
+    (_, rx), = params.active_antennas(AntMode.RX)
+    exp = expected_samples_per_channel(rx)
+    sent0 = sync.stats if sync is not None else None
+    t0 = time.perf_counter()
+    conn.send_params(params)
+    if before is not None:
+        before(conn)
+    out = u.Packets_to_file(conn, params, filename=fn, progress=False,
+                            timeout=SRV_WAIT_S, dpc_expected=exp)
+    t1 = time.perf_counter()
+    check(not conn.error_status.is_set(), f"{fn}: the server nacked")
+    nums = dict(msps=n * block / (t1 - t0) / 1e6, packets=q.n,
+                bytes=q.bytes, tail_s=t1 - q.last, rows=exp, file=out)
+    if sync is not None:
+        sent1 = sync.stats
+        nums.update(sent=sent1["packets_sent"] - sent0["packets_sent"],
+                    wire_bytes=sent1["bytes_sent"] - sent0["bytes_sent"])
+    return nums
+
+
+def served_file(name, fn, ref, nums, n):
+    """A served run's file: `data` the in-process run's packets bit for
+    bit, its rows the expected count, every packet the server sent in
+    it, and the expected count (not the EOM's 0.5 s grace window) ended
+    the client's wait."""
+    from gpu_sdr_tpu_torch.client import files
+    data = files.openH5file(nums["file"])
+    same_bits(f"{name}: {os.path.basename(fn)} vs the in-process run",
+              ref.T, data)
+    check(data.shape[1] == nums["rows"], f"{name}: {data.shape[1]} rows, "
+          f"expected {nums['rows']}")
+    check(nums["packets"] == n, f"{name}: {nums['packets']} of {n} packets")
+    if "sent" in nums:
+        check(nums["sent"] == n and nums["wire_bytes"] == nums["bytes"],
+              f"{name}: the server sent {nums['sent']} packets, "
+              f"{nums['wire_bytes']} bytes; the client took "
+              f"{nums['packets']}, {nums['bytes']}")
+    check(nums["tail_s"] < 0.5, f"{name}: {nums['tail_s']:.3f} s from the "
+          "last packet to the file's close: the grace window ended it")
+    os.remove(nums["file"])
+
+
+def phase_server(dev):
+    """The port's server on the card, driven by the port's client
+    (gpu_sdr_tpu_torch.pyusrp) over 127.0.0.1, at the probe's widths:
+    (a) TONES config 4 (#1), (b) DIRECT config 3 (#11), (c) CHIRP
+    config 2 (#16), 10 blocks each, fused, through the native streamer;
+    (d) config 3 host-fed from a producer streaming raw complex64 to the
+    server's ingest port (#7, 5 blocks); (e) (a) again through the
+    Python streamer, with the host's RSS and pinned memory; (f) (b)
+    again through the CLI in a subprocess (device cuda by default).
+    Each file's data is the in-process run's packets (run_measurement on
+    the card) bit for bit, every packet the server sent is in it, the
+    expected count ends the client's wait, each run's launches are its
+    blocks exactly, and each kernel it launched is held against its
+    plain version at the run's own shapes (held_on_path).  Msps from
+    send_params to the file's close beside the in-process run's into a
+    dropping sink, and the bytes on the wire."""
+    import importlib.util
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    import gpu_sdr_tpu_torch.pyusrp as u
+    from gpu_sdr_tpu_torch.engine.generator import make_generator
+    from gpu_sdr_tpu_torch.server import native, network
+    print(card_name())
+    t0 = time.perf_counter()
+    native.load_library("stream")
+    print(f"server: streamer library {native.library_path('stream').name} "
+          f"({time.perf_counter() - t0:.2f} s); this host "
+          + ("has" if importlib.util.find_spec("matplotlib") else "lacks")
+          + " matplotlib (the PNG plots need it, the HTML ones do not)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    launches, errs, numbers = {}, {}, {}
+    rss0 = rss_mb()
+
+    def expect(name, counts, want, served=True):
+        """Pin a run's launches; a served run's go into the kernels
+        line's server_launches, an in-process reference run's do not."""
+        check(all(counts[k] == v for k, v in want.items()) and
+              all(v == 0 for k, v in counts.items() if k not in want),
+              f"{name} launches {counts}, expected {want}")
+        for k, v in want.items():
+            if served:
+                launches[k] = launches.get(k, 0) + v
+
+    def held(fn, tag, block, fused):
+        for k, e in held_on_path(dev, fn, tag, block, fused).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+
+    def in_process(params, n, block, rows, chans, source=None):
+        """(the kept packets, launches, Msps into a dropping sink)."""
+        (keep, _d, _m, _w), counts = counted(
+            lambda: run_path(dev, params(n), None, Keep(rows, chans), n,
+                             block, chans, source=source))
+        _, _, drop_msps, _ = run_path(dev, params(n), None, Drop(), n,
+                                      block, chans, source=source)
+        return keep.data, counts, drop_msps
+
+    def say(name, nums, drop_msps, counts):
+        if not isinstance(counts, str):
+            counts = {k: v for k, v in counts.items() if v}
+        print(f"server {name}: {nums['msps']:.1f} Msps send_params to the "
+              f"file's close ({drop_msps:.1f} in process into a dropping "
+              f"sink); {nums['packets']} packets, {nums['bytes']} bytes on "
+              f"the wire; {nums['tail_s']:.3f} s from the last packet to "
+              f"the close; launches {counts}; RSS {rss_mb():.0f} MB")
+        numbers[name] = dict(msps=nums["msps"], drop_msps=drop_msps,
+                             wire_bytes=nums["bytes"])
+
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free >= SRV_FREE_BYTES, f"{free} bytes free in {tmp}")
+        n = SRV_BLOCKS
+        cells = (
+            ("(a) TONES config 4", loopback_params, BLOCK, FRAMES, NFFT,
+             "channelizer"),
+            ("(b) DIRECT config 3",
+             lambda k: direct_params(CONFIG3, 0.01, k), D_BLOCK, D_ROWS,
+             len(CONFIG3), "fold"),
+            ("(c) CHIRP config 2", chirp_params, C_BLOCK, C_ROWS, 1,
+             "lockin_self"))
+        refs = {}
+        with Serving(dev) as srv:
+            check(isinstance(srv.sync, native.NativeSyncServer),
+                  f"data plane {type(srv.sync).__name__}")
+            u.Connect(host="127.0.0.1", async_port=srv.ports[0],
+                      sync_port=srv.ports[1])
+            try:
+                for name, params, block, rows, chans, kernel in cells:
+                    ref, counts, drop_msps = in_process(params, n, block,
+                                                        rows, chans)
+                    expect(f"{name} in process", counts, {kernel: n},
+                           served=False)
+                    refs[name] = ref
+                    fn = os.path.join(tmp, name[1] + ".h5")
+                    nums, counts = counted(lambda: over_tcp(
+                        u, params(n), fn, n, block, sync=srv.sync))
+                    expect(f"{name} served", counts, {kernel: n})
+                    say(name, nums, drop_msps, counts)
+                    held(nums["file"], f"server {name}", block, True)
+                    served_file(name, fn, ref, nums, n)
+            finally:
+                u.Disconnect()
+
+        # (d) the ingest port: a producer streams config 3's TX blocks
+        name, k = "(d) config 3 ingest", SRV_INGEST
+        x = np.concatenate(list(make_generator(
+            direct_params(CONFIG3, 0.01, k).A_TXRX, D_BLOCK, dev).blocks(k)))
+
+        def rx_only(m):
+            return receiver_only(direct_params(CONFIG3, 0.01, m))
+        ref, counts, drop_msps = in_process(rx_only, k, D_BLOCK, D_ROWS,
+                                            len(CONFIG3),
+                                            source=host_blocks(x))
+        expect(f"{name} in process", counts, {"ddc": k}, served=False)
+        wire_s = {}
+
+        def produce(conn):
+            def send():
+                deadline = time.monotonic() + SRV_WAIT_S
+                while conn.ingest_port is None:
+                    if time.monotonic() > deadline:
+                        return
+                    time.sleep(0.005)
+                t = time.perf_counter()
+                with socket.create_connection(
+                        ("127.0.0.1", conn.ingest_port),
+                        timeout=SRV_WAIT_S) as c:
+                    c.sendall(memoryview(x).cast("B"))
+                wire_s["s"] = time.perf_counter() - t
+            th = threading.Thread(target=send, daemon=True)
+            th.start()
+            wire_s["th"] = th
+
+        with Serving(dev, ingest_port=0) as srv:
+            u.Connect(host="127.0.0.1", async_port=srv.ports[0],
+                      sync_port=srv.ports[1])
+            try:
+                fn = os.path.join(tmp, "d.h5")
+                nums, counts = counted(lambda: over_tcp(
+                    u, rx_only(k), fn, k, D_BLOCK, sync=srv.sync,
+                    before=produce))
+            finally:
+                u.Disconnect()
+                wire_s["th"].join(timeout=SRV_WAIT_S)
+        check(not wire_s["th"].is_alive(), "the ingest producer hung")
+        expect(f"{name} served", counts, {"ddc": k})
+        say(name, nums, drop_msps, counts)
+        print(f"server {name}: {k * D_BLOCK / wire_s['s'] / 1e6:.1f} Msps "
+              "into the ingest port")
+        held(nums["file"], f"server {name}", D_BLOCK, False)
+        served_file(name, fn, ref, nums, k)
+        del x, ref
+
+        # (e) (a) through the Python streamer: host and pinned memory
+        name = "(e) TONES config 4, Python streamer"
+        rss1, pin1 = rss_mb(), pinned_mb()
+        with Serving(dev, use_native=False) as srv:
+            check(isinstance(srv.sync, network.SyncServer),
+                  f"data plane {type(srv.sync).__name__}")
+            u.Connect(host="127.0.0.1", async_port=srv.ports[0],
+                      sync_port=srv.ports[1])
+            try:
+                fn = os.path.join(tmp, "e.h5")
+                nums, counts = counted(lambda: over_tcp(
+                    u, loopback_params(n), fn, n, BLOCK))
+                pin2 = pinned_mb()
+            finally:
+                u.Disconnect()
+        expect(name, counts, {"channelizer": n})
+        say(name, nums, numbers["(a) TONES config 4"]["drop_msps"], counts)
+        print(f"server {name}: RSS {rss1:.0f} -> {rss_mb():.0f} MB, the "
+              f"process's peak {peak_rss_mb():.0f} MB; pinned (MB) {pin1} "
+              f"-> {pin2}")
+        numbers[name].update(rss_mb=rss_mb(), pinned_mb=(pin1, pin2))
+        served_file(name, fn, refs["(a) TONES config 4"], nums, n)
+
+        # (f) (b) through the CLI in a subprocess, on cuda by default
+        name = "(f) DIRECT config 3, the CLI"
+        nums = serve_cli(u, tmp, direct_params(CONFIG3, 0.01, n), n)
+        say(name, nums, numbers["(b) DIRECT config 3"]["drop_msps"],
+            "in the subprocess, not counted here")
+        served_file(name, os.path.join(tmp, "f.h5"),
+                    refs["(b) DIRECT config 3"], nums, n)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"server: RSS {rss0:.0f} -> {rss_mb():.0f} MB, the process's "
+          f"peak {peak_rss_mb():.0f} MB")
+    print("server numbers:", json.dumps(numbers, default=str))
+    return launches, errs
+
+
+def serve_cli(u, tmp, params, n):
+    """`python -m gpu_sdr_tpu_torch.server.main --one_shot` in a
+    subprocess (its device the default, cuda), its ports read from its
+    "server ready" line; one measurement through the port's client into
+    tmp/f.h5; the subprocess must exit 0 after it."""
+    import queue
+    import re
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gpu_sdr_tpu_torch.server.main",
+         "--one_shot", "--async_port", "0", "--data_port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=tmp, env=dict(os.environ, PYTHONPATH=HERE))
+    lines: "queue.Queue" = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        t0, ready = time.monotonic(), None
+        while ready is None:
+            try:
+                line = lines.get(timeout=max(
+                    0.1, SRV_WAIT_S - (time.monotonic() - t0)))
+            except queue.Empty:
+                line = None
+            check(line is not None, "the CLI server did not start")
+            ready = re.search(r"server ready on (\S+): async port (\d+), "
+                              r"data port (\d+)", line)
+        print(f"CLI: {line.strip()} ({time.monotonic() - t0:.1f} s)")
+        check(ready.group(1) == "cuda:0", f"CLI device {ready.group(1)}")
+        u.Connect(host="127.0.0.1", async_port=int(ready.group(2)),
+                  sync_port=int(ready.group(3)))
+        try:
+            nums = over_tcp(u, params, os.path.join(tmp, "f.h5"), n,
+                            D_BLOCK)
+        finally:
+            u.Disconnect()
+        check(proc.wait(timeout=SRV_WAIT_S) == 0,
+              f"the CLI server exited {proc.returncode}")
+        return nums
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=SRV_WAIT_S)
+        reader.join(timeout=SRV_WAIT_S)
+
+
 def check_line(kernels) -> None:
     """Every kernel of the repo is in the kernels line once, launched
     by its main path's run, with every key of the line."""
@@ -4302,6 +4739,8 @@ def main() -> int:
                             phase_io_main_path, dev)
         analysis_launches, analysis_errs = timed(
             "the science loop", phase_science_loop, dev)
+        server_launches, server_errs = timed(
+            "the server on the card", phase_server, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4358,6 +4797,9 @@ def main() -> int:
         if k["name"] in analysis_launches:      # the science loop's
             k["analysis_launches"] = analysis_launches[k["name"]]
             k["analysis_max_abs_err"] = analysis_errs[k["name"]]
+        if k["name"] in server_launches:        # the server's runs
+            k["server_launches"] = server_launches[k["name"]]
+            k["server_max_abs_err"] = server_errs[k["name"]]
     check_line(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,10 +25,12 @@ checkpoints (``engine/checkpoint.py``) and the reference's HDF5 files
 h5py); and the analysis client: line delay, VNA sweeps and analysis,
 resonator fits, noise captures and their Welch PSDs (on the device,
 ``ops/spectral.py``, or with scipy), full-spectrum and raw captures,
-triggers (``client/``).  What raises ``NotImplementedError`` is what
-the reference refuses too (two chirps on one antenna, TX of a wave type
-other than TONES or CHIRP).  The TCP client, the plotting, the
-``pyusrp`` facade and the server are ROADMAP Queue 1 item 3b step 3.
+triggers, the TCP client and the plotting (``client/``); the server
+that answers the reference's TCP protocol on the card (``server/``:
+``python -m gpu_sdr_tpu_torch.server.main``) and the ``pyusrp`` facade
+(``pyusrp.py``) that users' scripts import.  What raises
+``NotImplementedError`` is what the reference refuses too (two chirps on
+one antenna, TX of a wave type other than TONES or CHIRP, NEF spectra).
 """
 
 __version__ = "0.1.0"

@@ -13,7 +13,14 @@ params and HDF5 module), the pyUSRP-equivalent surface:
   full_spec     <- pyUSRP/USRP_full_spec.py  (raw and full-PFB captures)
   triggers      <- pyUSRP/USRP_triggers.py   (client-side triggers)
   data_analysis <- pyUSRP/USRP_data_analysis.py
+  connections   <- pyUSRP/USRP_connections.py (the TCP client: command
+                                              and data sockets,
+                                              Packets_to_file)
+  plotting      <- pyUSRP/USRP_plotting.py   (and the plot functions of
+                                              the other modules;
+                                              matplotlib imported when a
+                                              plot draws)
+  htmlplot      (the interactive HTML backend)
 
-The TCP client (connections), the plotting and the pyusrp facade are
-ROADMAP Queue 1 item 3b step 3.
+The facade over all of it is gpu_sdr_tpu_torch/pyusrp.py.
 """

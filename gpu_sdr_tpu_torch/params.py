@@ -6,14 +6,19 @@ chk_param, cpp/USRP_JSON_interpreter.cpp:268-439).
 ``WaveType`` and ``AntMode`` are ``str`` enums, so their members compare
 equal, and hash alike, to the JAX package's members of the same value:
 either package's parameter structs drive the other's entry points.
-The antenna's wire dictionary (``to_json_dict``) is copied for the HDF5
-attributes; the JSON wire protocol and the server settings are not:
-nothing in the port reads them.
+The JSON wire protocol (``to_json`` / ``from_json``,
+cpp/USRP_JSON_interpreter.cpp:19-257) is the JAX package's, byte for
+byte, so either package's client drives the other's server; the
+antenna's wire dictionary also names the HDF5 attributes.
+``ServerSettings.device_index`` is the CUDA ordinal a server runs on
+(server/txrx.py); the JAX package declares it and never reads it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
+import json
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -125,6 +130,32 @@ class AntennaParams:
             "data_mem_mult": int(self.data_mem_mult),
         }
 
+    @classmethod
+    def from_json_dict(cls, d: dict) -> "AntennaParams":
+        return cls(
+            mode=AntMode(d.get("mode", "OFF")),
+            tone=int(float(d.get("rf", 0))),
+            tuning_mode=int(d.get("tuning_mode", 1)),
+            rate=int(float(d.get("rate", 0))),
+            decim=int(float(d.get("decim", 0))),
+            fft_tones=int(float(d.get("fft_tones", 0))),
+            pf_average=int(float(d.get("pf_average", 4))),
+            samples=int(float(d.get("samples", 0))),
+            buffer_len=int(float(d.get("buffer_len", 0))),
+            burst_off=float(d.get("burst_off", 0.0)),
+            burst_on=float(d.get("burst_on", 0.0)),
+            bw=int(float(d.get("bw", 0))),
+            delay=float(d.get("delay", 0.0)),
+            gain=int(float(d.get("gain", 0))),
+            freq=[int(f) for f in d.get("freq", [])],
+            ampl=[float(a) for a in d.get("ampl", [])],
+            wave_type=[WaveType(w) for w in d.get("wave_type", [])],
+            chirp_t=[float(t) for t in d.get("chirp_t", [])],
+            chirp_f=[int(f) for f in d.get("chirp_f", [])],
+            swipe_s=[int(s) for s in d.get("swipe_s", [])],
+            data_mem_mult=int(float(d.get("data_mem_mult", 1))),
+        )
+
     def validate(self, name: str = "antenna",
                  strict: bool = False) -> List[str]:
         """Physical-validity checks of ``chk_param``: PFB floors, buffer
@@ -202,11 +233,69 @@ class UsrpParams:
             if mode is None or a.mode == mode:
                 yield n, a
 
+    def to_json(self) -> str:
+        d = {"device": int(self.usrp_number)}
+        for n in ANTENNA_NAMES:
+            d[n] = self.antenna(n).to_json_dict()
+        return json.dumps(d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "UsrpParams":
+        d = json.loads(s)
+        kwargs = {"usrp_number": int(d.get("device", 0))}
+        for n in ANTENNA_NAMES:
+            if n in d:
+                kwargs[n] = AntennaParams.from_json_dict(d[n])
+        return cls(**kwargs)
+
     def validate(self, strict: bool = False) -> List[str]:
         warnings: List[str] = []
         for n in ANTENNA_NAMES:
             warnings += self.antenna(n).validate(name=n, strict=strict)
         return warnings
+
+    def copy(self) -> "UsrpParams":
+        return dataclasses.replace(
+            self,
+            **{n: dataclasses.replace(self.antenna(n),
+                                      freq=list(self.antenna(n).freq),
+                                      wave_type=list(self.antenna(n).wave_type),
+                                      ampl=list(self.antenna(n).ampl),
+                                      chirp_t=list(self.antenna(n).chirp_t),
+                                      chirp_f=list(self.antenna(n).chirp_f),
+                                      swipe_s=list(self.antenna(n).swipe_s))
+               for n in ANTENNA_NAMES})
+
+
+@dataclass
+class ServerSettings:
+    """General server configuration (reference ``server_settings`` struct,
+    USRP_server_settings.hpp:191-213)."""
+
+    clock_reference: str = "internal"
+    device_index: int = 0           # the CUDA ordinal the server runs on
+    default_rx_buffer_len: int = DEFAULT_BUFFER_LEN
+    default_tx_buffer_len: int = DEFAULT_BUFFER_LEN
+    tcp_streaming: bool = True
+    file_writing: bool = True
+
+    def validate(self) -> None:
+        if self.clock_reference not in ("internal", "external"):
+            raise ParamError(
+                f"invalid clock reference {self.clock_reference!r}")
+        for v in (self.default_rx_buffer_len, self.default_tx_buffer_len):
+            if not (MIN_USEFULL_BUFFER <= v <= MAX_USEFULL_BUFFER):
+                raise ParamError(f"default buffer length {v} out of bounds")
+
+    def autoset(self) -> None:
+        if self.clock_reference not in ("internal", "external"):
+            self.clock_reference = "internal"
+        self.default_rx_buffer_len = min(
+            max(self.default_rx_buffer_len, MIN_USEFULL_BUFFER),
+            MAX_USEFULL_BUFFER)
+        self.default_tx_buffer_len = min(
+            max(self.default_tx_buffer_len, MIN_USEFULL_BUFFER),
+            MAX_USEFULL_BUFFER)
 
 
 def chirp_steps_and_length(p: AntennaParams, ch: int = 0):

@@ -1,15 +1,17 @@
-"""ctypes binding to the native TCP ingest receiver
-(native/stream_ingest.cpp), the ingest half of
-gpu_sdr_tpu/server/native.py.
+"""ctypes bindings to the native TCP data planes, the port's copy of
+gpu_sdr_tpu/server/native.py: the streamer (native/stream_server.cpp,
+``NativeSyncServer``) and the ingest receiver (native/stream_ingest.cpp,
+``NativeIngest``), each over the lock-free ring of native/spsc_ring.hpp.
 
-The port builds its own copy of the library from the checkout's sources
+The port builds its own copy of each library from the checkout's sources
 at first use: ``g++ -O3 -shared -fPIC -pthread -Inative`` into
 ``gpu_sdr_tpu_torch/_build/``, under a name hashed from the sources and
 the flags, so an unchanged checkout reuses its build.  The compiler
 writes a temporary name that ``os.replace`` then moves into place, so
 processes that build at once (test workers) never load a half-written
-file.  A failed build raises; there is no fallback, and the JAX
-package's CMake build (native/build/) is never read.
+file.  A failed build raises; there is no fallback to the Python
+streamer, and the JAX package's CMake build (native/build/) is never
+read.
 """
 
 from __future__ import annotations
@@ -26,53 +28,57 @@ from typing import Optional
 
 import numpy as np
 
+from . import wire
+
 NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("stream_ingest.cpp", "spsc_ring.hpp")
+# library -> its sources, the compiled one first
+LIBRARIES = {"ingest": ("stream_ingest.cpp", "spsc_ring.hpp"),
+             "stream": ("stream_server.cpp", "spsc_ring.hpp")}
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 _lock = threading.Lock()
-_lib = None
-# whether this process compiled the library (False: an earlier build of
-# the same sources was loaded)
-built_here = False
+_libs: dict = {}
+# the kinds of library this process compiled (the others it loaded from
+# an earlier build of the same sources)
+built_here: set = set()
 
 
-def library_path() -> Path:
+def library_path(kind: str) -> Path:
     """The library of this checkout's sources and flags."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for name in SOURCES:
+    for name in LIBRARIES[kind]:
         h.update(name.encode())
         h.update((NATIVE_DIR / name).read_bytes())
-    return BUILD_DIR / f"libsdr_ingest_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libsdr_{kind}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile native/stream_ingest.cpp unless a library of the same
-    hash exists; raise if g++ fails."""
-    global built_here
-    out = library_path()
+def build(kind: str) -> Path:
+    """Compile the library's source unless a library of the same hash
+    exists; raise if g++ fails."""
+    out = library_path(kind)
     if out.is_file():
         return out
+    source = LIBRARIES[kind][0]
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the native ingest receiver is "
-                           "built from native/stream_ingest.cpp")
+        raise RuntimeError(f"g++ not found: the native {kind} library is "
+                           f"built from native/{source}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     res = subprocess.run(
         [cxx, *CXX_FLAGS, f"-I{NATIVE_DIR}", "-o", str(tmp),
-         str(NATIVE_DIR / SOURCES[0])], capture_output=True, text=True)
+         str(NATIVE_DIR / source)], capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed on native/{SOURCES[0]} (exit "
+        raise RuntimeError(f"g++ failed on native/{source} (exit "
                            f"{res.returncode}):\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)
-    built_here = True
+    built_here.add(kind)
     return out
 
 
-def _bind(lib) -> None:
+def _bind_ingest(lib) -> None:
     vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     lib.sdr_ingest_create.restype = vp
     lib.sdr_ingest_create.argtypes = [ci, sz, sz]
@@ -92,15 +98,54 @@ def _bind(lib) -> None:
     lib.sdr_ingest_destroy.argtypes = [vp]
 
 
-def load_library() -> ctypes.CDLL:
-    """The loaded ingest library (built on first call)."""
-    global _lib
+def _bind_stream(lib) -> None:
+    vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.sdr_stream_server_create.restype = vp
+    lib.sdr_stream_server_create.argtypes = [ci, sz, sz]
+    lib.sdr_stream_server_port.restype = ci
+    lib.sdr_stream_server_port.argtypes = [vp]
+    lib.sdr_stream_server_push.restype = ci
+    lib.sdr_stream_server_push.argtypes = [vp, ctypes.c_char_p, sz]
+    for name in ("pending", "connected"):
+        fn = getattr(lib, f"sdr_stream_server_{name}")
+        fn.restype = ci
+        fn.argtypes = [vp]
+    for name in ("packets_sent", "bytes_sent"):
+        fn = getattr(lib, f"sdr_stream_server_{name}")
+        fn.restype = ctypes.c_ulonglong
+        fn.argtypes = [vp]
+    for name in ("drop_client", "destroy"):
+        fn = getattr(lib, f"sdr_stream_server_{name}")
+        fn.restype = None
+        fn.argtypes = [vp]
+
+
+def load_library(kind: str) -> ctypes.CDLL:
+    """The loaded library (built on first call)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            _bind(lib)
-            _lib = lib
-        return _lib
+        if kind not in _libs:
+            lib = ctypes.CDLL(str(build(kind)))
+            (_bind_ingest if kind == "ingest" else _bind_stream)(lib)
+            _libs[kind] = lib
+        return _libs[kind]
+
+
+def _buildable(kind: str) -> bool:
+    return library_path(kind).is_file() or shutil.which("g++") is not None
+
+
+def available() -> bool:
+    """Whether this host can provide the native streamer: its library of
+    this checkout is built, or g++ is there to build it (a build that
+    then fails raises at first use).  Kept, with `ingest_available`, for
+    the JAX package's names: there they choose the fallback, which the
+    port does not have."""
+    return _buildable("stream")
+
+
+def ingest_available() -> bool:
+    """The same for the ingest receiver."""
+    return _buildable("ingest")
 
 
 class NativeIngest:
@@ -112,7 +157,7 @@ class NativeIngest:
     (single_rx_thread, cpp/USRP_hardware_manager.cpp:1398-1611)."""
 
     def __init__(self, block_len: int, port: int = 0, queue_len: int = 16):
-        lib = load_library()
+        lib = load_library("ingest")
         self._lib = lib
         self.block_len = int(block_len)
         self.block_bytes = 8 * self.block_len     # complex64
@@ -162,6 +207,107 @@ class NativeIngest:
         with self._h_lock:
             if self._h:
                 self._lib.sdr_ingest_destroy(self._h)
+                self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class NativeSyncServer:
+    """The data plane backed by the C++ streamer: a native thread drains
+    a lock-free ring of framed packets to the one connected client.
+
+    Same surface as network.SyncServer: start()/push()/flush()/close(),
+    `port`; `stats` counts the packets and bytes sent.  The ring's slots
+    start at `slot_bytes` and grow on a larger push
+    (native/spsc_ring.hpp)."""
+
+    def __init__(self, port: int = wire.SYNC_PORT,
+                 slot_bytes: int = 8 * 2_000_000 + wire.HEADER_SIZE,
+                 queue_len: int = 64):
+        lib = load_library("stream")
+        self._lib = lib
+        self._h_lock = threading.Lock()   # close() vs drop_client() race
+        self._h = lib.sdr_stream_server_create(port, slot_bytes, queue_len)
+        if not self._h:
+            raise RuntimeError(f"cannot bind native streamer to port {port}")
+        self.port = lib.sdr_stream_server_port(self._h)
+
+    def start(self) -> None:
+        pass  # the native worker thread starts at create time
+
+    def push(self, meta, data: np.ndarray, timeout: float = 5.0) -> bool:
+        fe = meta.front_end_code
+        if len(fe) == 1:
+            fe = {"A": "A_RX2", "B": "B_RX2"}[fe]
+        code = wire.FRONT_END_CODES.get(fe, b"B")
+        buf = wire.encode_sync_packet(meta.usrp_number, code,
+                                      meta.packet_number, meta.errors,
+                                      meta.channels, data)
+        t0 = time.monotonic()
+        while True:
+            # per-iteration handle lock: a force-stop can close() while a
+            # worker thread is mid-push
+            with self._h_lock:
+                if not self._h:
+                    return False
+                if self._lib.sdr_stream_server_push(self._h, buf,
+                                                    len(buf)):
+                    return True
+            if time.monotonic() - t0 > timeout:
+                return False
+            time.sleep(0.001)
+
+    def drop_client(self) -> None:
+        """Close the current client so a reconnecting one is accepted
+        (wired to the command plane's disconnect, like the reference's
+        reconnect_data flag).  Tolerates a call after close(): the
+        handle is read and used under a lock shared with close()."""
+        with self._h_lock:
+            if self._h:
+                self._lib.sdr_stream_server_drop_client(self._h)
+
+    def wait_client(self, timeout: Optional[float] = None) -> bool:
+        t0 = time.monotonic()
+        while True:
+            with self._h_lock:
+                if self._h and \
+                        self._lib.sdr_stream_server_connected(self._h):
+                    return True
+            if timeout is not None and time.monotonic() - t0 > timeout:
+                return False
+            time.sleep(0.01)
+
+    def flush(self, timeout: float = 10.0) -> None:
+        t0 = time.monotonic()
+        while True:
+            with self._h_lock:
+                if not self._h or \
+                        self._lib.sdr_stream_server_pending(self._h) <= 0:
+                    return
+            if time.monotonic() - t0 > timeout:
+                return
+            time.sleep(0.005)
+
+    @property
+    def stats(self) -> dict:
+        with self._h_lock:
+            if not self._h:
+                return {"packets_sent": 0, "bytes_sent": 0}
+            return {
+                "packets_sent": int(
+                    self._lib.sdr_stream_server_packets_sent(self._h)),
+                "bytes_sent": int(
+                    self._lib.sdr_stream_server_bytes_sent(self._h)),
+            }
+
+    def close(self) -> None:
+        with self._h_lock:
+            if self._h:
+                self._lib.sdr_stream_server_destroy(self._h)
                 self._h = None
 
     def __del__(self):

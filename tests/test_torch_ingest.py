@@ -75,7 +75,7 @@ def test_build_hashes_and_reuses(monkeypatch, tmp_path):
     second build finds it and runs no compiler; an edited source builds
     another library; a source g++ refuses raises."""
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
-    first = native.build()
+    first = native.build("ingest")
     assert first.is_file() and first.parent == tmp_path / "build"
     assert first.name.startswith("libsdr_ingest_")
     assert not list((tmp_path / "build").glob("*.tmp"))
@@ -83,7 +83,7 @@ def test_build_hashes_and_reuses(monkeypatch, tmp_path):
     def no_compiler(*a, **k):
         raise AssertionError("rebuilt an unchanged source")
     monkeypatch.setattr(native.subprocess, "run", no_compiler)
-    assert native.build() == first
+    assert native.build("ingest") == first
     monkeypatch.undo()
 
     src = tmp_path / "native"
@@ -93,17 +93,17 @@ def test_build_hashes_and_reuses(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "NATIVE_DIR", src)
     (src / "stream_ingest.cpp").write_text(
         (src / "stream_ingest.cpp").read_text() + "\n// edited\n")
-    assert native.library_path() != first
-    assert native.build().is_file()
+    assert native.library_path("ingest") != first
+    assert native.build("ingest").is_file()
     (src / "stream_ingest.cpp").write_text("this is not C++\n")
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
-        native.build()
+        native.build("ingest")
 
 
 def test_library_is_the_ports_own():
-    lib = native.load_library()
-    assert native.library_path().is_file()
-    assert lib._name == str(native.library_path())
+    lib = native.load_library("ingest")
+    assert native.library_path("ingest").is_file()
+    assert lib._name == str(native.library_path("ingest"))
     assert "native/build" not in lib._name
 
 

@@ -384,6 +384,67 @@ def test_slice_runs_with_jax_blocked():
                                   "host_pipeline"]
 
 
+def test_server_runs_with_jax_blocked(tmp_path):
+    """With jax, the JAX package, h5py and matplotlib unimportable, the
+    port's facade imports and the port's Server (on the CPU, the native
+    streamer) serves one measurement to the port's Connection over
+    127.0.0.1, Packets_to_file writing it through client/h5.py; no
+    module of the four loads."""
+    code = textwrap.dedent("""
+        import sys
+        for m in ("jax", "gpu_sdr_tpu", "h5py", "matplotlib"):
+            sys.modules[m] = None
+        import threading
+        import numpy as np, torch
+        torch.set_num_threads(2)
+        import gpu_sdr_tpu_torch.pyusrp as u
+        from gpu_sdr_tpu_torch.server.main import Server
+        srv = Server(async_port=0, data_port=0, host="127.0.0.1",
+                     device="cpu")
+        srv.start()
+        th = threading.Thread(target=lambda: srv.serve_one(timeout=60),
+                              daemon=True)
+        th.start()
+        try:
+            assert u.Connect(host="127.0.0.1", async_port=srv.ports[0],
+                             sync_port=srv.ports[1])
+            p = u.global_parameter()
+            p.A_TXRX = u.AntennaParams(
+                mode=u.AntMode.TX, rate=1_000_000, buffer_len=100_000,
+                samples=200_000, freq=[50_000], ampl=[0.5],
+                wave_type=[u.WaveType.TONES], delay=1.0)
+            p.A_RX2 = u.AntennaParams(
+                mode=u.AntMode.RX, rate=1_000_000, buffer_len=100_000,
+                samples=200_000, decim=100, pf_average=4, freq=[50_000],
+                wave_type=[u.WaveType.DIRECT], delay=1.0)
+            conn = u.get_connection()
+            conn.send_params(p)
+            fn = u.Packets_to_file(conn, p, filename="served",
+                                   progress=False, timeout=60)
+            th.join(timeout=60)
+            assert not th.is_alive()
+            sent = srv.sync.stats["packets_sent"]
+        finally:
+            u.Disconnect()
+            srv.close()
+        data = u.openH5file(fn)
+        assert data.shape == (1, 2000), data.shape
+        np.testing.assert_allclose(abs(data[0, 8:]), 0.5, atol=2e-3)
+        print(type(srv.sync).__name__, sent)
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "gpu_sdr_tpu", "h5py",
+                                           "matplotlib")
+                    and sys.modules[m] is not None]
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2",
+               MKL_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split() == ["NativeSyncServer", "2"]
+
+
 def test_kernel_wrappers_count_no_cpu_launch():
     """On the CPU a wrapper runs its plain version and counts nothing."""
     before = (channelizer.launches, presum.launches)
