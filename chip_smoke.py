@@ -256,6 +256,23 @@ and exits non-zero at the first phase that fails:
    (``held_on_path``).  Msps from send_params to the file's close
    beside the in-process run's into a dropping sink, the bytes on the
    wire, the RSS.
+21. the sharded layer across two processes on the card: two ranks of
+   ``python -m gpu_sdr_tpu_torch.parallel.rehearsal --size full`` on
+   torch.distributed over gloo (named; NCCL refuses two ranks on one
+   device), each owning one shard of the card's (2, 1) and (1, 2)
+   meshes: (a) config 3 fused (#11), (b) TONES config 4 fused (#1), (c)
+   config 3 host-fed through an ideal channel on (1, 2), the channel
+   shards and their gather across the ranks (#7), (d) the config 3
+   (#10) and TONES (#5) replays of 4-block recordings, (e) config 5 in
+   lock-step through ``run_measurement(mesh=)``, 10 blocks each, (f)
+   ``PerHostIngest`` at config 3's shape, each rank fed its own span
+   over 127.0.0.1 (6 blocks), then rank 1's producer gone after 1.5 of
+   4 blocks: both ranks end 2 blocks short.  Every rank's gathered
+   streams are this process's one-process run of the same meshes bit
+   for bit (each packet's CRC-32 and every 97th row; of the abort run
+   its first block), each rank's launches its blocks exactly; Msps a
+   rank and in total, the gather's ms a block, each rank's peak memory
+   and the wall times.
 
 Phases 4, 5, 7, 9, 11, 13, 13b, 15, 17, 18, 19 and 20 are the main path.  Their
 CallbackSink checks rows ::97 of every packet (finite; PFB tones within
@@ -4675,6 +4692,153 @@ def serve_cli(u, tmp, params, n):
         reader.join(timeout=SRV_WAIT_S)
 
 
+MP_WAIT_S = 600          # phase 21: the two ranks' deadline
+# phase 21's cases (parallel/rehearsal.FULL) and each rank's launches of
+# them: one a local shard and block (10 blocks; config 5 two front ends;
+# the ingest 6 blocks, then 2 before its abort)
+MP_LAUNCHES = {"config3_fused": {"fold": 10},
+               "tones_fused": {"channelizer": 10},
+               "config3_hostfed": {"ddc": 10},
+               "replays": {"replay_ddc_sharded": 10,
+                           "channelizer_at_halo": 10},
+               "config5": {"channelizer": 20},
+               "ingest": {"ddc": 8}}
+
+
+def phase_multiprocess(dev):
+    """The sharded layer across two processes on the card: two ranks of
+    ``python -m gpu_sdr_tpu_torch.parallel.rehearsal --size full`` on
+    torch.distributed over gloo (named: NCCL refuses two ranks on one
+    device), each owning one shard of the card's (2, 1) and (1, 2)
+    meshes, run the cases (a) config 3 fused (#11), (b) TONES config 4
+    fused (#1), (c) config 3 host-fed on (1, 2): the channel shards on
+    two ranks, the channel gather across them (#7), (d) the config 3
+    (#10) and TONES (#5) replays, (e) config 5 in lock-step through
+    run_measurement(mesh=), (f) the per-host ingest at config 3's shape,
+    each rank fed its own span over 127.0.0.1, then rank 1's producer
+    gone after 1.5 blocks: both ranks end with the same shortfall.  Each
+    rank's gathered streams are this process's one-process run of the
+    same meshes (virtual shards) bit for bit: each packet's CRC-32 and
+    every 97th row (the abort run's first block, the tail being padded
+    on one rank); (c)'s one-process run is held at SNR_BAR_DB against
+    the unsharded host-fed run of the same stream, which no other phase
+    checks at its (1, 2) shape.  Each rank's launches are its blocks
+    exactly.  Prints
+    Msps a rank and in total, the gather's seconds a block, each rank's
+    peak memory and the wall time; returns rank 0's launches."""
+    import socket
+    import tempfile
+
+    from gpu_sdr_tpu_torch.parallel import rehearsal
+    t0 = time.perf_counter()
+    ref_reports, ref = rehearsal.run([str(dev)] * 2, (2, 1), size="full")
+    t_ref = time.perf_counter() - t0
+    for rep in ref_reports:
+        want = {k: 2 * v for k, v in MP_LAUNCHES[rep["phase"]].items()}
+        check(rep["ok"] and rep["launches"] == want,
+              f"one-process {rep['phase']}: ok {rep['ok']}, launches "
+              f"{rep['launches']}, expected {want}")
+    # (c)'s one-process run against the unsharded host-fed path: the
+    # (1, 2) shard shape of #7 (50 channels a shard) and the channel
+    # gather against the whole 100 channels in one call
+    from gpu_sdr_tpu_torch import measure
+    from gpu_sdr_tpu_torch.engine.channel import IdealChannel
+    whole = rehearsal.KeepSink(full=True)
+    measure.run_measurement(rehearsal.full_direct()(rehearsal.FULL_BLOCKS),
+                            channel=IdealChannel(), device=dev,
+                            extra_sinks=[whole])
+    check(measure.last_dispatch() == (("A_RX2", "host_pipeline", None),),
+          f"unsharded config 3 host-fed dispatch {measure.last_dispatch()}")
+    whole = np.concatenate([p[rehearsal.ROWS] for p in whole.packets[
+        next(iter(whole.packets))]])
+    snr = snr_db(whole, ref["config3_hostfed_rows"])
+    print(f"config 3 host-fed, one process on (1, 2) vs unsharded, "
+          f"{rehearsal.FULL_BLOCKS} blocks (rows ::97): SNR {snr:.1f} dB")
+    check(snr >= SNR_BAR_DB, f"(1, 2) host-fed vs unsharded {snr:.1f} dB")
+    with tempfile.TemporaryDirectory() as tmp:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=HERE)
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "gpu_sdr_tpu_torch.parallel.rehearsal",
+             "--init", f"tcp://127.0.0.1:{port}", "--world", "2", "--rank",
+             str(r), "--mesh", "2x1", "--devices", str(dev), "--backend",
+             "gloo", "--size", "full", "--timeout", "120", "--out", tmp],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        deadline = time.monotonic() + MP_WAIT_S
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        t_ranks = time.perf_counter() - t1
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"rank {r} exited {p.returncode}:\n"
+                  f"{log[-3000:]}")
+        reports = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                   for r in range(2)]
+        outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                for r in range(2)]
+    first = len(ref["ingest_rows"]) // len(ref["ingest_crc"])
+    for r, out in enumerate(outs):
+        check(sorted(out) == sorted(ref), f"rank {r} outputs {sorted(out)}")
+        for k in ref:
+            a, b = ref[k], out[k]
+            if k == "ingest_abort_crc":
+                a, b = a[:1], b[:1]
+            elif k == "ingest_abort_rows":
+                a, b = a[:first], b[:first]
+            check(a.shape == b.shape and np.array_equal(
+                a.view(np.uint8), b.view(np.uint8)),
+                f"rank {r} {k}: not the one-process run's bits")
+        check(all(np.array_equal(outs[0][k], out[k]) for k in out),
+              f"rank {r}'s streams differ from rank 0's")
+    launches = {}
+    for r, reps in enumerate(reports):
+        for rep in reps:
+            name = rep["phase"]
+            check(rep["ok"] and rep["launches"] == MP_LAUNCHES[name],
+                  f"rank {r} {name}: ok {rep['ok']}, launches "
+                  f"{rep['launches']}, expected {MP_LAUNCHES[name]}")
+            if r == 0:
+                for k, v in rep["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    ing = [next(x for x in reps if x["phase"] == "ingest")
+           for reps in reports]
+    check([x["ingest_abort_shortfall"] for x in ing] == [2, 2] and
+          all(x["ingest_abort_aborted"] for x in ing),
+          f"ingest abort: {[x['ingest_abort_shortfall'] for x in ing]}")
+    print("multi-process (2 ranks, gloo, one card) vs one process: every "
+          "stream bit-identical; launches = blocks a rank")
+    for name in rehearsal.FULL:
+        reps = [next(x for x in rr if x["phase"] == name)
+                for rr in reports]
+        one = next(x for x in ref_reports if x["phase"] == name)
+        for k in sorted(k for k in reps[0] if k.endswith("msps_total")):
+            case = k[:-len("_msps_total")] or name
+            g = k[:-len("msps_total")] + "gather_s_per_block"
+            print(f"  {case}: {reps[0][k]:.1f} Msps total, "
+                  f"{reps[0][k.replace('total', 'rank')]:.1f} a rank "
+                  f"(one process {one[k]:.1f}); gather "
+                  + ", ".join(f"rank {x['rank']} {x[g] * 1e3:.2f}"
+                              for x in reps) + " ms a block")
+        print(f"  {name}: wall {reps[0]['wall_s']:.2f} s a rank; peak "
+              f"memory " + ", ".join(
+                  f"rank {x['rank']} {x.get('peak_mem_bytes', 0) / 2**30:.2f}"
+                  " GiB" for x in reps))
+    print(f"phase 21: one-process reference {t_ref:.1f} s, two ranks "
+          f"{t_ranks:.1f} s (start, build load and the cases)")
+    return launches
+
+
 def check_line(kernels) -> None:
     """Every kernel of the repo is in the kernels line once, launched
     by its main path's run, with every key of the line."""
@@ -4741,6 +4905,8 @@ def main() -> int:
             "the science loop", phase_science_loop, dev)
         server_launches, server_errs = timed(
             "the server on the card", phase_server, dev)
+        mp_launches = timed("the sharded layer across two processes",
+                            phase_multiprocess, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4800,6 +4966,8 @@ def main() -> int:
         if k["name"] in server_launches:        # the server's runs
             k["server_launches"] = server_launches[k["name"]]
             k["server_max_abs_err"] = server_errs[k["name"]]
+        if k["name"] in mp_launches:            # phase 21, rank 0's
+            k["multiprocess_launches"] = mp_launches[k["name"]]
     check_line(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ tree.  Nodes are ``tuple``, ``list``, ``dict`` (string keys) and
 ``parallel.mesh.Sharded``; leaves are ``torch.Tensor`` (any device) and
 the Python scalars ``bool``, ``int`` and ``float``.  The states of the
 host-fed demodulators, the fused chains, the replays and the sharded
-chains are all such trees.
+chains are all such trees.  A sharded state of a mesh across processes
+holds None for the shards of other ranks and is refused, as the JAX
+package refuses one (its arrays are not fully addressable).
 """
 
 from __future__ import annotations
@@ -45,6 +47,15 @@ def _flatten(tree: Any, leaves: List[Any]):
         leaves.append(tree)
         return {"leaf": "tensor", "dtype": str(tree.dtype),
                 "shape": list(tree.shape)}
+    if tree is None:
+        # a shard of another process (parallel/mesh.Mesh.grid): the JAX
+        # package cannot save such a state either (np.asarray of an array
+        # that is not fully addressable raises)
+        raise ValueError(
+            "checkpoint: the state holds shards of other processes (a "
+            "mesh across processes); a multi-process state is not saved, "
+            "as in the JAX package, whose save_state needs every shard of "
+            "its arrays in one process")
     for kind, typ in _SCALARS:          # bool first: it is an int too
         if isinstance(tree, typ):
             leaves.append(tree)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from typing import Optional
 
 import torch
@@ -126,7 +127,13 @@ class SocketIngestSource(Source):
     `blocks()` pops them here.  Ring overflows (the consumer falling
     behind the wire) and the zero-padded samples of a partial tail block
     are reported through `take_errors`, like the reference's UHD error
-    counters (cpp/USRP_server_diagnostic.cpp:14-106).
+    counters (cpp/USRP_server_diagnostic.cpp:14-106).  An overflow is
+    stamped on the block popped after the drop, as in the JAX package.
+    The padding is stamped on the tail block that carries it, whatever
+    the timing (the JAX package stamps it on whichever block is popped
+    after the receiver counted it, divergence 36): once the padding is
+    counted, a popped block is the tail if the stream ends with nothing
+    left in the ring.
 
     Use `port=0` for an ephemeral port; read `.port` to tell the
     producer where to connect.  A producer that disconnects, or delivers
@@ -145,20 +152,50 @@ class SocketIngestSource(Source):
         self.port = self._ingest.port
         self.block_len = int(block_len)
         self.timeout = float(timeout)
-        self._errors_reported = 0
+        self._overflows_reported = 0
+        self._padded_reported = 0
+        self._padded_due = 0        # the padding of the tail, once yielded
         self.aborted = False
         self.shortfall_blocks = 0
 
     def take_errors(self) -> int:
-        st = self._ingest.stats
-        total = st["overflows"] + st["padded"]
-        delta = total - self._errors_reported
-        self._errors_reported = total
+        """The error count since the last call: overflows counted so far,
+        plus the padded samples of the tail block once `blocks()` has
+        yielded it."""
+        over = self._ingest.stats["overflows"]
+        delta = over - self._overflows_reported + self._padded_due
+        self._overflows_reported = over
+        self._padded_due = 0
         return int(delta)
 
     @property
     def stats(self) -> dict:
         return self._ingest.stats
+
+    def _pop(self):
+        try:
+            return self._ingest.pop_block(timeout=self.timeout)
+        except TimeoutError:
+            return None
+
+    def _is_tail(self) -> bool:
+        """Whether the block just popped is the padded tail.  The receiver
+        counts a tail's padding before it pushes the tail, and sees the
+        end of the stream right after: so with no new padding counted the
+        block is not the tail, and with new padding it is the tail when
+        the stream ends with nothing left in the ring, and not when the
+        ring holds more.  Only the blocks popped after the padding was
+        counted wait, and only until the receiver pushes the tail."""
+        if self._ingest.stats["padded"] == self._padded_reported:
+            return False
+        deadline = time.monotonic() + self.timeout
+        while time.monotonic() < deadline:
+            if self._ingest.pending():
+                return False
+            if self._ingest.drained():
+                return True
+            time.sleep(0.0005)
+        return False
 
     def blocks(self, block_len: int, n_blocks: int):
         if block_len != self.block_len:
@@ -177,6 +214,10 @@ class SocketIngestSource(Source):
                     "%d blocks short (%d/%d delivered)",
                     self.shortfall_blocks, i, n_blocks)
                 return
+            if self._is_tail():
+                padded = self._ingest.stats["padded"]
+                self._padded_due += padded - self._padded_reported
+                self._padded_reported = padded
             yield blk
 
     def close(self) -> None:

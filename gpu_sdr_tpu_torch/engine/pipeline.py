@@ -47,7 +47,9 @@ class _HostFetch:
     returns the numpy array (the sinks may keep it).  On the CPU the
     tensor is handed over as it is.  A mesh's sharded result
     (parallel/mesh.Sharded) is gathered onto `device` first: the global
-    view gpu_sdr_tpu/parallel/fused_sharded._to_np_global took."""
+    view gpu_sdr_tpu/parallel/fused_sharded._to_np_global took; across
+    processes every rank gathers it (parallel/mesh.Mesh.gather), onto
+    the host where the backend is gloo."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -56,6 +58,9 @@ class _HostFetch:
 
     def start(self, y):
         if isinstance(y, Sharded):      # a mesh's sharded result
+            if y.multiprocess and y.mesh.backend == "gloo":
+                # gloo gathers on the host: the global block is there
+                return y.gather("cpu"), None
             y = y.gather(self.device)
         if self.stream is None:
             return y, None

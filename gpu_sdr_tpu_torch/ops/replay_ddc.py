@@ -162,7 +162,8 @@ class ShardedReplayDDC:
     def __init__(self, cfg: DirectDDCConfig, X: torch.Tensor, block_len: int,
                  devices):
         """X: the recording as a complex64 tensor (n,); devices: each
-        time shard's device."""
+        time shard's device, None for a shard of another process (its
+        span is not uploaded and its block not computed here)."""
         T = len(devices)
         plan = self.plan_tiles(cfg, len(X), int(block_len), T)
         if plan is None:
@@ -179,12 +180,15 @@ class ShardedReplayDDC:
         hmod = cfg.modulated_taps(cpu)
         nt = self.nbr_t
         self.devices = list(devices)
-        self.X = [s.to(d) for s, d in zip(spans, devices)]
-        self.H = [h.to(d) for h, d in zip(halos, devices)]
-        self._ramp = [ramp[t * nt:(t + 1) * nt].to(d)
-                      for t, d in enumerate(devices)]
-        self._hmod = [hmod.to(d) for d in devices]
-        self.device = self.devices[0]
+
+        def put(parts):
+            return [None if d is None else p.to(d)
+                    for p, d in zip(parts, devices)]
+
+        self.X, self.H = put(spans), put(halos)
+        self._ramp = put([ramp[t * nt:(t + 1) * nt] for t in range(T)])
+        self._hmod = put([hmod] * T)
+        self.device = next(d for d in self.devices if d is not None)
         self._dstep = ddc_ops.ddc_carrier_step(cfg, self.L, self.device)
 
     def init_state(self):
@@ -238,8 +242,10 @@ class ShardedReplayDDC:
         return out
 
     def step(self, state):
-        """One block: (state', [shard t's (nbr/T, C)] per time shard)."""
-        ys = [self.local(state, t) for t in range(self.T)]
+        """One block: (state', [shard t's (nbr/T, C)] per time shard,
+        None for another process's)."""
+        ys = [None if self.devices[t] is None else self.local(state, t)
+              for t in range(self.T)]
         return self.advance(state), ys
 
 

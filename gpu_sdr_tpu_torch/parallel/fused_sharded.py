@@ -155,12 +155,11 @@ class ShardedFusedLoopback:
         cfg, mesh = self.cfg, self.mesh
         frame = tone_ops.tone_comb_wavetable_block(freqs, ampls, cfg.rate,
                                                    cfg.nfft)
-        self._frame = [cplx.from_np(frame, mesh.device(t, 0)).reshape(
-            1, cfg.nfft) for t in range(self.T)]
-        self._consts = [channelizer_consts(cfg, mesh.device(t, 0))
-                        for t in range(self.T)]
-        self._bins_t = [torch.as_tensor(self.bins, device=mesh.device(t, 0))
-                        for t in range(self.T)]
+        self._frame = mesh.rows(lambda t, d: cplx.from_np(frame, d).reshape(
+            1, cfg.nfft))
+        self._consts = mesh.rows(lambda t, d: channelizer_consts(cfg, d))
+        self._bins_t = mesh.rows(lambda t, d: torch.as_tensor(self.bins,
+                                                              device=d))
 
     def init_state(self):
         if self.path == "channelizer_wavetable":
@@ -178,13 +177,16 @@ class ShardedFusedLoopback:
             ys = []
             for t in range(self.T):
                 fr = self._frame[t]
+                if fr is None:                  # another process's row
+                    ys.append([None])
+                    continue
                 spare = fr.expand(lead, fr.shape[1])
                 if t == 0 and not state:
                     spare = torch.zeros_like(spare)
                 y = channelizer(*self._consts[t], spare.contiguous(), fr,
                                 nframes=self.ft)
                 ys.append([select_tones(y, self._bins_t[t])])
-            return 1, Sharded(ys)
+            return 1, Sharded(ys, self.mesh)
         if self._const_tx:
             (halo,) = state
             halo, ys = self._pfb.step(halo, self._x)
@@ -196,6 +198,10 @@ class ShardedFusedLoopback:
             xs.append([])
             phase2.append([])
             for c in range(self.Kc):
+                if self._PQ[t][c] is None:      # another process's shard
+                    xs[t].append(None)
+                    phase2[t].append(None)
+                    continue
                 P, Q = self._PQ[t][c]
                 ph, x = tone_ops.tone_comb_block(P, Q, self._tx_step[t][c],
                                                  W, phase[t][c])
@@ -252,7 +258,6 @@ class ShardedFusedVNA:
         self.nseg_t = self.ft = self.Lt // self.ppt
         self.scale = float(tx.ampl[0]) if tx.ampl else 1.0
         self.n_tones = 1
-        devs = [mesh.device(t, 0) for t in range(self.T)]
         if plan_sharded_chirp_table(tx, rx, mesh, L):
             self.path = "chirp_table"
             # the amplitude divides back out through the profile, as in
@@ -260,16 +265,19 @@ class ShardedFusedVNA:
             prof = torch.from_numpy(lockin_profile(self.ppt) /
                                     (self.scale if self.scale else 1.0))
             tables = {}
-            for d in devs:
+
+            def table(t, d):            # one table a device
                 if d not in tables:
                     tables[d] = chirp_ops.chirp_period_table(
                         self.cfg, L, self.ppt, scale=self.scale, device=d)
-            self._table = [tables[d] for d in devs]
+                return tables[d]
+
+            self._table = mesh.rows(table)
             self._nblk = self.cfg.period // L
         else:
             self.path = "chirp_lockin"
             prof = torch.from_numpy(lockin_profile(self.ppt))
-        self._profile = [prof.to(d) for d in devs]
+        self._profile = mesh.rows(lambda t, d: prof.to(d))
 
     def init_state(self):
         """chirp_table: the period block, an int (the JAX state's uint32
@@ -284,19 +292,25 @@ class ShardedFusedVNA:
         if self.path == "chirp_table":
             o = state
             for t in range(T):
+                if self._profile[t] is None:    # another process's row
+                    ys.append([None])
+                    continue
                 y = lockin_self(self._profile[t], self._table[t], o * T + t,
                                 self.nseg_t)
                 ys.append([y[:, None]])
-            return (o + 1) % self._nblk, Sharded(ys)
+            return (o + 1) % self._nblk, Sharded(ys, self.mesh)
         last = state
         for t in range(T):
+            if self._profile[t] is None:
+                ys.append([None])
+                continue
             base = chirp_ops.advance(cfg, last, t * self.Lt)
             _, x = chirp_ops.chirp_block(cfg, base, self.Lt,
                                          scale=self.scale,
                                          device=self._profile[t].device)
             _, z = chirp_ops.chirp_demod_block(cfg, base, x)
             ys.append([lockin_decimate(self._profile[t], z)[:, None]])
-        return chirp_ops.advance(cfg, last, L), Sharded(ys)
+        return chirp_ops.advance(cfg, last, L), Sharded(ys, self.mesh)
 
     def run(self, sinks=(), usrp_number: int = 0, front_end: str = "A",
             n_blocks: int | None = None):
@@ -377,6 +391,7 @@ class ShardedFusedDirect:
                 t * nbt:(t + 1) * nbt, cs[c]].to(d))
             self._state0 = ch.init_state(mesh.first)
         self._cs = cs
+        self._rate = rate
 
     def init_state(self):
         sph, dph, pv = self._state0
@@ -389,14 +404,16 @@ class ShardedFusedDirect:
         sph, dph, pv = state
         ys = [[None] * self.Kc for _ in range(self.T)]
         if self.path == "fold_kernel":
-            W = self._folds[0][0].rate
+            W = self._rate
             # the block's rotations once, each shard's tile rows from them
             srot = phase_rotation(sph, W, 1.0)
             drot = phase_rotation(dph, W, -1.0)
             for t in range(self.T):
                 for c in range(self.Kc):
-                    d = mesh.device(t, c)
                     fo = self._folds[t][c]
+                    if fo is None:              # another process's shard
+                        continue
+                    d = mesh.device(t, c)
                     crot, qrot = fo.tile_rotations(srot.to(d),
                                                    drot[cs[c]].to(d))
                     y = fold(fo.P1, fo.G2, crot, qrot, fo.ramp1, fo.nb)
@@ -404,16 +421,19 @@ class ShardedFusedDirect:
                     ys[t][c] = fo.startup_correction(
                         (sph.to(d), dph[cs[c]].to(d), pv), y)
             return (advance_phase(sph, self._steps[0], W),
-                    advance_phase(dph, self._steps[1], W), 1.0), Sharded(ys)
+                    advance_phase(dph, self._steps[1], W), 1.0), \
+                Sharded(ys, mesh)
         new, srot, hrot0, drot = self.chain.block_rotations(state)
         for t in range(self.T):
             for c in range(self.Kc):
+                if self._P[t][c] is None:       # another process's shard
+                    continue
                 d = mesh.device(t, c)
                 hrot = hrot0 if t == 0 else srot
                 ys[t][c] = chain(self._P[t][c], self._hP[t][c],
                                  self._G[t][c], self._ramp[t][c],
                                  srot.to(d), hrot.to(d), drot[cs[c]].to(d))
-        return new, Sharded(ys)
+        return new, Sharded(ys, mesh)
 
     def run(self, sinks=(), usrp_number: int = 0, front_end: str = "A",
             n_blocks: int | None = None):

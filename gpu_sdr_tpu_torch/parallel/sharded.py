@@ -11,7 +11,7 @@ gpu_sdr_tpu/parallel/sharded.py).
 Each shard runs the DDC kernel #7 (ops/ddc.ddc_fused) on its segment.
 Its FIR needs the H = (f-1)*M samples before the segment, the
 overlap-save halo, which rides one step around the time ring
-(mesh.ppermute): shard t > 0 takes the tail of shard t-1 of the same
+(Mesh.ring): shard t > 0 takes the tail of shard t-1 of the same
 block, shard 0 the tail of the last shard of the previous block, which
 is what last block's ring delivered to it; so each shard's carry is
 "the tail I received last block".
@@ -25,13 +25,11 @@ per-shard rotation; the two agree to float32 rounding.
 
 from __future__ import annotations
 
-from typing import List
-
 import torch
 
 from ..ops import ddc as ddc_ops
 from ..ops.ddc import DirectDDCConfig
-from .mesh import Mesh, Sharded, ppermute, shard_input
+from .mesh import Mesh, Sharded, shard_input
 
 
 class ShardedDDC:
@@ -83,28 +81,28 @@ class ShardedDDC:
                     H, dtype=torch.complex64, device=d)))
 
     def step(self, state, x):
-        """One block: x (L,) on shard (0, 0)'s device, or its grid of
-        per-shard segments.  Returns (state', Sharded y (nb, C))."""
+        """One block: x (L,) on the mesh's first device, or its grid of
+        per-shard segments.  Returns (state', Sharded y (nb, C)); the
+        shards of other processes are None."""
         phase, carry = state
-        cfg, mesh, H = self.cfg, self.mesh, self.H
+        cfg, mesh, H, T = self.cfg, self.mesh, self.H, self.T
         xs = shard_input(mesh, x)
-        new_phase, new_carry, ys = [], [], []
-        for t in range(self.T):
-            new_phase.append([])
-            ys.append([])
+        new_phase = [[None] * self.Kc for _ in range(T)]
+        new_carry = [[None] * self.Kc for _ in range(T)]
+        ys = [[None] * self.Kc for _ in range(T)]
         for c in range(self.Kc):
-            devs = [mesh.device(t, c) for t in range(self.T)]
-            recv = ppermute([xs[t][c][self.Lt - H:] for t in range(self.T)],
-                            devs) if H else [carry[t][c]
-                                             for t in range(self.T)]
-            new_carry.append(recv)
-            for t in range(self.T):
+            recv = mesh.ring(c, [None if xs[t][c] is None
+                                 else xs[t][c][self.Lt - H:]
+                                 for t in range(T)]) if H else \
+                [carry[t][c] for t in range(T)]
+            for t in range(T):
+                if xs[t][c] is None:
+                    continue
+                new_carry[t][c] = recv[t]
                 halo = carry[t][c] if t == 0 else recv[t]
                 ph, _, y = ddc_ops.ddc_fused(
                     self._hmod[t][c], self._ramp[t][c], self._step[t][c],
                     cfg.rate, cfg.M, cfg.f, phase[t][c], halo, xs[t][c])
-                new_phase[t].append(ph)
-                ys[t].append(y)
-        carry2: List[list] = [[new_carry[c][t] for c in range(self.Kc)]
-                              for t in range(self.T)]
-        return (new_phase, carry2), Sharded(ys)
+                new_phase[t][c] = ph
+                ys[t][c] = y
+        return (new_phase, new_carry), Sharded(ys, mesh)

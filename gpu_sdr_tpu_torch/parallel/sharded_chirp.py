@@ -36,17 +36,23 @@ class ShardedChirpLockin:
         # shard t starts at sample t*Lt of the block
         self.shard_off = [(t * self.Lt) % cfg.period for t in range(self.T)]
         prof = torch.from_numpy(lockin_profile(self.ppt))
-        self._profile = [prof.to(mesh.device(t, 0)) for t in range(self.T)]
+        self._profile = mesh.rows(lambda t, d: prof.to(d))
 
     def init_state(self):
         return 0
 
     def step(self, last, x):
         """One block: (last', Sharded (L/ppt, 1))."""
-        xs = shard_input(self.mesh, x)
+        mesh = self.mesh
+        xs = shard_input(mesh, x)
         ys = []
         for t in range(self.T):
+            c = mesh.row_shard(t)
+            if c is None:
+                ys.append([None])
+                continue
             base = chirp_ops.advance(self.cfg, last, self.shard_off[t])
-            _, z = chirp_ops.chirp_demod_block(self.cfg, base, xs[t][0])
+            _, z = chirp_ops.chirp_demod_block(self.cfg, base, xs[t][c])
             ys.append([lockin_decimate(self._profile[t], z)[:, None]])
-        return chirp_ops.advance(self.cfg, last, self.block_len), Sharded(ys)
+        return (chirp_ops.advance(self.cfg, last, self.block_len),
+                Sharded(ys, mesh))

@@ -12,7 +12,8 @@ gpu_sdr_tpu/parallel/sharded_pfb.py).
 
 With `bins` set, tone selection is owner-local: each channel shard owns
 nfft/Kc contiguous bins, selects the tones whose bin it owns (the others
-masked to zero), and one psum over the channel axis joins them, so no
+masked to zero), and one psum over the channel axis (Mesh.psum_row)
+joins them, so no
 sharded gather is needed.  The DFT columns are built in float64 and
 multiplied in float32 (no TF32, config.configure_precision).
 """
@@ -27,7 +28,7 @@ import torch
 from ..ops.cplx import from_np
 from ..ops.pfb import PFBConfig
 from ..ops.presum import presum
-from .mesh import Mesh, Sharded, ppermute, psum, shard_input
+from .mesh import Mesh, Sharded, shard_input
 
 
 def dft_columns(nfft: int, c0: int, c1: int) -> np.ndarray:
@@ -82,17 +83,19 @@ class ShardedPFB:
 
     def frames(self, carry, xs):
         """(carry', per-shard (ft, nfft/Kc) frames grid) of one block
-        given as a per-shard grid."""
+        given as a per-shard grid (None for other processes' shards)."""
         mesh, H, nfft = self.mesh, self.H, self.cfg.nfft
         avg, ft = self.cfg.avg, self.frames_t
         out = [[None] * self.Kc for _ in range(self.T)]
         new_carry = [[None] * self.Kc for _ in range(self.T)]
         for c in range(self.Kc):
-            devs = [mesh.device(t, c) for t in range(self.T)]
-            recv = ppermute([xs[t][c][self.Lt - H:] for t in range(self.T)],
-                            devs) if H else [carry[t][c]
-                                             for t in range(self.T)]
+            recv = mesh.ring(c, [None if xs[t][c] is None
+                                 else xs[t][c][self.Lt - H:]
+                                 for t in range(self.T)]) if H else \
+                [carry[t][c] for t in range(self.T)]
             for t in range(self.T):
+                if xs[t][c] is None:
+                    continue
                 new_carry[t][c] = recv[t]
                 halo = carry[t][c] if t == 0 else recv[t]
                 pre = presum(self._w2[t][c], halo.reshape(avg - 1, nfft),
@@ -101,17 +104,21 @@ class ShardedPFB:
         return new_carry, out
 
     def step(self, carry, x):
-        """One block: x (L,) on shard (0, 0)'s device, or its grid.
+        """One block: x (L,) on the mesh's first device, or its grid.
         Returns (carry', Sharded frames or selected tones)."""
-        carry, fr = self.frames(carry, shard_input(self.mesh, x))
+        mesh = self.mesh
+        carry, fr = self.frames(carry, shard_input(mesh, x))
         if self.bins is None:
-            return carry, Sharded(fr)
+            return carry, Sharded(fr, mesh)
         sel = []
         for t in range(self.T):
             parts = []
             for c in range(self.Kc):
+                if fr[t][c] is None:
+                    parts.append(None)
+                    continue
                 local, mask = self._sel[t][c]
                 parts.append(torch.index_select(fr[t][c], 1, local) *
                              mask[None, :])
-            sel.append([psum(parts, self.mesh.device(t, 0))])
-        return carry, Sharded(sel)
+            sel.append([mesh.psum_row(t, parts)])
+        return carry, Sharded(sel, mesh)

@@ -104,15 +104,16 @@ class _ReplayKernel:
     path_name = "replay_kernel"
 
     def __init__(self, rx, X: torch.Tensor, L: int, mesh: Mesh):
+        self.mesh = mesh
         self.rk = ShardedReplayDDC(direct_config(rx), X, L,
-                                   [mesh.device(t, 0) for t in range(mesh.T)])
+                                   [mesh.row_device(t) for t in range(mesh.T)])
 
     def init_state(self):
         return self.rk.init_state()
 
     def step(self, state):
         state, ys = self.rk.step(state)
-        return state, Sharded([[y] for y in ys])
+        return state, Sharded([[y] for y in ys], self.mesh)
 
 
 class _ChannelizerAtHalo:
@@ -125,17 +126,16 @@ class _ChannelizerAtHalo:
     def __init__(self, rx, X: torch.Tensor, L: int, mesh: Mesh):
         cfg = pfb_config(rx)
         T, nfft = mesh.T, cfg.nfft
-        self.T, self.decim = T, cfg.decim
+        self.mesh, self.T, self.decim = mesh, T, cfg.decim
         self.ftl = L // (T * nfft)
         frames = X.reshape(-1, nfft)
         self.nblk = frames.shape[0] // (T * self.ftl)
-        devs = [mesh.device(t, 0) for t in range(T)]
-        self.X = [s.to(d) for s, d in zip(
-            shard_spans(frames, self.nblk, T), devs)]
-        self.H = [h.to(d) for h, d in zip(
-            staged_halos(frames, self.nblk, T, cfg.avg - 1), devs)]
-        self.consts = [channelizer_consts(cfg, d) for d in devs]
-        self.bins = [cfg.bins_tensor(d) for d in devs]
+        spans = shard_spans(frames, self.nblk, T)
+        halos = staged_halos(frames, self.nblk, T, cfg.avg - 1)
+        self.X = mesh.rows(lambda t, d: spans[t].to(d))
+        self.H = mesh.rows(lambda t, d: halos[t].to(d))
+        self.consts = mesh.rows(lambda t, d: channelizer_consts(cfg, d))
+        self.bins = mesh.rows(lambda t, d: cfg.bins_tensor(d))
 
     def init_state(self):
         return (0, 0)
@@ -144,6 +144,9 @@ class _ChannelizerAtHalo:
         idx, started = state
         ys = []
         for t in range(self.T):
+            if self.X[t] is None:               # another process's shard
+                ys.append([None])
+                continue
             y = channelizer_at_halo(*self.consts[t], self.X[t], self.H[t],
                                     idx, started if t == 0 else 1, self.ftl)
             if self.bins[t] is not None:
@@ -151,7 +154,7 @@ class _ChannelizerAtHalo:
             if self.decim > 0:
                 y = pfb_ops.average_frames(y, self.decim)
             ys.append([y])
-        return ((idx + 1) % self.nblk, 1), Sharded(ys)
+        return ((idx + 1) % self.nblk, 1), Sharded(ys, self.mesh)
 
 
 class _ShardedScan:
@@ -183,7 +186,8 @@ class _ShardedScan:
     def step(self, state):
         st, idx = state
         Lt = self.Lt
-        xs = [[x[idx * Lt:(idx + 1) * Lt] for x in row] for row in self.X]
+        xs = [[None if x is None else x[idx * Lt:(idx + 1) * Lt]
+               for x in row] for row in self.X]
         st, y = self.demod.step(st, xs)
         nxt = idx + 1
         nxt = nxt % self.nblk if self.loop else min(nxt, self.nblk)
@@ -206,12 +210,16 @@ class ShardedDeviceReplay:
             raise ValueError(f"looped sharded replay needs whole blocks: "
                              f"{n} samples, blocks of {L}")
         self.path = sharded_replay_path(rx, n, L, loop, mesh)
+        # one process uploads the recording to its first device and cuts
+        # the shards' spans there; across processes every rank holds the
+        # same recording on the host and uploads its own spans and halos
+        where = "cpu" if mesh.multiprocess else mesh.first
         if self.path == "scan":
             nblk = -(-n // L)
-            X = upload(data, mesh.first, (nblk + (0 if loop else 1)) * L)
+            X = upload(data, where, (nblk + (0 if loop else 1)) * L)
             self._chain = _ShardedScan(self.demod, X, nblk, loop)
         else:
-            X = upload(data, mesh.first)
+            X = upload(data, where)
             cls = _ReplayKernel if self.path == "replay_kernel" \
                 else _ChannelizerAtHalo
             self._chain = cls(rx, X, L, mesh)
@@ -260,8 +268,10 @@ class ShardedSegmentedReplay:
         self.seg_blocks = max(1, budget // (L * 8))
         self.stage_seconds: list = []
         # the devices that receive each time shard's spans, once each
-        self._dests = [sorted({mesh.device(t, c) for c in range(mesh.Kc)},
-                              key=str) for t in range(mesh.T)]
+        # (this process's shards only)
+        self._dests = [sorted({mesh.device(t, c) for c in range(mesh.Kc)
+                               if mesh.is_local(t, c)}, key=str)
+                       for t in range(mesh.T)]
 
     def _fill(self, b0: int, out: np.ndarray) -> None:
         """Blocks [b0, b0 + seg_blocks) of the stream into `out` (seg_blocks,
@@ -293,6 +303,9 @@ class ShardedSegmentedReplay:
         self._fill(s * S, seg)
         out, events = [], []
         for t in range(T):
+            if not self._dests[t]:              # another process's shards
+                out.append({})
+                continue
             span = seg[:, t * Lt:(t + 1) * Lt]
             if self._pinned:
                 pinned = self._pinned[s % 2][t]

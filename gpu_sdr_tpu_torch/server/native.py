@@ -189,6 +189,20 @@ class NativeIngest:
                 raise TimeoutError("ingest: no data from producer")
             time.sleep(0.0005)
 
+    def drained(self) -> bool:
+        """Whether the producer hung up and every block it sent has been
+        popped (what makes pop_block return None)."""
+        with self._h_lock:
+            return bool(not self._h or (
+                self._lib.sdr_ingest_eof(self._h) and
+                self._lib.sdr_ingest_pending(self._h) == 0))
+
+    def pending(self) -> int:
+        """Blocks in the ring, not yet popped."""
+        with self._h_lock:
+            return int(self._lib.sdr_ingest_pending(self._h)) \
+                if self._h else 0
+
     @property
     def stats(self) -> dict:
         with self._h_lock:

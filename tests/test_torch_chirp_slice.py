@@ -14,6 +14,11 @@ the same dispatch (``LAST_DISPATCH``, and JAX's ``plan_dispatch``)
 wherever JAX's gates pass; exact stream positions.
 """
 
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -354,3 +359,54 @@ def test_chirp_with_a_tone_comb_matches_jax(monkeypatch, case):
         (("A_RX2", "host_pipeline", None),)
     assert ts.data.shape == js.data.shape
     assert golden.snr_db(js.data, ts.data) > 90.0
+
+
+def test_host_fed_chirp_ignores_the_rounding_mode():
+    """The host-fed CHIRP case of test_torch_slice.py under each x87 /
+    SSE rounding mode and flush-to-zero, set in a subprocess: every
+    lock-in point stays within 1e-6 of 0.5, so a per-thread
+    floating-point state cannot give the 1.76e-5 that case once read
+    (ROADMAP Queue 3, the open fault)."""
+    code = textwrap.dedent("""
+        import ctypes
+        import numpy as np, torch
+        torch.set_num_threads(2)
+        from gpu_sdr_tpu_torch import measure
+        from gpu_sdr_tpu_torch.params import (AntMode, AntennaParams,
+                                              UsrpParams, WaveType)
+        from gpu_sdr_tpu_torch.engine.channel import IdealChannel
+        from gpu_sdr_tpu_torch.engine.sinks import MemorySink
+        libm = ctypes.CDLL("libm.so.6")
+
+        def run():
+            c = dict(freq=[-300_000], chirp_f=[300_000], chirp_t=[0.128],
+                     swipe_s=[128], wave_type=[WaveType.CHIRP])
+            p = UsrpParams()
+            p.A_TXRX = AntennaParams(mode=AntMode.TX, rate=1_000_000,
+                                     buffer_len=64_000, ampl=[0.5], **c)
+            p.A_RX2 = AntennaParams(mode=AntMode.RX, rate=1_000_000,
+                                    buffer_len=64_000, samples=128_000,
+                                    decim=1, **c)
+            s = MemorySink()
+            measure.run_measurement(p, channel=IdealChannel(),
+                                    extra_sinks=[s], device="cpu")
+            assert s.data.shape == (128, 1)
+            return float(np.abs(np.abs(s.data) - 0.5).max())
+
+        # FE_TONEAREST, FE_DOWNWARD, FE_UPWARD, FE_TOWARDZERO (x86)
+        for mode in (0x000, 0x400, 0x800, 0xc00):
+            libm.fesetround(mode)
+            print(run())
+        libm.fesetround(0)
+        torch.set_flush_denormal(True)
+        print(run())
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="2",
+               MKL_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr[-3000:]
+    devs = [float(v) for v in res.stdout.split()]
+    assert len(devs) == 5 and devs[0] == 0.0, devs
+    assert max(devs) < 1e-6, devs

@@ -131,10 +131,52 @@ def test_wrong_block_length_raises():
             next(src.blocks(BLOCK + 1, 1))
 
 
-def test_short_producer_aborts_as_in_jax(tmp_path):
+def _ring_pending(src) -> int:
+    ing = src._ingest
+    return int(ing._lib.sdr_ingest_pending(ing._h))
+
+
+def _wait_for(cond, what):
+    import time
+    deadline = time.monotonic() + WAIT_S
+    while not cond():
+        assert time.monotonic() < deadline, f"timed out waiting for {what}"
+        time.sleep(0.002)
+
+
+def _short_producer(src, data, order):
+    """1.5 blocks, then a hang-up, in one of two orders: "all_first"
+    sends everything and waits until the receiver has pushed the padded
+    tail before the run starts; "ring_empty" sends block 0, waits until
+    the run has popped it, then sends the half block."""
+    if order == "all_first":
+        joined(producer(src.port, data))
+        _wait_for(lambda: src.stats["blocks_received"] == 2,
+                  "the padded tail")
+        return None
+
+    def send_in_two():
+        with socket.create_connection(("127.0.0.1", src.port),
+                                      timeout=WAIT_S) as s:
+            s.sendall(data[:BLOCK].tobytes())
+            _wait_for(lambda: src.stats["blocks_received"] == 1 and
+                      _ring_pending(src) == 0, "block 0's pop")
+            s.sendall(data[BLOCK:].tobytes())
+
+    th = threading.Thread(target=send_in_two, daemon=True)
+    th.start()
+    return th
+
+
+@pytest.mark.parametrize("order", ["all_first", "ring_empty"])
+def test_short_producer_aborts_as_in_jax(tmp_path, order):
     """1.5 blocks, then the producer hangs up: two blocks delivered (the
     second zero-padded and error-stamped), two short; the file holds the
-    two blocks' rows, stamped aborted, the same file as JAX's."""
+    two blocks' rows, stamped aborted, the same file as JAX's but for
+    `errors`.  JAX stamps the padding on whichever block its feeder pops
+    after the receiver counted it, [0, 500] or [500, 1000] by timing;
+    the port stamps it on the tail that carries it, [500, 1000], in
+    either order (divergence 36)."""
     data = comb(BLOCK + BLOCK // 2)
     fns = []
     for P, Src, run, kw in (
@@ -145,22 +187,28 @@ def test_short_producer_aborts_as_in_jax(tmp_path):
         p.A_RX2 = rx_params(P)
         (tmp_path / P.__name__).mkdir()
         with Src(block_len=BLOCK, timeout=WAIT_S) as src:
-            th = producer(src.port, data)
+            th = _short_producer(src, data, order)
             fns.append(run(p, filename=str(tmp_path / P.__name__ / "short"),
                            source=src, **kw))
-            joined(th)
+            if th is not None:
+                joined(th)
             assert src.aborted and src.shortfall_blocks == 2
             assert src.stats["padded"] == BLOCK - BLOCK // 2
-    assert_same_file(*fns)
     rows = BLOCK // 100
+    errors = []
+    for fn in fns:
+        with h5py.File(fn, "r") as f:
+            g = f["raw_data0"]["A_RX2"]
+            errors.append(g["errors"][()].tolist())
+    assert errors[0] in ([[0, rows]], [[rows, 2 * rows]]), errors[0]
+    assert errors[1] == [[rows, 2 * rows]], errors[1]
+    assert_same_file(*fns, skip=("raw_data0/A_RX2/errors",))
     with h5py.File(fns[1], "r") as f:
         g = f["raw_data0"]["A_RX2"]
         assert g["data"].shape == (3, 2 * rows)
         assert g["data"].attrs["samples"] == 2 * rows
         assert bool(g.attrs["aborted"])
         assert int(g.attrs["shortfall_blocks"]) == 2
-        errs = g["errors"][()]
-        assert len(errs) >= 1 and 0 < errs[-1][1] <= 2 * rows
 
 
 def test_overflow_counts_as_errors():
@@ -181,3 +229,37 @@ def test_overflow_counts_as_errors():
         assert st["blocks_received"] + st["overflows"] == 8
         assert src.take_errors() == st["overflows"]
         assert src.take_errors() == 0
+
+
+def _settled(src, n_sent):
+    _wait_for(lambda: src.stats["blocks_received"] + src.stats["overflows"]
+              == n_sent, f"{n_sent} blocks received or dropped")
+
+
+def test_overflow_is_stamped_on_the_block_popped_after_it():
+    """Where an overflow lands, in the port as in JAX: the drops made
+    before the first pop go on block 0; drops made after block 0 was
+    popped, before block 1 was, go on block 1, the block popped after
+    them; no block is popped ahead, so block 0's pop frees exactly one
+    slot for the second burst."""
+    stamps = []
+    for Src in (JSocketIngestSource, SocketIngestSource):
+        with Src(block_len=BLOCK, queue_len=3, timeout=WAIT_S) as src:
+            send(src.port, np.zeros(BLOCK * 6, np.complex64).tobytes())
+            _settled(src, 6)
+            cap = src.stats["blocks_received"]
+            first = src.stats["overflows"]
+            assert first == 6 - cap > 0
+            gen = src.blocks(BLOCK, cap + 1)
+            next(gen)
+            errs = [src.take_errors()]
+            send(src.port, np.zeros(BLOCK * 3, np.complex64).tobytes())
+            _settled(src, 9)
+            assert src.stats["overflows"] == first + 2
+            for _ in gen:
+                errs.append(src.take_errors())
+            assert not src.aborted
+            stamps.append(errs)
+            assert errs == [first, 2] + [0] * (cap - 1), errs
+    assert stamps[0] == stamps[1]
+

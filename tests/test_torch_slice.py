@@ -228,6 +228,8 @@ def test_slice_runs_with_jax_blocked():
         import gpu_sdr_tpu_torch
         import numpy as np, torch
         torch.set_num_threads(2)
+        from gpu_sdr_tpu_torch.parallel import (distributed, host_ingest,
+                                                rehearsal)
         from gpu_sdr_tpu_torch import measure
         from gpu_sdr_tpu_torch.params import (AntMode, AntennaParams,
                                               UsrpParams, WaveType)
@@ -382,6 +384,55 @@ def test_slice_runs_with_jax_blocked():
                                   "dual_fused:channelizer_wavetable",
                                   "host_pipeline_mixed", "mixed_1",
                                   "host_pipeline"]
+
+
+def test_multihost_runs_with_jax_blocked(tmp_path):
+    """Two ranks of the rehearsal (parallel/rehearsal.py) on gloo over
+    127.0.0.1, each with jax, the JAX package and h5py unimportable: the
+    PFB / chirp families (the halo ring, the psum, the gather across the
+    processes) and the per-host ingest with its abort, every rank's
+    gathered outputs the same; neither loads a module of JAX."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["gpu_sdr_tpu"] = None
+        sys.modules["h5py"] = None
+        from gpu_sdr_tpu_torch.parallel import rehearsal
+        rc = rehearsal.main(sys.argv[1:])
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "gpu_sdr_tpu", "h5py")
+                    and sys.modules[m] is not None]
+        sys.exit(rc)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2",
+               MKL_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, "--init", f"tcp://127.0.0.1:{port}",
+         "--world", "2", "--rank", str(r), "--mesh", "2x2", "--devices",
+         "cpu*2", "--backend", "gloo", "--timeout", "60", "--phases",
+         "families,ingest", "--out", str(tmp_path)], cwd=tmp_path, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    a, b = (np.load(tmp_path / f"rank{r}.npz") for r in range(2))
+    assert sorted(a.files) == ["chirp", "ingest", "ingest_abort",
+                               "noise_decim", "tones"]
+    for k in a.files:
+        assert np.array_equal(a[k], b[k]), k
 
 
 def test_server_runs_with_jax_blocked(tmp_path):
