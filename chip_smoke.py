@@ -273,8 +273,32 @@ and exits non-zero at the first phase that fails:
    its first block), each rank's launches its blocks exactly; Msps a
    rank and in total, the gather's ms a block, each rank's peak memory
    and the wall times.
+22. the measurement workflows users run (gpu_sdr_tpu_torch/scripts and
+   tools), each a subprocess on the card (``--device cuda --backend
+   html``) in a temporary folder with its run report (every
+   run_measurement's dispatch its plan, its kernel launched once a
+   block and no other), the files read through ``client/h5.py``:
+   ``network_test`` at its defaults (1000 channels, 100 Msps, 1 s; the
+   generic scan: #2 and torch.fft); ``get_VNA`` at its defaults but 1 s
+   (the line delay, then 50,000 points over +-45 MHz host-fed: #17),
+   ``analyze_VNA``; ``get_noise`` at config 3's width (100 tones, decim
+   100: #11), ``analyze_noise`` on the card; ``get_noise_full`` at 1000
+   channels (#1); ``get_dual_VNA`` (#16) and ``get_dual_noise`` (#7);
+   ``large_VNA`` over two segments (#16) into a stitched file;
+   ``beam_mapper`` on a 3 x 3 grid (#7); ``live_server`` for 3 s, its
+   /stream read to its end event; ``tools.array_loop`` (50 resonators:
+   test_resonator_array.py's statistics) and ``fit_VNA`` on its VNA;
+   ``tools.phase_coherence`` in both modes (#15, #9) over 3 Gsamples
+   each, the last block against the earliest at the same comb position
+   >= 90 dB.  In the ideal loopback |S21| and the beam map's responses
+   are flat at the TX level, DIRECT noise rows at their tones'; each
+   kernel run is held against its plain version at its run's shapes
+   (``held_on_path``); the kernels line gains ``workflow_launches`` and
+   ``workflow_max_abs_err``; every number is printed beside the card's
+   name and power limit.
 
-Phases 4, 5, 7, 9, 11, 13, 13b, 15, 17, 18, 19 and 20 are the main path.  Their
+Phases 4, 5, 7, 9, 11, 13, 13b, 15, 17, 18, 19, 20 and 22 are the main
+path.  Their
 CallbackSink checks rows ::97 of every packet (finite; PFB tones within
 1% of their amplitude; DIRECT rows within 2.5% of the TX amplitude, the
 sum of the other tones' leakage through the 400-tap FIR's stopband at
@@ -968,30 +992,9 @@ def phase_main_path(dev):
 
 def kernel_counters():
     """Each kernel wrapper, by its name in the kernels line: each holds
-    its launch count in ``launches``."""
-    from gpu_sdr_tpu_torch.ops.channelizer import channelizer, channelizer_at
-    from gpu_sdr_tpu_torch.ops.ddc import ddc_fused
-    from gpu_sdr_tpu_torch.ops.fold import fold
-    from gpu_sdr_tpu_torch.ops.lockin_at import lockin_at
-    from gpu_sdr_tpu_torch.ops.lockin_table import lockin_self, lockin_table
-    from gpu_sdr_tpu_torch.ops.presum import presum, presum_at
-    from gpu_sdr_tpu_torch.ops.chain import chain
-    from gpu_sdr_tpu_torch.ops.channelizer import channelizer_at_halo
-    from gpu_sdr_tpu_torch.ops.replay_ddc import (ReplayDDC, ReplayDDCT,
-                                                  ShardedReplayDDC)
-    from gpu_sdr_tpu_torch.ops.channelizer import channelizer_scrambled
-    from gpu_sdr_tpu_torch.ops.fold import fold_rotg, fold_streamed, fold_t
-    from gpu_sdr_tpu_torch.ops.lockin_at import fused_chirp_lockin
-    return {"channelizer": channelizer, "presum": presum, "ddc": ddc_fused,
-            "replay_ddc": ReplayDDC, "replay_ddc_t": ReplayDDCT,
-            "fold": fold, "lockin_self": lockin_self,
-            "lockin_table": lockin_table, "channelizer_at": channelizer_at,
-            "presum_at": presum_at, "lockin_at": lockin_at,
-            "channelizer_at_halo": channelizer_at_halo,
-            "replay_ddc_sharded": ShardedReplayDDC, "chain": chain,
-            "fold_streamed": fold_streamed, "fold_rotg": fold_rotg,
-            "fold_t": fold_t, "channelizer_scrambled": channelizer_scrambled,
-            "chirp_lockin": fused_chirp_lockin}
+    its launch count in ``launches`` (gpu_sdr_tpu_torch.kernels)."""
+    from gpu_sdr_tpu_torch.kernels import wrappers
+    return wrappers()
 
 
 def counted(run):
@@ -4022,10 +4025,11 @@ def noise_psds_agree(dev, fn: str, name: str) -> float:
 
 
 def held_on_path(dev, fn: str, tag: str, block: int = SCI_BUFFER,
-                 fused: bool = False) -> dict:
-    """The kernel a phase-19 or phase-20 run ran, at that run's shapes:
-    its receiver's parameters and block length (`block`) read back from
-    the run's file, one block of seeded data through the kernel's
+                 fused: bool = False, front_end: str = None) -> dict:
+    """The kernel a phase-19, -20 or -22 run ran, at that run's shapes:
+    its receiver's parameters (those of the RX antenna on `front_end`,
+    "A" or "B", in a file of two) and block length (`block`) read back
+    from the run's file, one block of seeded data through the kernel's
     wrapper on the card (via_kernel) against its plain version on the
     same inputs, at SNR_BAR_DB as in the kernel phases.  DIRECT: the DDC
     (#7) in the mode its channel count takes, block 1 of the stream (the
@@ -4044,10 +4048,12 @@ def held_on_path(dev, fn: str, tag: str, block: int = SCI_BUFFER,
     from gpu_sdr_tpu_torch.ops import lockin_table as lt
     from gpu_sdr_tpu_torch.ops.channelizer import (channelizer,
                                                    channelizer_plain)
+    from gpu_sdr_tpu_torch.measure import _pair_tx
     from gpu_sdr_tpu_torch.ops.fold import fold, fold_plain
     from gpu_sdr_tpu_torch.params import AntMode, WaveType
     params = files.retrieve_params_from_file(fn)
-    (_, rx), = params.active_antennas(AntMode.RX)
+    (rx_name, rx), = [(n, a) for n, a in params.active_antennas(AntMode.RX)
+                      if front_end is None or n[0] == front_end]
     L = dm.make_demodulator(rx, dev).plan.block_len
     check(L == block, f"{tag}: block {L}, expected {block}")
     rng = np.random.default_rng(1919)
@@ -4056,7 +4062,7 @@ def held_on_path(dev, fn: str, tag: str, block: int = SCI_BUFFER,
         return torch.from_numpy(crandn(rng, *shape)).to(dev)
     wave = rx.wave_type[0]
     if fused and wave in (WaveType.DIRECT, WaveType.CHIRP):
-        (_, tx), = params.active_antennas(AntMode.TX)
+        tx = params.antenna(_pair_tx(params, rx_name))
         fl = FusedLoopback(tx, rx, dev)
         c = fl._chain
     if fused and wave == WaveType.DIRECT:
@@ -4114,8 +4120,8 @@ def held_on_path(dev, fn: str, tag: str, block: int = SCI_BUFFER,
                 f"of {nblk}]", yk[:, None],
                 lt.lockin_table_plain(w, table, x, o, 0, nseg)[:, None]))
         return {"lockin_table": err}
-    (_, tx), = params.active_antennas(AntMode.TX)
-    chain = FusedLoopback(tx, rx, dev)
+    chain = FusedLoopback(params.antenna(_pair_tx(params, rx_name)), rx,
+                          dev)
     check(chain.path == "channelizer_wavetable", f"{tag}: {chain.path}")
     c = chain._chain
     w2, F1, G = c._consts
@@ -4839,6 +4845,553 @@ def phase_multiprocess(dev):
     return launches
 
 
+# ---------------------------------------------------------------------
+# Phase 22: the measurement workflows users run
+# ---------------------------------------------------------------------
+
+WF_WAIT_S = 300                     # each script's deadline
+WF_FREE_BYTES = 4 << 30             # free space the phase's files need
+WF_NOISE_TONES = [f"{f:.6f}" for f in np.linspace(-45, 45, 100)]   # MHz
+WF_NOISE_T = "0.2"                  # get_noise: 20 blocks of 1M
+WF_FULL_T = "0.1"                   # get_noise_full: 10 blocks, 80 MB
+WF_DUAL_NOISE_T = "0.2"
+WF_LIVE_T = "3"                     # the live view: 3 blocks at 1 Msps
+WF_COHERENCE_GSAMPLES = 3.0
+WF_PROFILE_TOP = 8                  # a profiled run's functions by own time
+WF_LEVEL = 1e-3                     # |S21| and |resp| off the TX level
+WF_DIRECT_ROW = 0.025               # DIRECT rows (phase 7's bar)
+WF_DIRECT_MEAN = 0.01               # a channel's mean over its rows
+# the kernel each run of a script launches once a block (None: a run no
+# kernel serves, a chirp whose period is not whole blocks: no table);
+# one entry serves every run.  The scripts' DIRECT noise at pf_average 1
+# (dual noise, the beam map, the live view) takes the generic scan's
+# DDC; the array's VNA, its period not whole blocks, no table
+WF_KERNELS = {
+    "network_test": ["presum"],
+    "get_VNA": ["lockin_self", "lockin_table"],     # the delay fused
+    "get_noise": ["fold"],
+    "get_noise_full": ["channelizer"],
+    "get_dual_VNA": ["lockin_self"],
+    "get_dual_noise": ["ddc"],
+    "large_VNA": ["lockin_self"],
+    "beam_mapper": ["ddc"],
+    "live_server": ["ddc"],
+    "array_loop": [None, "ddc"]}
+
+
+class Workflows:
+    """Phase 22's scripts, each a subprocess on the card in the phase's
+    folder with its run report (gpu_sdr_tpu_torch/scripts/_cli.py): the
+    launches of the phase by kernel, each script's numbers."""
+
+    def __init__(self, tmp, card):
+        self.tmp, self.card = tmp, card
+        self.launches, self.rows = {}, {}
+
+    def run(self, mod, *args, name=None, popen=False):
+        """python -m gpu_sdr_tpu_torch.<mod> args in the folder: (stdout,
+        seconds, report); with `popen`, (the process, report path)."""
+        name = name or mod.rsplit(".", 1)[-1]
+        report = os.path.join(self.tmp, f"report_{name}.json")
+        env = dict(os.environ, PYTHONPATH=HERE,
+                   GPU_SDR_TPU_RUN_REPORT=report)
+        cmd = [sys.executable, "-m", f"gpu_sdr_tpu_torch.{mod}", *args]
+        if popen:
+            return subprocess.Popen(cmd, cwd=self.tmp, env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True), report
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, cwd=self.tmp, env=env, capture_output=True,
+                           text=True, timeout=WF_WAIT_S)
+        secs = time.perf_counter() - t0
+        check(p.returncode == 0, f"{name} exited {p.returncode}:\n"
+              f"{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+        return p.stdout, secs, self.account(name, report, secs)
+
+    def account(self, name, report, secs):
+        """Read a script's report: every run's dispatch its plan, its
+        kernels' launches its blocks, no other kernel launched; print
+        its seconds, each run's Msps and the launches."""
+        with open(report) as f:
+            r = json.load(f)
+        for run in r["runs"]:
+            check(run["plan"] == run["dispatch"], f"{name}: dispatch "
+                  f"{run['dispatch']}, planned {run['plan']}")
+            PLAN_CHECKS.append(tuple(map(tuple, run["plan"])))
+        counts = {k: v for k, v in r["launches"].items() if v}
+        kinds = WF_KERNELS.get(name)
+        if kinds is not None:
+            if len(kinds) == 1:
+                kinds = kinds * len(r["runs"])
+            check(len(kinds) == len(r["runs"]),
+                  f"{name}: {len(r['runs'])} runs")
+            want = {}
+            for k, run in zip(kinds, r["runs"]):
+                if k is not None:
+                    want[k] = want.get(k, 0) + run["blocks"]
+            check(counts == want, f"{name}: launches {counts}, expected "
+                  f"{want} (a launch a block)")
+        for k, v in counts.items():
+            self.launches[k] = self.launches.get(k, 0) + v
+        runs = "; ".join(
+            f"{'/'.join(str(x) for x in run['dispatch'][0][1:] if x)} "
+            f"{run['samples'] / 1e6:.0f} Msamples: streaming "
+            f"{run['stream_seconds']:.3f} s "
+            f"{run['samples'] / run['stream_seconds'] / 1e6:.1f} Msps, "
+            f"with set-up {run['seconds']:.3f} s "
+            f"{run['samples'] / run['seconds'] / 1e6:.1f} Msps"
+            for run in r["runs"])
+        print(f"{name}: {secs:.1f} s; {runs or 'no measurement'}; "
+              f"launches {counts} [{self.card}]", flush=True)
+        self.rows[name] = dict(seconds=secs, launches=counts, runs=[
+            dict(dispatch=run["dispatch"], seconds=run["seconds"],
+                 msps=run["samples"] / run["stream_seconds"] / 1e6)
+            for run in r["runs"]])
+        return r
+
+
+def wf_file(folder, pattern):
+    import glob
+    found = sorted(glob.glob(os.path.join(folder, pattern)))
+    check(len(found) == 1, f"files {pattern} in {folder}: {found}")
+    return found[0]
+
+
+def wf_flat(name, z, level, bar=WF_LEVEL):
+    """|z| within `bar` of `level` everywhere: the ideal loopback."""
+    a = np.abs(np.asarray(z))
+    check(np.isfinite(a).all() and np.max(np.abs(a - level)) <= bar * level,
+          f"{name}: |S21| from {a.min():.6f} to {a.max():.6f}, the TX "
+          f"level {level}")
+    return float(np.max(np.abs(a - level)) / level)
+
+
+def wf_direct(name, data, level):
+    """DIRECT rows past the FIR's start within WF_DIRECT_ROW of the TX
+    level, each channel's mean within WF_DIRECT_MEAN (phase 7's bars)."""
+    a = np.abs(np.asarray(data)[:, 8:])
+    row = float(np.max(np.abs(a - level)) / level)
+    mean = float(np.max(np.abs(a.mean(axis=1) - level)) / level)
+    check(np.isfinite(a).all() and row <= WF_DIRECT_ROW and
+          mean <= WF_DIRECT_MEAN,
+          f"{name}: rows {row:.4f}, means {mean:.5f} off the level {level}")
+
+
+def wf_held(dev, errs, fn, tag, fused=False, run=None, front_end=None):
+    """held_on_path on a phase-22 file, at the block of its report's
+    `run` where given; the error merged into `errs`."""
+    block = run["samples"] // run["blocks"] if run else SCI_BUFFER
+    for k, e in held_on_path(dev, fn, tag, block, fused=fused,
+                             front_end=front_end).items():
+        errs[k] = max(errs.get(k, 0.0), e)
+
+
+def wf_held_presum(dev, errs, channels=1000):
+    """The pre-sum (#2) network_test's generic scan runs, at its shapes
+    (nfft 1024, avg 4, its plan's block), on a seeded block against its
+    plain version: scripts/network_test.py's receiver."""
+    import torch
+    from gpu_sdr_tpu_torch.engine import demodulator as dm
+    from gpu_sdr_tpu_torch.ops.presum import presum, presum_plain
+    from gpu_sdr_tpu_torch.params import AntennaParams, AntMode, WaveType
+    rate = 100_000_000
+    tones = np.linspace(-rate / 2 * 0.9, rate / 2 * 0.9, channels)
+    rx = AntennaParams(mode=AntMode.RX, rate=rate, buffer_len=1_000_000,
+                       samples=rate, fft_tones=1024, pf_average=4,
+                       freq=[int(t) for t in tones],
+                       wave_type=[WaveType.TONES] * channels, delay=1.0)
+    cfg = dm.pfb_config(rx)
+    L = dm.make_demodulator(rx, dev).plan.block_len
+    rng = np.random.default_rng(2222)
+    w2 = cfg.window(dev).reshape(cfg.avg, cfg.nfft)
+    spare = torch.from_numpy(crandn(rng, cfg.avg - 1, cfg.nfft)).to(dev)
+    X = torch.from_numpy(crandn(rng, L // cfg.nfft, cfg.nfft)).to(dev)
+    k = via_kernel("presum", lambda: presum(w2, spare, X))
+    errs["presum"] = max(errs.get("presum", 0.0), check_presum(
+        f"network_test presum {L // cfg.nfft}x{cfg.nfft}", k,
+        lambda c, w: presum_plain(w2.to(w), spare.to(c), X.to(c))))
+
+
+def wf_held_replay_t(dev, errs):
+    """The few-channel replay kernel (#9) phase_coherence's replay mode
+    runs, at its shapes (8 tones, 4M blocks): block 1 through the
+    wrapper against its plain version."""
+    from gpu_sdr_tpu_torch.tools import phase_coherence as pc
+    rk = pc.replay_loopback(dev, pc.BLOCK)._chain
+    st1 = via_kernel("replay_ddc_t", lambda: rk.step(rk.init_state()))[0]
+    yk = via_kernel("replay_ddc_t", lambda: rk.step(st1))[1]
+    errs["replay_ddc_t"] = max(errs.get("replay_ddc_t", 0.0), report(
+        f"phase_coherence replay_ddc_t [C {rk.cfg.n_channels}, block 1]",
+        yk, rk.block_plain(st1)))
+
+
+def wf_held_chain(dev, errs):
+    """The chain (#15) phase_coherence's chain mode runs, at its shapes
+    (16 tones, 4M blocks): block 1's rotations through the wrapper
+    against its plain version."""
+    from gpu_sdr_tpu_torch.ops.chain import TonesDirectChain, chain, \
+        chain_plain
+    from gpu_sdr_tpu_torch.ops.ddc import DirectDDCConfig
+    from gpu_sdr_tpu_torch.tools import phase_coherence as pc
+    n = 16
+    freqs = tuple(int(f) for f in np.linspace(-40e6, 40e6, n))
+    ch = TonesDirectChain(pc.RATE, freqs, (1.0 / n,) * n, DirectDDCConfig(
+        pc.RATE, 100, 4, freqs, (0,) * n), pc.BLOCK)
+    a = [t.to(dev) for t in (ch.P, ch.halo_rows(0), ch.G, ch.ramp)]
+    st = ch.block_rotations(ch.init_state(dev))[0]
+    rots = ch.block_rotations(st)[1:]
+    yk = via_kernel("chain", lambda: chain(*a, *rots))
+    errs["chain"] = max(errs.get("chain", 0.0), report(
+        f"phase_coherence chain [{n} tones, block 1]", yk,
+        chain_plain(*a, *rots)))
+
+
+def wf_profile(wf, mod, *args, name, keys, says):
+    """A script run again under cProfile, in its own process on the card
+    and with no run report (its launches are not the phase's): its
+    seconds, the cumulative seconds of the functions named in `keys`
+    (where its time goes), and the WF_PROFILE_TOP functions with the
+    most seconds of their own.  cProfile adds its cost to every Python
+    call, so the script's plain run beside it says what that is.
+    Returns {"seconds": s, key: cumulative s}."""
+    import pstats
+    prof = os.path.join(wf.tmp, f"{name}.prof")
+    cmd = [sys.executable, "-m", "cProfile", "-o", prof, "-m",
+           f"gpu_sdr_tpu_torch.{mod}", *args]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=wf.tmp, env=dict(os.environ, PYTHONPATH=HERE),
+                       capture_output=True, text=True, timeout=WF_WAIT_S)
+    secs = time.perf_counter() - t0
+    check(p.returncode == 0 and says in p.stdout, f"{name} under cProfile "
+          f"exited {p.returncode}:\n{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+    st = pstats.Stats(prof).stats
+    cum = {}
+    for (_fn, _line, func), (_cc, _nc, _tt, ct, _callers) in st.items():
+        if func in keys:
+            cum[func] = max(cum.get(func, 0.0), ct)
+    check(set(cum) == set(keys), f"{name} under cProfile: {sorted(cum)}")
+    own = sorted(st.items(), key=lambda kv: -kv[1][2])[:WF_PROFILE_TOP]
+    print(f"{name} under cProfile: {secs:.1f} s with start-up; "
+          + ", ".join(f"{k} {cum[k]:.2f} s" for k in keys)
+          + "; own time: " + "; ".join(
+              f"{os.path.basename(fn)}:{line} {func} {v[2]:.2f} s"
+              for (fn, line, func), v in own) + f" [{wf.card}]", flush=True)
+    return dict(cum, seconds=secs)
+
+
+def wf_split_host_fed(dev, fn, card):
+    """Where the host-fed VNA's seconds go, in this process on the card
+    with get_VNA's antennas read back from its file, each stage timed
+    over the run's blocks after a first pass of the three: the source
+    alone (the TX chirp on the card, the ideal channel's copy to the
+    host and the RX delay's skip: measure.ChannelSource), the source
+    through HostFeed (each block staged in pinned memory and copied to
+    the card), and the whole run (run_pipeline: #17, a sink that drops
+    what it is given).  Returns {stage: seconds}."""
+    import torch
+    from gpu_sdr_tpu_torch.client import files
+    from gpu_sdr_tpu_torch.engine import (make_demodulator, make_generator,
+                                          run_pipeline)
+    from gpu_sdr_tpu_torch.engine.channel import IdealChannel
+    from gpu_sdr_tpu_torch.engine.ingest import HostFeed
+    from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
+    from gpu_sdr_tpu_torch.measure import ChannelSource
+    from gpu_sdr_tpu_torch.params import AntMode
+    params = files.retrieve_params_from_file(fn)
+    (_, rx), = params.active_antennas(AntMode.RX)
+    (_, tx), = params.active_antennas(AntMode.TX)
+    demod = make_demodulator(rx, dev)
+    L, nb = demod.plan.block_len, demod.plan.n_blocks
+    skip = int(round(max(rx.delay - tx.delay, 0.0) * rx.rate))
+
+    def source():
+        return ChannelSource(make_generator(tx, L, dev), IdealChannel(),
+                             skip_samples=skip)
+
+    def fed():
+        for _x, _errs in HostFeed(source(), dev).device_blocks(L, nb):
+            pass
+        torch.cuda.synchronize(dev)
+
+    stages = {"source": lambda: sum(1 for _ in source().blocks(L, nb)),
+              "source + HostFeed": fed,
+              "run_pipeline": lambda: run_pipeline(
+                  demod, source(), [CallbackSink(lambda m, d: None)])}
+    for f in stages.values():
+        f()
+    took = {}
+    for name, f in stages.items():
+        t0 = time.perf_counter()
+        f()
+        took[name] = time.perf_counter() - t0
+    print(f"get_VNA's host-fed VNA in this process, {nb} blocks of {L}: "
+          + ", ".join(f"{k} {v:.3f} s ({nb * L / v / 1e6:.1f} Msps)"
+                      for k, v in took.items()) + f" [{card}]", flush=True)
+    return took
+
+
+def wf_live(wf):
+    """The live view for a few seconds: its /stream read to the end
+    event, every packet's magnitudes at the tones' level; the server
+    ends with its acquisition."""
+    import http.client
+    import re
+    proc, report = wf.run("scripts.live_demo.live_server", "--port", "0",
+                          "--time", WF_LIVE_T, "--device", "cuda",
+                          name="live_server", popen=True)
+    t0 = time.perf_counter()
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"localhost:(\d+)/", line)
+        check(m is not None, f"live_server: {line!r} "
+              f"{proc.stderr.read() if proc.poll() is not None else ''}")
+        c = http.client.HTTPConnection("127.0.0.1", int(m.group(1)),
+                                       timeout=WF_WAIT_S)
+        c.request("GET", "/stream")
+        r = c.getresponse()
+        buf = b""
+        while b"event: end" not in buf:
+            chunk = r.read1(65536)
+            check(bool(chunk), "live_server: stream closed before its end")
+            buf += chunk
+        rc = proc.wait(timeout=WF_WAIT_S)
+        check(rc == 0, f"live_server exited {rc}: {proc.stderr.read()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    secs = time.perf_counter() - t0
+    events = [json.loads(b[6:]) for b in buf.decode().split("\n\n")
+              if b.startswith("data: ")]
+    n = int(float(WF_LIVE_T))
+    check([e["packet"] for e in events] == list(range(n)),
+          f"live_server: packets {[e['packet'] for e in events]}")
+    mags = np.array([e["mags"] for e in events])
+    check(np.all(np.abs(mags - 0.5) <= 0.01),
+          f"live_server: magnitudes {mags}")
+    wf.account("live_server", report, secs)
+    print(f"live_server: {len(events)} packets streamed, magnitudes "
+          f"{mags.min():.5f}..{mags.max():.5f}")
+
+
+def phase_workflows(dev):
+    """Phase 22: the measurement workflows users run, each a script of
+    gpu_sdr_tpu_torch/scripts or tools run as a subprocess on the card
+    (--device cuda, --backend html: the card's host has no matplotlib)
+    in a temporary folder, every file read through client/h5.py, every
+    run's dispatch its plan and its kernels' launches its blocks (the
+    scripts' run reports); the kernels each ran held against their
+    plain versions at the runs' shapes.  Returns (launches, {kernel:
+    max |err| at those shapes})."""
+    import shutil
+    import tempfile
+    from gpu_sdr_tpu_torch.client import files, h5
+    card = card_name()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wf_")
+    wf, errs = Workflows(tmp, card), {}
+    dv, html = ("--device", "cuda"), ("--device", "cuda", "--backend",
+                                      "html")
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"files in {tmp}: {disk_of(os.path.realpath(tmp))}, "
+              f"{free / 1e9:.1f} GB free")
+        check(free >= WF_FREE_BYTES, f"{free} bytes free in {tmp}")
+
+        # the stress test at its defaults: 1000 channels, 100 Msps, 1 s
+        out, _s, rep = wf.run("scripts.network_test", *dv)
+        check("1000 channels @ 100 Msps" in out and
+              "Msps sustained" in out, f"network_test: {out}")
+        check(rep["runs"][0]["dispatch"][0][1:] == ["fused_loopback",
+                                                    "generic_scan"],
+              f"network_test: {rep['runs'][0]['dispatch']}")
+        wf_held_presum(dev, errs)
+
+        # the quick start: the VNA at its defaults but 1 s, analysed
+        out, _s, _r = wf.run("scripts.get_VNA", "--folder", tmp, "--rate",
+                             "100", "--f0", "-45", "--f1", "45", "--points",
+                             "50000", "--time", "1", *html)
+        check("Measuring line delay" in out and "VNA data written" in out,
+              f"get_VNA: {out}")
+        vna = wf_file(tmp, "USRP_VNA_*.h5")
+        delay_fn = wf_file(tmp, "USRP_Delay_*.h5")
+        with h5.File(delay_fn, "r") as f:
+            check("100" in f["delay_info"].attrs, "no delay_info for 100")
+        out, _s, _r = wf.run("scripts.analyze_VNA", "--folder", tmp, *html)
+        check("analyzed" in out and "USRP_VNA.html" in out,
+              f"analyze_VNA: {out}")
+        fq, s21 = files.get_VNA_data(vna, calibrated=False)
+        check(len(fq) == 50_000 and np.all(np.diff(fq) > 0),
+              f"get_VNA: {len(fq)} points")
+        dev_s21 = wf_flat("get_VNA", s21, 1.0)
+        wf_held(dev, errs, delay_fn, "get_VNA's line delay", fused=True)
+        wf_held(dev, errs, vna, "get_VNA")
+        wf_split_host_fed(dev, vna, card)
+
+        # noise at config 3's width, analysed on the card
+        out, _s, _r = wf.run("scripts.get_noise", "--folder", tmp, "--rate",
+                             "100", "--tones", *WF_NOISE_TONES,
+                             "--decimation", "100", "--time", WF_NOISE_T,
+                             *dv)
+        nfn = wf_file(tmp, "USRP_Noise_*.h5")
+        data = files.openH5file(nfn)
+        check(data.shape == (100, int(float(WF_NOISE_T) * 1e6)),
+              f"get_noise: {data.shape}")
+        wf_direct("get_noise", data, 0.01)
+        noise_prof = os.path.join(tmp, "noise_prof")
+        os.makedirs(noise_prof)
+        shutil.copy(nfn, noise_prof)
+        out, _s, _r = wf.run("scripts.analyze_noise", "--folder", tmp,
+                             *html)
+        ninfo, nfreq, real, imag = files.get_noise(nfn)
+        check(ninfo["n_chan"] == 100 and len(real) == len(imag) == 100 and
+              all(np.isfinite(x).all() for x in real + imag),
+              f"analyze_noise: {ninfo}")
+        wf_held(dev, errs, nfn, "get_noise", fused=True)
+        # where analyze_noise's time goes, on a copy of the same file
+        wf_profile(wf, "scripts.analyze_noise", "--folder", noise_prof,
+                   *html, name="analyze_noise", says="plot written",
+                   keys=("calculate_noise", "openH5file", "batched_welch",
+                         "plot_noise_spec", "get_noise", "write_html"))
+
+        # the full spectrum at 1000 channels
+        out, _s, _r = wf.run("scripts.get_noise_full", "--folder", tmp,
+                             "--rate", "100", "--channels", "1000",
+                             "--time", WF_FULL_T, *dv)
+        pfn = wf_file(tmp, "USRP_PFB_*.h5")
+        z = files.openH5file(pfn)
+        check(z.size == int(float(WF_FULL_T) * 1e8) and
+              np.isfinite(z).all(), f"get_noise_full: {z.shape}")
+        wf_held(dev, errs, pfn, "get_noise_full")
+
+        # two front ends
+        dual = os.path.join(tmp, "dual")
+        out, _s, rep = wf.run("scripts.get_dual_VNA", "--folder", dual,
+                              "--rate", "100", *dv)
+        dfn = wf_file(dual, "USRP_VNA_*.h5")
+        with h5.File(dfn, "r") as f:
+            check("A_RX2" in f["raw_data0"] and "B_RX2" in f["raw_data0"]
+                  and len(f["VNA_0"]["frequency"]) == 100_000,
+                  "get_dual_VNA: the file's groups")
+        fq, s21 = files.get_VNA_data(dfn, calibrated=False)
+        wf_flat("get_dual_VNA", s21, 1.0)
+        for fe in "AB":
+            wf_held(dev, errs, dfn, f"get_dual_VNA {fe}", fused=True,
+                    run=rep["runs"][0], front_end=fe)
+        out, _s, _r = wf.run("scripts.get_dual_noise", "--folder", dual,
+                             "--time", WF_DUAL_NOISE_T, *dv)
+        dn = wf_file(dual, "USRP_Noise_*.h5")
+        for fe in ("A_RX2", "B_RX2"):
+            d = files.openH5file(dn, front_end=fe)
+            check(d.shape == (1, int(float(WF_DUAL_NOISE_T) * 1e6)),
+                  f"get_dual_noise {fe}: {d.shape}")
+            wf_direct(f"get_dual_noise {fe}", d, 1.0)
+
+        # a stitched VNA over two segments
+        big = os.path.join(tmp, "big")
+        out, _s, rep = wf.run("scripts.large_VNA", "--folder", big,
+                              "--start", "200", "--stop", "350",
+                              "--points_per_segment", "20000", "--time",
+                              "0.2", "--out", "bigvna", *dv)
+        check(len(rep["runs"]) == 2 and "stitched VNA" in out,
+              f"large_VNA: {out}")
+        with h5.File(os.path.join(big, "bigvna.h5"), "r") as f:
+            g = f["VNA_0"]
+            fq, s21 = np.asarray(g["frequency"]), np.asarray(g["S21"])
+            check(int(g.attrs["segments"]) == 2 and
+                  list(g.attrs["calibration"]) == [1.0],
+                  "large_VNA: the stitched group's attributes")
+        check(fq.min() >= 200e6 and fq.max() <= 350e6 and
+              np.all(np.diff(fq) >= 0), "large_VNA: the frequency axis")
+        wf_flat("large_VNA", s21, float(np.abs(s21).mean()))
+        for seg, run in enumerate(rep["runs"]):
+            wf_held(dev, errs, os.path.join(big, f"bigvna_seg{seg}.h5"),
+                    f"large_VNA segment {seg}", fused=True, run=run)
+
+        # the beam map on a 3 x 3 grid
+        beam = os.path.join(tmp, "beam")
+        out, _s, _r = wf.run("scripts.beam_mapper.beam_mapper", "--folder",
+                             beam, "--nx", "3", "--ny", "3", *dv,
+                             name="beam_mapper")
+        with h5.File(os.path.join(beam, "beam_map.h5"), "r") as f:
+            pos = np.asarray(f["beam_map"]["positions"])
+            resp = np.asarray(f["beam_map"]["responses"])
+        check(pos.shape == (9, 2) and resp.shape == (9, 1),
+              f"beam_mapper: {pos.shape} {resp.shape}")
+        wf_flat("beam_mapper", resp, 1.0)
+        wf_held(dev, errs, os.path.join(beam, "map_0000.h5"),
+                "beam_mapper")
+
+        # the live view
+        wf_live(wf)
+
+        # the 50-resonator array: VNA -> fit -> noise, then fit_VNA on
+        # its VNA (the ideal loopback has no resonator to fit)
+        arr = os.path.join(tmp, "array")
+        os.makedirs(arr)
+        out, _s, rep = wf.run("tools.array_loop", "--folder", arr,
+                              "--device", "cuda")
+        res = json.loads(out.strip().splitlines()[-1])
+        check(res["failed_checks"] == [],
+              f"array_loop: {res['failed_checks']}")
+        print(f"array_loop: {res['peak_count_estimated']} peaks estimated,"
+              f" {res['peaks_initialized']} initialized, "
+              f"{res['n_fitted']} fitted; f0 error median "
+              f"{res['f0_err_hz']['median']:.1f} Hz, p90 "
+              f"{res['f0_err_hz']['p90']:.1f}, max "
+              f"{res['f0_err_hz']['max']:.1f}; Qr error median "
+              f"{res['qr_rel_err']['median']:.4f}; "
+              f"{res['channels_in_dip_fraction']:.2f} of the channels in "
+              f"the dip; steps {res['seconds']} s [{card}]")
+        av = os.path.join(arr, "vna_array.h5")
+        wf_held(dev, errs, os.path.join(arr, "noise_array.h5"),
+                "array_loop noise")
+        shutil.copy(av, os.path.join(arr, "vna_refit.h5"))
+        out, _s, _r = wf.run("scripts.fit_VNA", "--folder", arr, "--file",
+                             "vna_refit.h5", "--peaks", "50",
+                             "--peak_width", "30e3", "--Qr_cutoff", "3",
+                             "--fit_range", "40e3", *html)
+        check("initialize_peaks: ok" in out and "reso_49:" in out and
+              "USRP_resonators.html" in out, f"fit_VNA: {out[-800:]}")
+
+        # long-stream phase coherence, both modes
+        coherence = {}
+        for mode, kernel in (("chain", "chain"), ("replay", "replay_ddc_t")):
+            out, secs, _r = wf.run(
+                "tools.phase_coherence", "--mode", mode, "--gsamples",
+                str(WF_COHERENCE_GSAMPLES), "--device", "cuda",
+                name=f"phase_coherence_{mode}")
+            c = json.loads(out.strip().splitlines()[-1])
+            snr = c["last_vs_first_snr_db"]
+            check(c["launches"] == c["blocks"] and c["kernel"] == kernel,
+                  f"phase_coherence {mode}: {c['launches']} launches of "
+                  f"{c['kernel']}, {c['blocks']} blocks")
+            check(snr == "inf" or snr >= SNR_BAR_DB,
+                  f"phase_coherence {mode}: last vs first {snr} dB")
+            amp = 1.0 / (16 if mode == "chain" else 8)
+            check(max(c["amp_err"]) <= WF_LEVEL * amp and
+                  max(c["phase_err_rad"]) <= WF_LEVEL,
+                  f"phase_coherence {mode}: amplitude errors "
+                  f"{max(c['amp_err'])}, phase {max(c['phase_err_rad'])}")
+            print(f"phase_coherence {mode}: {c['streamed_gsamples']:.3f} "
+                  f"Gsamples in {c['blocks']} blocks, {c['seconds']:.2f} s "
+                  f"({c['msps']:.1f} Msps), {secs:.1f} s with start-up; "
+                  f"block {c['blocks'] - 1} against block "
+                  f"{c['compared_block']} (period {c['period_blocks']}): "
+                  f"{snr} dB, bit for bit {c['bit_identical']}; worst "
+                  f"amplitude error {max(c['amp_err']):.3e} of {amp}, "
+                  f"phase {max(c['phase_err_rad']):.3e} rad; "
+                  f"{c['launches']} launches of {kernel} [{card}]")
+            coherence[mode] = c
+        wf_held_chain(dev, errs)
+        wf_held_replay_t(dev, errs)
+        print(f"phase 22: {len(wf.rows)} script runs, launches "
+              f"{wf.launches}, held against plain {errs}; the loopback "
+              f"VNA's |S21| within {dev_s21:.2e} of the TX level [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return wf.launches, errs
+
+
 def check_line(kernels) -> None:
     """Every kernel of the repo is in the kernels line once, launched
     by its main path's run, with every key of the line."""
@@ -4907,6 +5460,8 @@ def main() -> int:
             "the server on the card", phase_server, dev)
         mp_launches = timed("the sharded layer across two processes",
                             phase_multiprocess, dev)
+        wf_launches, wf_errs = timed("the measurement workflows",
+                                     phase_workflows, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4968,6 +5523,9 @@ def main() -> int:
             k["server_max_abs_err"] = server_errs[k["name"]]
         if k["name"] in mp_launches:            # phase 21, rank 0's
             k["multiprocess_launches"] = mp_launches[k["name"]]
+        if k["name"] in wf_launches:            # phase 22's scripts
+            k["workflow_launches"] = wf_launches[k["name"]]
+            k["workflow_max_abs_err"] = wf_errs.get(k["name"])
     check_line(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -242,7 +242,12 @@ def initialize_peaks(filename, N_peaks=1, smoothing=None, peak_width=90e3,
     gradS21 = np.abs(np.gradient(S21_val))
     found = []
     while mask.sum() > 0:
-        m = np.where(gradS21 == np.max(gradS21[mask]))[0][0]
+        # the largest gradient among the candidates still open: the JAX
+        # package takes the first index of that value anywhere, which on
+        # a flat trace can be one it already masked, and then loops
+        # forever; wherever it ends, both take the same index
+        open_idx = np.flatnonzero(mask)
+        m = open_idx[np.argmax(gradS21[open_idx])]
         lo, hi = max(m - pw, 0), min(m + pw, len(freq) - 1)
         half_lo = max(int(m - pw / 1.2), 0)
         half_hi = min(int(m + pw / 1.2), len(freq) - 1)

@@ -155,10 +155,10 @@ def classify_sharded_replay(rx, n: int, loop: bool, mesh):
                  if sub == "scan" else "kernel per time shard, staged halo")
 
 
-def _plan_dual(params, mesh) -> List[Decision]:
+def _plan_dual(params, mesh, warn) -> List[Decision]:
     """The lock-step decisions, or [] where run_measurement streams the
     front ends in turn."""
-    pairs = plan_dual(params, mesh=mesh)
+    pairs = plan_dual(params, mesh=mesh, warn=warn)
     if pairs is None:
         return []
     why = ">=2 fusable frontends, common block plan"
@@ -195,11 +195,12 @@ def _plan_source(rx_name, rx, source, mesh) -> Optional[Decision]:
 
 
 def plan_dispatch(params: UsrpParams, source=None, channel=None,
-                  mesh=None) -> List[Decision]:
+                  mesh=None, warn: bool = True) -> List[Decision]:
     """Predict run_measurement's routing without running anything, in
-    its decision order."""
+    its decision order; with `warn` False, without plan_dual's warning
+    of front ends streamed in turn."""
     if source is None and channel is None:
-        decisions = _plan_dual(params, mesh)
+        decisions = _plan_dual(params, mesh, warn)
         if decisions:
             return decisions
     decisions = []

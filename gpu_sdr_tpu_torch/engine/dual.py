@@ -183,24 +183,26 @@ class DualShardedFused:
             self.front_ends, sinks_per_fe, usrp_number, self.mesh.first)
 
 
-def _sequential(reason: str):
+def _sequential(reason: str, warn: bool = True):
     """The dual plan falls back to one-frontend-after-the-other: warn
     that the reference's lock-step timing semantics are degraded
     (reference runs A/B simultaneously,
     cpp/USRP_server_link_threads.cpp:249-397)."""
-    log.warning(
-        "dual frontends will stream SEQUENTIALLY (%s): packets of A and "
-        "B no longer cover the same sample instants", reason)
+    if warn:
+        log.warning(
+            "dual frontends will stream SEQUENTIALLY (%s): packets of A "
+            "and B no longer cover the same sample instants", reason)
     return None
 
 
-def plan_dual(params, mesh=None) -> Optional[List[Tuple[str, AntennaParams,
-                                                        AntennaParams]]]:
+def plan_dual(params, mesh=None, warn: bool = True
+              ) -> Optional[List[Tuple[str, AntennaParams, AntennaParams]]]:
     """If the measurement is a multi-frontend fused loopback (>= 2 active
     RX, each with a fusable paired TX, common block plan), return the
     lock-step (rx_name, tx, rx) pairs; else None (sequential path, with a
-    warning).  With a mesh, fusability is judged against the sharded
-    chains (can_fuse_sharded) and the mesh block planner."""
+    warning unless `warn` is False).  With a mesh, fusability is judged
+    against the sharded chains (can_fuse_sharded) and the mesh block
+    planner."""
     from ..measure import _pair_tx
     rxs = list(params.active_antennas(AntMode.RX))
     if len(rxs) < 2:
@@ -213,22 +215,22 @@ def plan_dual(params, mesh=None) -> Optional[List[Tuple[str, AntennaParams,
     for rx_name, rx in rxs:
         if rx.wave_type and any(w != rx.wave_type[0]
                                 for w in rx.wave_type):
-            return _sequential(f"{rx_name} is mixed-mode")
+            return _sequential(f"{rx_name} is mixed-mode", warn)
         tx_name = _pair_tx(params, rx_name)
         tx = params.antenna(tx_name) if tx_name else None
         if tx is None:
-            return _sequential(f"{rx_name} has no paired TX")
+            return _sequential(f"{rx_name} has no paired TX", warn)
         fusable = (can_fuse_sharded(tx, rx, mesh) if mesh is not None
                    else can_fuse(tx, rx))
         if not fusable:
-            return _sequential(f"{rx_name} mode pair is not fusable")
+            return _sequential(f"{rx_name} mode pair is not fusable", warn)
         if rx.delay > tx.delay:
-            return _sequential(f"{rx_name} rx.delay > tx.delay")
+            return _sequential(f"{rx_name} rx.delay > tx.delay", warn)
         p = (plan_sharded_block(rx, mesh) if mesh is not None
              else (plan_blocks(rx).block_len, plan_blocks(rx).n_blocks))
         if plan0 is None:
             plan0 = p
         elif p != plan0:
-            return _sequential("unmatched block plans across frontends")
+            return _sequential("unmatched block plans across frontends", warn)
         pairs.append((rx_name, tx, rx))
     return pairs

@@ -1,6 +1,7 @@
 """The float64 numpy helpers the port's runtime builds its constants
 with: its copy of the functions it needs from gpu_sdr_tpu/golden.py
-(window functions, the tone-to-bin map, the quantized chirp descriptor),
+(window functions, the tone-to-bin map, the quantized chirp descriptor,
+the exact tone comb a synthetic recording is made of),
 each the exact arithmetic of one reference routine.  The float64
 oracles the port is tested against stay in the JAX package."""
 
@@ -9,6 +10,20 @@ from __future__ import annotations
 import numpy as np
 
 TWO_31_5 = 2147483647.5  # reference _31_BIT_VALUE (headers/kernels.cuh:36)
+
+
+def make_hamming_window(length: int, side: int = 0) -> np.ndarray:
+    """Zero-padded Hamming window, unit sum (reference
+    make_hamming_window, cpp/kernels.cu:107-206)."""
+    win = np.zeros(length, dtype=np.float64)
+    n = length - side
+    if n <= 1:
+        win[side:] = 1.0
+        return win / max(win.sum(), 1.0)
+    i = np.arange(n, dtype=np.float64)
+    body = 0.54 - 0.46 * np.cos(2.0 * np.pi * i / (n - 1))
+    win[side:side + n] = body
+    return win / body.sum()
 
 
 def make_flat_window(length: int, side: int) -> np.ndarray:
@@ -83,3 +98,17 @@ class ChirpParameter:
 
     def period(self) -> int:
         return self.num_steps * self.length
+
+
+def tone_block(freqs, ampls, rate: int, start: int, length: int,
+               scale: float = 1.0) -> np.ndarray:
+    """`length` samples of the tone comb from absolute index `start`,
+    each tone's phase an exact integer fraction of the rate (the
+    reference's tone_gen pointer rotation), complex128."""
+    n = (np.asarray(start, dtype=np.int64) + np.arange(length, dtype=np.int64))
+    x = np.zeros(length, dtype=np.complex128)
+    for f, a in zip(freqs, ampls):
+        ph = ((int(f) % rate) * (n % rate)) % rate
+        x += a * np.exp(2j * np.pi * ph / rate)
+    return x * scale
+

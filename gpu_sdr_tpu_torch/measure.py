@@ -35,12 +35,14 @@ a file name, as the JAX package does.
 
 from __future__ import annotations
 
+import collections
 import logging
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 
-from .config import resolve_device
+from .config import maybe_profile, resolve_device
 from .engine import (FusedLoopback, can_fuse, make_demodulator,
                      make_generator, run_pipeline)
 from .engine.channel import Channel, IdealChannel
@@ -58,6 +60,15 @@ from .params import AntMode, UsrpParams
 # (rx_name, path, subpath) per RX antenna, with the JAX package's key
 # strings (docs/07_dispatch.md); snapshot with last_dispatch()
 LAST_DISPATCH: list = []
+
+
+# one record a run_measurement call, oldest first (a script's run
+# report, scripts/_cli.py, writes them): ``plan``, the paths
+# engine/dispatch.plan_dispatch planned, ``dispatch``, the ones taken,
+# ``blocks`` and ``samples``, its RX blocks and samples (plan.block_len
+# times the blocks), and on the host clock ``seconds``, the call's, and
+# ``stream_seconds``, the first sink's start to the last sink's end
+RUNS: collections.deque = collections.deque(maxlen=4096)
 
 
 def last_dispatch() -> tuple:
@@ -173,9 +184,47 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
     the reference layout (client/files.H5Sink: `tags` become attributes
     of its raw_data group, `trigger` filters what is written); returns
     the file's name, else None.  A source that ends short stamps the
-    antenna's group `aborted`."""
+    antenna's group `aborted`.  With GPU_SDR_TPU_PROFILE set, the run
+    is traced into that directory (config.maybe_profile).  Each call
+    appends its record to RUNS."""
+    from .engine.dispatch import plan_dispatch
     dev = mesh.first if mesh is not None else resolve_device(device)
     params.validate()
+    plan = [list(d.key()) for d in plan_dispatch(
+        params, source=source, channel=channel, mesh=mesh, warn=False)]
+    plans = [plan_blocks(rx) for _, rx in params.active_antennas(AntMode.RX)]
+    stamps = _Stamps()
+    t0 = time.perf_counter()
+    with maybe_profile("measurement", dev):
+        out = _measure(params, filename, channel, source,
+                       [*extra_sinks, stamps], trigger, mesh, dev, tags)
+    RUNS.append(dict(
+        plan=plan, dispatch=[list(k) for k in LAST_DISPATCH],
+        blocks=sum(p.n_blocks for p in plans),
+        samples=sum(p.total_samples for p in plans),
+        seconds=time.perf_counter() - t0,
+        stream_seconds=stamps.t[-1] - stamps.t[0] if stamps.t else 0.0))
+    return out
+
+
+class _Stamps(Sink):
+    """The host clock at each sink start and end."""
+
+    def __init__(self):
+        self.t = []
+
+    def on_start(self, n_channels, expected_rows):
+        self.t.append(time.perf_counter())
+
+    def on_packet(self, meta, data):
+        pass
+
+    def on_end(self):
+        self.t.append(time.perf_counter())
+
+
+def _measure(params, filename, channel, source, extra_sinks, trigger, mesh,
+             dev, tags) -> Optional[str]:
     LAST_DISPATCH.clear()
     run = _Run(params, filename, trigger, tags, extra_sinks)
     # concurrent A/B front ends: >= 2 fusable RX chains advance in

@@ -102,6 +102,50 @@ class AntennaParams:
         return any(w in (WaveType.TONES, WaveType.NOISE)
                    for w in self.wave_type)
 
+    def effective_rate(self) -> float:
+        """Output sample rate per channel after demodulation."""
+        w = self.wave_type[0] if self.wave_type else WaveType.NODSP
+        if w == WaveType.DIRECT:
+            return self.rate / max(int(self.decim), 1)
+        if w in (WaveType.TONES, WaveType.NOISE):
+            r = self.rate / max(int(self.fft_tones), 1)
+            if self.decim > 0:
+                r /= self.decim
+            return r
+        if w == WaveType.CHIRP:
+            if self.decim > 0:
+                # lock-in averaging over ppt = step_length * decim samples
+                _steps, length = chirp_steps_and_length(self)
+                return self.rate / max(length * int(self.decim), 1)
+            return float(self.rate)
+        return float(self.rate)
+
+    def get_output_buffer_size(self) -> int:
+        """Maximum output samples per transport block (reference
+        param::get_output_buffer_size, USRP_server_settings.hpp:163)."""
+        L = self.buffer_len or DEFAULT_BUFFER_LEN
+        w = self.wave_type[0] if self.wave_type else WaveType.NODSP
+        if w == WaveType.DIRECT:
+            n = L * max(1, self.n_channels())
+            return n // max(int(self.decim), 1)
+        if w in (WaveType.TONES, WaveType.NOISE):
+            per_frame = (self.n_channels() if w == WaveType.TONES
+                         else max(int(self.fft_tones), 1))
+            frames = L // max(int(self.fft_tones), 1)
+            if self.decim > 0:
+                frames //= self.decim
+            return per_frame * frames
+        if w == WaveType.CHIRP and self.decim > 0:
+            _steps, length = chirp_steps_and_length(self)
+            return max(1, L // (length * self.decim))
+        return L
+
+    def dynamic_buffer(self) -> bool:
+        """True when TX blocks are generated per block rather than served
+        from a precomputed table (reference param::dynamic_buffer: only
+        TONES uses the static wavetable)."""
+        return any(w != WaveType.TONES for w in self.wave_type)
+
     def to_json_dict(self) -> dict:
         """The reference's wire key names ('rf' for tone, ...,
         cpp/USRP_JSON_interpreter.cpp:38-251); the HDF5 attributes
@@ -224,6 +268,18 @@ class UsrpParams:
         if name not in ANTENNA_NAMES:
             raise KeyError(f"unknown antenna {name!r}")
         return getattr(self, name)
+
+    def get_number(self, mode: AntMode) -> int:
+        """Count antennas in a given mode (reference usrp_param::get_number)."""
+        return sum(1 for n in ANTENNA_NAMES if self.antenna(n).mode == mode)
+
+    def is_A_active(self) -> bool:
+        return (self.A_TXRX.mode != AntMode.OFF) or \
+            (self.A_RX2.mode != AntMode.OFF)
+
+    def is_B_active(self) -> bool:
+        return (self.B_TXRX.mode != AntMode.OFF) or \
+            (self.B_RX2.mode != AntMode.OFF)
 
     def active_antennas(self, mode: Optional[AntMode] = None):
         for n in ANTENNA_NAMES:

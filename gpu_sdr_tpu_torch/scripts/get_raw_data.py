@@ -1,0 +1,42 @@
+#!/usr/bin/env python3
+"""Raw (NODSP) IQ capture (the port's copy of scripts/get_raw_data.py)."""
+
+import argparse
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", ".."))
+import gpu_sdr_tpu_torch.pyusrp as u  # noqa: E402
+from gpu_sdr_tpu_torch.scripts import _cli  # noqa: E402
+
+
+def main():
+    parser = argparse.ArgumentParser(description="Raw IQ capture.")
+    parser.add_argument("--folder", "-fn", type=str, default="data")
+    parser.add_argument("--freq", "-f", type=float, default=300)
+    parser.add_argument("--rate", "-r", type=float, default=100)
+    parser.add_argument("--frontend", "-rf", type=str, default="A")
+    parser.add_argument("--tones", "-T", nargs="+", default=["1"])
+    parser.add_argument("--time", "-t", type=float, default=0.1)
+    parser.add_argument("--gain", "-g", type=int, default=0)
+    _cli.add_device(parser)
+    args = parser.parse_args()
+    device = _cli.start(args)
+
+    os.makedirs(args.folder, exist_ok=True)
+    os.chdir(args.folder)
+    if not u.Connect():
+        return 1
+    tones = [float(t) * 1e6 for t in args.tones]
+    fn = u.get_NODSP_tones(tones, measure_t=args.time,
+                           rate=args.rate * 1e6, RF=args.freq * 1e6,
+                           Front_end=args.frontend, tx_gain=args.gain,
+                           device=device)
+    print(f"raw data written to {fn}")
+    u.Disconnect()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
