@@ -2131,6 +2131,7 @@ def phase_replay_main_path(dev, tones_fused):
     import tempfile
 
     import torch
+    from gpu_sdr_tpu_torch import spans
     from gpu_sdr_tpu_torch.engine.planner import plan_blocks
     from gpu_sdr_tpu_torch.engine.replay import SegmentedDeviceReplay
     from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
@@ -2245,7 +2246,8 @@ def phase_replay_main_path(dev, tones_fused):
             check(sr.seg_blocks == R_SEG_BLOCKS, f"{name}: segment blocks")
             pkt = KeepCheck(D_ROWS, len(CONFIG3), keep=R_SEG_ACQ)
             t0 = time.perf_counter()
-            res, counts = counted(lambda: sr.run([CallbackSink(pkt)]))
+            with spans.recording() as recorder:
+                res, counts = counted(lambda: sr.run([CallbackSink(pkt)]))
             wall = time.perf_counter() - t0
             check(pkt.n == R_SEG_ACQ and counts["ddc"] == R_SEG_ACQ and
                   all(v == 0 for k, v in counts.items() if k != "ddc"),
@@ -2255,7 +2257,8 @@ def phase_replay_main_path(dev, tones_fused):
                                    path, loop,
                                    KeepCheck(D_ROWS, len(CONFIG3),
                                              keep=R_SEG_ACQ))
-            stage = ", ".join(f"{1e3 * t:.1f}" for t in sr.stage_seconds)
+            stage = ", ".join(f"{1e3 * t:.1f}" for t in recorder.durations(
+                "sdr.replay.stage_segment"))
             print(f"replay {name}: {R_SEG_ACQ} blocks, {res.msps:.1f} Msps "
                   f"streaming, {wall:.3f} s with set-up; staging ms per "
                   f"segment [{stage}]")

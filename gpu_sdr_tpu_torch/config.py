@@ -42,13 +42,25 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _profile_every_thread(activities):
+    """A torch.profiler of `activities` that follows every thread, the
+    feeder's among them, where this PyTorch can."""
+    try:
+        cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return torch.profiler.profile(activities=activities)
+    return torch.profiler.profile(activities=activities,
+                                  experimental_config=cfg)
+
+
 class maybe_profile:
     """Context manager: a ``torch.profiler`` trace of what it wraps when
     GPU_SDR_TPU_PROFILE names a directory, written on exit as a Chrome
     trace under ``<dir>/<tag>/`` (``self.path``), with the card's CUDA
-    activity when `device` is a CUDA device; nothing when the variable
-    is unset.  A trace that cannot start raises, naming the directory
-    (the JAX package's swallows the failure and runs untraced)."""
+    activity when `device` is a CUDA device and the ``sdr.*`` spans of
+    every thread (spans.py); nothing when the variable is unset.  A
+    trace that cannot start raises, naming the directory (the JAX
+    package's swallows the failure and runs untraced)."""
 
     def __init__(self, tag: str = "run", device=None):
         self.dir = os.environ.get("GPU_SDR_TPU_PROFILE")
@@ -66,7 +78,7 @@ class maybe_profile:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         try:
             os.makedirs(out, exist_ok=True)
-            prof = torch.profiler.profile(activities=acts)
+            prof = _profile_every_thread(acts)
             prof.__enter__()
         except Exception as e:
             raise RuntimeError(f"GPU_SDR_TPU_PROFILE: cannot start a "

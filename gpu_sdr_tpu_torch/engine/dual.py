@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 from ..config import resolve_device
 from ..params import AntennaParams, AntMode
 from .fused import FusedLoopback, can_fuse
-from .pipeline import PipelineResult, _end_setup, _HostFetch
+from .pipeline import PipelineResult, _finish, _HostFetch, _start
 from .planner import plan_blocks
 from .sinks import PacketMeta, Sink
 
@@ -47,11 +47,8 @@ def _run_lockstep(step_all, init_states, n_blocks: int, block_len: int,
     the same _HostFetch).  The states are built before the sinks start:
     they are set-up."""
     n_fe = len(front_ends)
-    states = init_states()
-    _end_setup(device)
-    for i, sinks in enumerate(sinks_per_fe):
-        for s in sinks:
-            s.on_start(channels_per_fe[i], rows_total_per_fe[i])
+    states = _start(init_states, device, sinks_per_fe,
+                    list(zip(channels_per_fe, rows_total_per_fe)))
     fetch = _HostFetch(device)
     pkts = [0] * n_fe
     rows = [0] * n_fe
@@ -79,9 +76,7 @@ def _run_lockstep(step_all, init_states, n_blocks: int, block_len: int,
     if pending is not None:
         drain(pending)
     elapsed = time.perf_counter() - t0
-    for sinks in sinks_per_fe:
-        for s in sinks:
-            s.on_end()
+    _finish(sinks_per_fe, device)
     return [PipelineResult(n_blocks=pkts[i], rows=rows[i],
                            channels=channels_per_fe[i], elapsed_s=elapsed,
                            samples_in=pkts[i] * block_len)

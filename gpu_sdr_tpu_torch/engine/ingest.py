@@ -18,6 +18,7 @@ external producer over TCP, through the native receiver
 
 from __future__ import annotations
 
+import itertools
 import logging
 import queue
 import threading
@@ -26,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from .. import spans
 from .sources import Source
 
 
@@ -54,12 +56,18 @@ class HostFeed:
         x = torch.from_numpy(blk)
         if self.device.type != "cuda":
             return x.to(self.device), None
+        tok = spans.begin("sdr.feed.pin")
         pinned = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        spans.end(tok)
+        tok = spans.begin("sdr.feed.copy")
         pinned.copy_(x)
+        spans.end(tok)
+        tok = spans.begin("sdr.feed.h2d")
         with torch.cuda.stream(stream):
             d = pinned.to(self.device, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(stream)
+        spans.end(tok)
         return d, ready
 
     def _put(self, item) -> bool:
@@ -76,12 +84,23 @@ class HostFeed:
         stream = (torch.cuda.Stream(device=self.device)
                   if self.device.type == "cuda" else None)
         try:
-            for blk in self.source.blocks(block_len, n_blocks):
-                if self._stop.is_set():
+            blocks = iter(self.source.blocks(block_len, n_blocks))
+            for k in itertools.count():
+                tok = spans.begin("sdr.feed.source", k)
+                blk = next(blocks, None)
+                spans.end(tok, keep=blk is not None)
+                if blk is None or self._stop.is_set():
                     return
                 errs = int(take_errors())
-                if not self._put((*self._stage(blk, stream), errs)):
+                tok = spans.begin("sdr.feed.stage", k)
+                staged = self._stage(blk, stream)
+                spans.end(tok)
+                tok = spans.begin("sdr.feed.put_wait", k)
+                put = self._put((*staged, errs))
+                spans.end(tok)
+                if not put:
                     return
+                spans.high("feed_queue_max", self._q.qsize())
         except BaseException as e:  # surfaced on the consumer side
             self._err = e
         finally:
@@ -101,8 +120,10 @@ class HostFeed:
                                   name="host-feed", daemon=True)
         thread.start()
         try:
-            while True:
+            for k in itertools.count():
+                tok = spans.begin("sdr.loop.get_wait", k)
                 item = self._q.get()
+                spans.end(tok, keep=item is not self._END)
                 if item is self._END:
                     if self._err is not None:
                         raise self._err

@@ -20,6 +20,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import spans
 from ..parallel.mesh import Sharded
 from .demodulator import Demodulator
 from .sinks import PacketMeta, Sink
@@ -90,6 +91,31 @@ def _end_setup(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _start(init_state, device, sinks_per_output, starts):
+    """The set-up's end and the stream's start of a loop: the state
+    built (``sdr.setup.state``), the card synchronised
+    (``sdr.setup.sync``), then ``sdr.stream`` opened and each of
+    sinks_per_output[k] started with starts[k] (channels, rows).  The
+    state."""
+    with spans.once("sdr.setup.state"):
+        state = init_state()
+    with spans.once("sdr.setup.sync"):
+        _end_setup(device)
+    spans.stream_started(device)
+    for sinks, (channels, rows) in zip(sinks_per_output, starts):
+        for s in sinks:
+            s.on_start(channels, rows)
+    return state
+
+
+def _finish(sinks_per_output, device) -> None:
+    """The sinks ended, then ``sdr.stream`` closed."""
+    for sinks in sinks_per_output:
+        for s in sinks:
+            s.on_end()
+    spans.stream_ended(device)
+
+
 def run_chunked(step, init_state, n_blocks: int, block_len: int,
                 channels: int, total_rows: int, device,
                 sinks: Sequence[Sink] = (), usrp_number: int = 0,
@@ -101,37 +127,44 @@ def run_chunked(step, init_state, n_blocks: int, block_len: int,
     the sinks start: it is set-up.  (The JAX package scans K blocks per
     launch to amortize dispatch; PyTorch runs eagerly, so a step here is
     one block.)"""
-    state = init_state()
-    _end_setup(device)
-    for s in sinks:
-        s.on_start(channels, total_rows)
+    state = _start(init_state, device, [sinks], [(channels, total_rows)])
     fetch = _HostFetch(device)
     rows = pkt = 0
     t0 = time.perf_counter()
 
-    def drain(pending):
+    def drain(pending, t_in):
         nonlocal rows, pkt
+        spans.interval("sdr.inflight", pkt, t_in)
+        tok = spans.begin("sdr.drain.wait", pkt)
         d = fetch.result(pending)
+        spans.end(tok)
         meta = PacketMeta(usrp_number=usrp_number, front_end_code=front_end,
                           packet_number=pkt, length=int(d.size), errors=0,
                           channels=int(d.shape[1]))
+        tok = spans.begin("sdr.drain.sinks", pkt)
         for s in sinks:
             s.on_packet(meta, d)
+        spans.end(tok)
         rows += d.shape[0]
         pkt += 1
 
-    pending = None
-    for _ in range(n_blocks):
+    pending = t_fetched = None
+    for k in range(n_blocks):
+        blk = spans.begin("sdr.loop.block", k)
+        tok = spans.begin("sdr.loop.step")
         state, y = step(state)
+        spans.end(tok)
+        tok = spans.begin("sdr.fetch.start")
         nxt = fetch.start(y)
+        t_nxt = spans.end(tok)
         if pending is not None:
-            drain(pending)
-        pending = nxt
+            drain(pending, t_fetched)
+        pending, t_fetched = nxt, t_nxt
+        spans.end(blk)
     if pending is not None:
-        drain(pending)
+        drain(pending, t_fetched)
     elapsed = time.perf_counter() - t0
-    for s in sinks:
-        s.on_end()
+    _finish([sinks], device)
     return PipelineResult(n_blocks=pkt, rows=rows, channels=channels,
                           elapsed_s=elapsed, samples_in=pkt * block_len)
 
@@ -178,11 +211,7 @@ def _host_fed(demod, step, source, sinks_per_output, starts, n_blocks,
     from .ingest import HostFeed
     plan = demod.plan
     nb = n_blocks if n_blocks is not None else plan.n_blocks
-    state = demod.init_state()
-    _end_setup(demod.device)
-    for sinks, (channels, rows) in zip(sinks_per_output, starts):
-        for s in sinks:
-            s.on_start(channels, rows)
+    state = _start(demod.init_state, demod.device, sinks_per_output, starts)
     stream = HostFeed(source, demod.device, depth=feed_depth).device_blocks(
         plan.block_len, nb)
     fetch = _HostFetch(demod.device)
@@ -193,24 +222,36 @@ def _host_fed(demod, step, source, sinks_per_output, starts, n_blocks,
 
     def drain_one():
         nonlocal rows, pkt
-        pendings, errs = inflight.popleft()
+        pendings, errs, t_in = inflight.popleft()
+        spans.interval("sdr.inflight", pkt, t_in)
         for pending, sinks in zip(pendings, sinks_per_output):
+            tok = spans.begin("sdr.drain.wait", pkt)
             data = fetch.result(pending)
+            spans.end(tok)
             meta = PacketMeta(
                 usrp_number=usrp_number, front_end_code=front_end,
                 packet_number=pkt, length=int(data.size), errors=errs,
                 channels=int(data.shape[1]))
+            tok = spans.begin("sdr.drain.sinks", pkt)
             for s in sinks:
                 s.on_packet(meta, data)
+            spans.end(tok)
             rows += data.shape[0]
         pkt += 1
 
     try:
-        for x, errs in stream:
+        for k, (x, errs) in enumerate(stream):
+            blk = spans.begin("sdr.loop.block", k)
+            tok = spans.begin("sdr.loop.step")
             state, ys = step(state, x)
-            inflight.append((tuple(fetch.start(y) for y in ys), errs))
+            spans.end(tok)
+            tok = spans.begin("sdr.fetch.start")
+            outs = tuple(fetch.start(y) for y in ys)
+            inflight.append((outs, errs, spans.end(tok)))
+            spans.high("inflight_max", len(inflight))
             if len(inflight) > depth:
                 drain_one()
+            spans.end(blk)
         while inflight:
             drain_one()
     finally:
@@ -223,9 +264,7 @@ def _host_fed(demod, step, source, sinks_per_output, starts, n_blocks,
             while inflight:
                 drain_one()
         finally:
-            for sinks in sinks_per_output:
-                for s in sinks:
-                    s.on_end()
+            _finish(sinks_per_output, demod.device)
     return PipelineResult(n_blocks=pkt, rows=rows, channels=demod.n_channels,
                           elapsed_s=elapsed,
                           samples_in=pkt * plan.block_len)

@@ -39,12 +39,12 @@ of its channelizer kernel.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..config import resolve_device
 from ..ops import chirp as chirp_ops
 from ..ops import pfb as pfb_ops
@@ -388,8 +388,8 @@ class SegmentedDeviceReplay:
     as across blocks, so the output equals the host-fed path's.  The
     state is (demodulator state, block index): after init_state, a
     replay resumes from a saved state at any block, a segment boundary
-    included.
-    ``stage_seconds`` keeps the host time of each segment's staging."""
+    included.  Each segment's staging is an ``sdr.replay.stage_segment``
+    span (spans.py), its id the segment's first block."""
 
     rx: AntennaParams
     data: np.ndarray                  # complex64 recording (may be a memmap)
@@ -410,7 +410,6 @@ class SegmentedDeviceReplay:
         self.nblk_rec = -(-n // L)
         budget = self.segment_bytes or DEVICE_REPLAY_MAX_BYTES // 4
         self.seg_blocks = max(1, budget // (L * 8))
-        self.stage_seconds: list = []
 
     def _fill(self, b0: int, out: np.ndarray) -> None:
         """Blocks [b0, b0 + seg_blocks) of the stream into `out`, copied
@@ -429,8 +428,8 @@ class SegmentedDeviceReplay:
 
     def _stage(self, s: int):
         """Start the upload of segment s: (tensor, ready event or None)."""
-        t0 = time.perf_counter()
         b0 = s * self.seg_blocks
+        tok = spans.begin("sdr.replay.stage_segment", b0)
         if self.device.type != "cuda":
             seg = np.empty(self.seg_blocks * self.L, dtype=np.complex64)
             self._fill(b0, seg)
@@ -445,7 +444,7 @@ class SegmentedDeviceReplay:
                 ready = torch.cuda.Event()
                 ready.record(self._copy)
             self._done[k] = ready
-        self.stage_seconds.append(time.perf_counter() - t0)
+        spans.end(tok)
         return x, ready
 
     def _enter(self, x: torch.Tensor, ready) -> torch.Tensor:
@@ -467,7 +466,6 @@ class SegmentedDeviceReplay:
     def _reset(self) -> None:
         """Fresh staging: copy stream, pinned buffers, no segment."""
         S, L = self.seg_blocks, self.L
-        self.stage_seconds = []
         self._n_seg = -(-self.demod.plan.n_blocks // S)
         if self.device.type == "cuda":
             self._copy = torch.cuda.Stream(device=self.device)

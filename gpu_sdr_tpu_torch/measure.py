@@ -42,6 +42,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from . import spans
 from .config import maybe_profile, resolve_device
 from .engine import (FusedLoopback, can_fuse, make_demodulator,
                      make_generator, run_pipeline)
@@ -68,6 +69,8 @@ LAST_DISPATCH: list = []
 # ``blocks`` and ``samples``, its RX blocks and samples (plan.block_len
 # times the blocks), and on the host clock ``seconds``, the call's, and
 # ``stream_seconds``, the first sink's start to the last sink's end
+# (``sdr.stream``); while the recorder was on (spans.py), ``spans`` and
+# ``counters`` (spans.Recorder.record)
 RUNS: collections.deque = collections.deque(maxlen=4096)
 
 
@@ -189,38 +192,27 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
     appends its record to RUNS."""
     from .engine.dispatch import plan_dispatch
     dev = mesh.first if mesh is not None else resolve_device(device)
-    params.validate()
-    plan = [list(d.key()) for d in plan_dispatch(
-        params, source=source, channel=channel, mesh=mesh, warn=False)]
-    plans = [plan_blocks(rx) for _, rx in params.active_antennas(AntMode.RX)]
-    stamps = _Stamps()
-    t0 = time.perf_counter()
-    with maybe_profile("measurement", dev):
-        out = _measure(params, filename, channel, source,
-                       [*extra_sinks, stamps], trigger, mesh, dev, tags)
+    profile = maybe_profile("measurement", dev)
+    with spans.call(trace=bool(profile.dir)) as rec:
+        with spans.once("sdr.setup.plan"):
+            params.validate()
+            plan = [list(d.key()) for d in plan_dispatch(
+                params, source=source, channel=channel, mesh=mesh,
+                warn=False)]
+            plans = [plan_blocks(rx)
+                     for _, rx in params.active_antennas(AntMode.RX)]
+        t0 = time.perf_counter()
+        with profile:
+            out = _measure(params, filename, channel, source, extra_sinks,
+                           trigger, mesh, dev, tags)
+        seconds = time.perf_counter() - t0
     RUNS.append(dict(
         plan=plan, dispatch=[list(k) for k in LAST_DISPATCH],
         blocks=sum(p.n_blocks for p in plans),
         samples=sum(p.total_samples for p in plans),
-        seconds=time.perf_counter() - t0,
-        stream_seconds=stamps.t[-1] - stamps.t[0] if stamps.t else 0.0))
+        seconds=seconds, stream_seconds=rec.stream_seconds(),
+        **rec.record()))
     return out
-
-
-class _Stamps(Sink):
-    """The host clock at each sink start and end."""
-
-    def __init__(self):
-        self.t = []
-
-    def on_start(self, n_channels, expected_rows):
-        self.t.append(time.perf_counter())
-
-    def on_packet(self, meta, data):
-        pass
-
-    def on_end(self):
-        self.t.append(time.perf_counter())
 
 
 def _measure(params, filename, channel, source, extra_sinks, trigger, mesh,
@@ -239,7 +231,8 @@ def _measure(params, filename, channel, source, extra_sinks, trigger, mesh,
         if mesh is None and source is None and channel is None and \
                 not mixed and tx is not None and can_fuse(tx, rx) and \
                 rx.delay <= tx.delay:
-            fused = FusedLoopback(tx, rx, device=dev)
+            with spans.once("sdr.setup.build"):
+                fused = FusedLoopback(tx, rx, device=dev)
             _record_dispatch(rx_name, "fused_loopback", fused.path)
             fused.run(run.sinks(rx_name), **run_kw)
             continue
@@ -250,20 +243,24 @@ def _measure(params, filename, channel, source, extra_sinks, trigger, mesh,
         if mesh is None and source is not None and channel is None and \
                 not mixed and _replays_whole_blocks(source, rx):
             loop = bool(getattr(source, "loop", False))
-            if can_device_replay(source):
-                replay = DeviceReplay(rx, source.data, loop=loop, device=dev)
-                _record_dispatch(rx_name, "device_replay", replay.path)
-            else:
-                replay = SegmentedDeviceReplay(rx, source.data, loop=loop,
-                                               device=dev)
-                _record_dispatch(rx_name, "segmented_replay")
+            with spans.once("sdr.setup.build"):
+                if can_device_replay(source):
+                    replay = DeviceReplay(rx, source.data, loop=loop,
+                                          device=dev)
+                    _record_dispatch(rx_name, "device_replay", replay.path)
+                else:
+                    replay = SegmentedDeviceReplay(rx, source.data,
+                                                   loop=loop, device=dev)
+                    _record_dispatch(rx_name, "segmented_replay")
             replay.run(run.sinks(rx_name), **run_kw)
             continue
-        demod = make_demodulator(rx, dev, mesh=mesh)
+        with spans.once("sdr.setup.build"):
+            demod = make_demodulator(rx, dev, mesh=mesh)
         if source is not None:
             src = source
         elif tx is not None:
-            gen = make_generator(tx, demod.plan.block_len, dev)
+            with spans.once("sdr.setup.build"):
+                gen = make_generator(tx, demod.plan.block_len, dev)
             # timed RX start: honor the delay parameter difference
             skip = int(round(max(rx.delay - tx.delay, 0.0) * rx.rate))
             src = ChannelSource(gen, channel or IdealChannel(),
@@ -337,8 +334,9 @@ def _run_dual(run, mesh, dev) -> bool:
     pairs = plan_dual(run.params, mesh=mesh)
     if pairs is None:
         return False
-    dual = (DualFused(pairs, device=dev) if mesh is None
-            else DualShardedFused(pairs, mesh))
+    with spans.once("sdr.setup.build"):
+        dual = (DualFused(pairs, device=dev) if mesh is None
+                else DualShardedFused(pairs, mesh))
     if not getattr(dual, "ok", True):
         return False                   # untileable: the sequential path
     path = "dual_fused" if mesh is None else "dual_sharded_fused"
@@ -368,7 +366,8 @@ def _run_on_mesh(run, rx_name, tx, rx, mesh, source, channel,
                 rx.delay > tx.delay:
             return False
         L, nb = plan_sharded_block(rx, mesh)
-        sf = make_sharded_fused(tx, rx, mesh, block_len=L)
+        with spans.once("sdr.setup.build"):
+            sf = make_sharded_fused(tx, rx, mesh, block_len=L)
         if sf is None:                 # untileable: the host pipeline
             return False
         _record_dispatch(rx_name, "sharded_fused", sf.path)
@@ -378,11 +377,13 @@ def _run_on_mesh(run, rx_name, tx, rx, mesh, source, channel,
             not _replays_whole_blocks(source, rx, mesh):
         return False
     loop = bool(getattr(source, "loop", False))
-    if can_device_replay(source):
-        replay = ShardedDeviceReplay(rx, source.data, mesh, loop=loop)
-        _record_dispatch(rx_name, "sharded_replay", replay.path)
-    else:
-        replay = ShardedSegmentedReplay(rx, source.data, mesh, loop=loop)
-        _record_dispatch(rx_name, "sharded_segmented_replay")
+    with spans.once("sdr.setup.build"):
+        if can_device_replay(source):
+            replay = ShardedDeviceReplay(rx, source.data, mesh, loop=loop)
+            _record_dispatch(rx_name, "sharded_replay", replay.path)
+        else:
+            replay = ShardedSegmentedReplay(rx, source.data, mesh,
+                                            loop=loop)
+            _record_dispatch(rx_name, "sharded_segmented_replay")
     replay.run(run.sinks(rx_name), **run_kw)
     return True

@@ -29,12 +29,12 @@ counterpart (ROADMAP Queue 3).
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..engine.demodulator import direct_config, make_demodulator, pfb_config
 from ..engine.pipeline import PipelineResult, run_chunked
 from ..engine import replay as replay_mod
@@ -249,8 +249,9 @@ class ShardedSegmentedReplay:
     stream the moment segment s starts; the sharded demodulator's state
     carries across segments as across blocks: the state is (sharded
     demodulator state, block index), and after init_state a replay
-    resumes from a saved state at any block.  ``stage_seconds`` keeps
-    the host time of each segment's staging."""
+    resumes from a saved state at any block.  Each segment's staging is
+    an ``sdr.replay.stage_segment`` span (spans.py), its id the
+    segment's first block."""
 
     def __init__(self, rx: AntennaParams, data, mesh: Mesh,
                  loop: bool = False, segment_bytes: Optional[int] = None):
@@ -266,7 +267,6 @@ class ShardedSegmentedReplay:
         self.nblk_rec = -(-n // L)
         budget = segment_bytes or replay_mod.DEVICE_REPLAY_MAX_BYTES // 4
         self.seg_blocks = max(1, budget // (L * 8))
-        self.stage_seconds: list = []
         # the devices that receive each time shard's spans, once each
         # (this process's shards only)
         self._dests = [sorted({mesh.device(t, c) for c in range(mesh.Kc)
@@ -292,8 +292,8 @@ class ShardedSegmentedReplay:
     def _stage(self, s: int):
         """Start the upload of segment s: per time shard, {device: (tensor
         (seg_blocks, Lt), ready event or None)}."""
-        t0 = time.perf_counter()
         S, L, T = self.seg_blocks, self.L, self.mesh.T
+        tok = spans.begin("sdr.replay.stage_segment", s * S)
         Lt = L // T
         seg = self._host[s % 2] if self._host else np.empty((S, L),
                                                             np.complex64)
@@ -323,7 +323,7 @@ class ShardedSegmentedReplay:
                 shard[d] = (x, ready)
             out.append(shard)
         self._done[s % 2] = events or None
-        self.stage_seconds.append(time.perf_counter() - t0)
+        spans.end(tok)
         return out
 
     def _enter(self, staged):
@@ -345,7 +345,6 @@ class ShardedSegmentedReplay:
         start; the staging buffers are made anew and the first segment's
         upload started (set-up)."""
         S, L, T = self.seg_blocks, self.L, self.mesh.T
-        self.stage_seconds = []
         self._n_seg = -(-self.demod.plan.n_blocks // S)
         cuda = sorted({d for ds in self._dests for d in ds
                        if d.type == "cuda"}, key=str)

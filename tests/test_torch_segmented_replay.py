@@ -18,7 +18,7 @@ from gpu_sdr_tpu.engine.replay import \
     SegmentedDeviceReplay as JSegmentedDeviceReplay
 from gpu_sdr_tpu.engine.sinks import MemorySink as JMemorySink
 from gpu_sdr_tpu.params import AntMode, AntennaParams, UsrpParams, WaveType
-from gpu_sdr_tpu_torch import measure
+from gpu_sdr_tpu_torch import measure, spans
 from gpu_sdr_tpu_torch.engine import make_demodulator, run_pipeline
 from gpu_sdr_tpu_torch.engine import replay
 from gpu_sdr_tpu_torch.engine.replay import SegmentedDeviceReplay
@@ -65,9 +65,11 @@ def test_segmented_matches_host_fed_and_jax(tmp_path, rec_blocks, loop,
                                segment_bytes=2 * BLK * 8, device="cpu")
     assert (sr.L, sr.seg_blocks) == (BLK, 2)
     sink = MemorySink()
-    res = sr.run([sink])
+    with spans.recording() as recorder:
+        res = sr.run([sink])
     assert res.n_blocks == acq_blocks
-    assert len(sr.stage_seconds) == acq_blocks // 2
+    assert recorder.summary()["sdr.replay.stage_segment"]["count"] == \
+        acq_blocks // 2
     host = host_fed(rx, rec, loop, tmp_path)
     assert sink.data.shape == host.shape
     assert np.array_equal(sink.data, host), \

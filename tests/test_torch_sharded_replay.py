@@ -27,7 +27,7 @@ from gpu_sdr_tpu.parallel.sharded_replay import (
     ShardedDeviceReplay as JShardedReplay,
     ShardedSegmentedReplay as JShardedSegmented)
 from gpu_sdr_tpu.params import AntMode, AntennaParams, UsrpParams, WaveType
-from gpu_sdr_tpu_torch import convert, measure
+from gpu_sdr_tpu_torch import convert, measure, spans
 from gpu_sdr_tpu_torch.engine import make_demodulator, run_pipeline
 from gpu_sdr_tpu_torch.engine import replay as replay_mod
 from gpu_sdr_tpu_torch.engine.sinks import MemorySink
@@ -158,10 +158,11 @@ def test_sharded_segmented_matches_jax_and_dispatches(monkeypatch):
     assert sr.seg_blocks == jsr.seg_blocks == 2
     js, s = JMemorySink(), MemorySink()
     jsr.run([js])
-    sr.run([s])
+    with spans.recording() as recorder:
+        sr.run([s])
     assert s.data.shape == js.data.shape
     assert golden.snr_db(js.data, s.data) > 90.0
-    assert len(sr.stage_seconds) == 4
+    assert recorder.summary()["sdr.replay.stage_segment"]["count"] == 4
     monkeypatch.setattr(jreplay_mod, "DEVICE_REPLAY_MAX_BYTES", 2 * 800_000)
     monkeypatch.setattr(replay_mod, "DEVICE_REPLAY_MAX_BYTES", 2 * 800_000)
     p = UsrpParams()
