@@ -51,6 +51,7 @@ class HostFeed:
         self._q: queue.Queue = queue.Queue(maxsize=self.depth)
         self._err: Optional[BaseException] = None
         self._stop = threading.Event()
+        self._ended = False
 
     def _stage(self, blk, stream):
         x = torch.from_numpy(blk)
@@ -104,12 +105,20 @@ class HostFeed:
         except BaseException as e:  # surfaced on the consumer side
             self._err = e
         finally:
+            self._ended = True
             self._put(self._END)
+
+    def starved(self) -> bool:
+        """Whether the consumer would wait for its next block now: no
+        staged block is queued and the feeder has not ended.  It does
+        not block."""
+        return self._q.empty() and not self._ended
 
     def device_blocks(self, block_len: int, n_blocks: int):
         """Yield up to n_blocks (device block, errors) pairs."""
         self._stop.clear()
         self._err = None
+        self._ended = False
         while True:       # drop what an earlier, interrupted run left
             try:
                 self._q.get_nowait()

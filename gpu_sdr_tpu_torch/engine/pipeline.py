@@ -3,11 +3,16 @@
 One host loop over per-block steps.  PyTorch launches asynchronously, so
 the loop keeps a short queue of in-flight results: block i's output is
 copied to pinned host memory on a separate CUDA stream while block i+1
-computes, and handed to the sinks only after block i+depth has been
-launched (the reference's pinned-buffer double buffering,
-headers/USRP_server_memory_management.hpp:103-273).  A mixed-mode
-antenna's groups (run_pipeline_mixed) share each staged block and fetch
-their outputs one by one.
+computes (the reference's pinned-buffer double buffering,
+headers/USRP_server_memory_management.hpp:103-273).  The host-fed loop
+hands block i to the sinks as soon as its copy has landed whenever the
+feed has no next block waiting (the reference's RX worker synchronises
+on each buffer's own copy and pushes that buffer to its stream queue at
+once, cpp/USRP_server_link_threads.cpp:604-702), and at the latest once
+block i+depth has been launched, when blocks keep arriving and block
+i+1's kernels can overlap block i's copy.  Packets go out in block
+order either way.  A mixed-mode antenna's groups (run_pipeline_mixed)
+share each staged block and fetch their outputs one by one.
 """
 
 from __future__ import annotations
@@ -176,8 +181,10 @@ def run_pipeline(demod: Demodulator, source: Source,
     """Stream `n_blocks` blocks from `source` through the demodulator
     into the sinks.  Ingest runs through a HostFeed (engine/ingest.py)
     `feed_depth` blocks ahead, so the host->device copy of block i+1
-    overlaps the compute of block i.  The demodulator's state is built
-    before the sinks start: it is set-up."""
+    overlaps the compute of block i.  A block goes to the sinks once its
+    device->host copy has landed if the feed has no block waiting, else
+    once `depth` later blocks have been launched (_host_fed).  The
+    demodulator's state is built before the sinks start: it is set-up."""
     def step(state, x):
         state, y = demod.step(state, x)
         return state, (y,)
@@ -207,13 +214,25 @@ def run_pipeline_mixed(mdemod, source: Source,
 def _host_fed(demod, step, source, sinks_per_output, starts, n_blocks,
               usrp_number, front_end, depth, feed_depth) -> PipelineResult:
     """The host-fed loop: `step(state, x) -> (state, outputs)`, output k
-    to sinks_per_output[k], which start with starts[k] (channels, rows)."""
+    to sinks_per_output[k], which start with starts[k] (channels, rows).
+
+    After each launch the oldest block in flight is drained while more
+    than `depth` are in flight, or while the feed has no staged block
+    waiting (``HostFeed.starved``): the loop would wait for the next
+    block anyway, so it waits on the oldest block's copy instead and
+    hands it over at once, as the reference's RX worker pushes each
+    buffer after its own copy (SURVEY.md:236-239).  A saturated feed
+    keeps `depth` blocks in flight; a paced one (the radio) drains each
+    block as soon as it is done.  Only the deque's head is drained, so
+    the packets, their order and their stamps do not depend on which
+    rule drained them; the drains the starved feed forced are counted
+    as ``drains_starved``."""
     from .ingest import HostFeed
     plan = demod.plan
     nb = n_blocks if n_blocks is not None else plan.n_blocks
     state = _start(demod.init_state, demod.device, sinks_per_output, starts)
-    stream = HostFeed(source, demod.device, depth=feed_depth).device_blocks(
-        plan.block_len, nb)
+    feed = HostFeed(source, demod.device, depth=feed_depth)
+    stream = feed.device_blocks(plan.block_len, nb)
     fetch = _HostFetch(demod.device)
     inflight = collections.deque()
     rows = 0
@@ -249,7 +268,9 @@ def _host_fed(demod, step, source, sinks_per_output, starts, n_blocks,
             outs = tuple(fetch.start(y) for y in ys)
             inflight.append((outs, errs, spans.end(tok)))
             spans.high("inflight_max", len(inflight))
-            if len(inflight) > depth:
+            while len(inflight) > depth or (inflight and feed.starved()):
+                if len(inflight) <= depth:
+                    spans.add("drains_starved", 1)
                 drain_one()
             spans.end(blk)
         while inflight:

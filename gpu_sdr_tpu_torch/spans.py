@@ -13,12 +13,13 @@ What is recorded, and when:
 * once-a-call spans (``once``, ``stream_started`` / ``stream_ended``:
   the set-up's parts and ``sdr.stream``), in every ``run_measurement``
   call: ``measure.RUNS``' ``stream_seconds`` comes from ``sdr.stream``;
-* per-block spans (``begin`` / ``end``), intervals and high-water
-  counters (``high``), only while the recorder is on: for a
-  ``run_measurement`` call that starts while a ``torch.profiler``
-  records (the benchmark's ``--trace 1``, ``GPU_SDR_TPU_PROFILE``), and
-  inside ``recording()``.  Off, a site is one test of a module global:
-  no clock read, no allocation, no ``record_function``.
+* per-block spans (``begin`` / ``end``), intervals, high-water
+  counters (``high``) and summing ones (``add``), only while the
+  recorder is on: for a ``run_measurement`` call that starts while a
+  ``torch.profiler`` records (the benchmark's ``--trace 1``,
+  ``GPU_SDR_TPU_PROFILE``), and inside ``recording()``.  Off, a site
+  is one test of a module global: no clock read, no allocation, no
+  ``record_function``.
 
 While a profiler records, every span also opens
 ``torch.profiler.record_function(name)``, so it lands in the profiler's
@@ -221,6 +222,10 @@ class Recorder:
         if value > self._high.get(name, -1):
             self._high[name] = int(value)
 
+    def add(self, name: str, n: int) -> None:
+        """Add `n` to the summing counter `name`."""
+        self._counts[name] = self._counts.get(name, 0) + int(n)
+
     @staticmethod
     def _snapshot(device) -> dict:
         """The kernels' launches and the caching allocators' counts now:
@@ -342,6 +347,12 @@ def high(name: str, value: int) -> None:
     """A high-water counter: the largest `value` of the call."""
     if _ON is not None:
         _ON.high(name, value)
+
+
+def add(name: str, n: int) -> None:
+    """A summing counter: `n` more under `name` for the call."""
+    if _ON is not None:
+        _ON.add(name, n)
 
 
 @contextlib.contextmanager

@@ -127,7 +127,10 @@ def test_on_a_span_a_packet_in_the_loop_order(source, names):
     assert run["counters"]["device_segments"] == 0
     assert run["counters"]["pinned_allocs"] == 0
     if source is _HostBlocks:
-        assert run["counters"]["inflight_max"] == 3      # depth 2, then one
+        # depth 2 then one where the feed keeps ahead, one where it is
+        # starved (test_torch_pipeline_drain pins both ends)
+        assert 1 <= run["counters"]["inflight_max"] <= 3
+        assert run["counters"].get("drains_starved", 0) <= PACKETS
         assert 1 <= run["counters"]["feed_queue_max"] <= 2
     # block k: staged, handed over, stepped, its copy started, held,
     # waited for, then given to the sinks
