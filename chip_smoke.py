@@ -78,7 +78,12 @@ and exits non-zero at the first phase that fails:
    channelizer's stream mode (#1) and the host-fed route's two calls
    timed over the same blocks as #4 is; the pre-sum again, and timed,
    at its main path's shape (NOISE at nfft 1018, blocks of 5893 frames,
-   the same four blocks of an 8-block recording); the in-kernel chirp
+   the same four blocks of an 8-block recording); the channelizer (#4)
+   at the ``tones1000`` cells' shape (nfft 1111 = 11 x 101, plan (11,
+   101), both passes the prime pass; 900 frames of an 8-block
+   recording, the same four blocks) against plain and float64, each
+   call one launch, timed beside nfft 1000 with the pre-sum kernels #2
+   and #6 then torch.fft (cuFFT) over the same blocks; the in-kernel chirp
    lock-in's launch plan in csrc/lockin.cu (``sdr_lockin_chirp_plan``)
    and ops/lockin_at.py alike for nseg 1..40, 200, 300, ppt 1..64,
    1000, 19,999-20,001, 25,000 and both bodies; the in-kernel chirp
@@ -423,6 +428,7 @@ CHIRP_AT_OPS = 16
 R_TONES = (8, 20)                   # comb, channelizer_at
 R_NOISE = (4, 10)                   # NOISE at nfft 1018, pfb_at
 R_NFFT = 1018                       # split 2 x 509: G_k1 over shared memory
+P_NFFT, P_FRAMES = 1111, 900        # tones1000: plan (11, 101), 999,900
 R_DIRECT = (8, 20)                  # configs 3 and 1, replay kernels
 R_CHIRP = (10, 30)                  # config 2: wraps mod 10 and mod 25
 R_CHIRP6M = (8, 20)                 # config 2 at 6,000,000: chirp_at
@@ -589,10 +595,10 @@ def snr_full(name, ref, k) -> float:
     return s
 
 
-def pfb_flops(frames: int) -> float:
-    """A channelizer's operations on `frames` frames: the pre-sum, then
-    an FFT's 5 N log2 N per frame."""
-    return frames * (4 * AVG * NFFT + 5 * NFFT * np.log2(NFFT))
+def pfb_flops(frames: int, nfft: int = NFFT) -> float:
+    """A channelizer's operations on `frames` frames of `nfft`: the
+    pre-sum, then an FFT's 5 N log2 N per frame."""
+    return frames * (4 * AVG * nfft + 5 * nfft * np.log2(nfft))
 
 
 def two_calls(cfg, w2, frames: int, rows):
@@ -1454,6 +1460,70 @@ def phase_chirp_kernels(dev):
     return rows
 
 
+def held_prime_channelizer(dev, gen) -> dict:
+    """#4 (channelizer_at) at the tones1000 cells' shape, P_FRAMES frames
+    of P_NFFT = 11 x 101 a block, whose radix plan (11, 101) runs both
+    passes through the prime pass: on the R_IDX blocks of a random
+    8-block recording (64 MB, past the L2) against its plain version and
+    the float64 oracle, one launch a call; then timed as at nfft 1000,
+    beside the pre-sum kernels #2 (the host path's) and #6 (pfb_at's)
+    each followed by torch.fft, the library's FFT of the same frames.
+    The kernel line's channelizer_at row holds it under ``nfft1111``."""
+    import torch
+    from gpu_sdr_tpu_torch.ops.channelizer import (
+        channelizer_at, channelizer_at_plain, channelizer_consts, fft_radices)
+    from gpu_sdr_tpu_torch.ops.pfb import PFBConfig
+    from gpu_sdr_tpu_torch.ops.presum import presum_at, recording_halo
+    T, N = P_FRAMES, P_NFFT
+    cfg = PFBConfig(nfft=N, avg=AVG, rate=RATE)
+    check(tuple(fft_radices(N)) == (11, 101),
+          f"nfft {N}: radix plan {fft_radices(N)}, expected (11, 101)")
+    w2, F1, G = channelizer_consts(cfg, dev)
+    X = torch.randn((R_BLOCKS * T, N), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    launches = kernel_counters()["channelizer_at"].launches
+    err, s64 = 0.0, float("inf")
+    for idx, valid in R_IDX:
+        tag = f"nfft {N}, block {idx}, valid {valid}"
+        k = via_kernel("channelizer_at", lambda: channelizer_at(
+            w2, F1, G, X, idx, valid, T))
+        p = channelizer_at_plain(w2, F1, G, X, idx, valid, T)
+        torch.cuda.synchronize(dev)
+        kn, pn = k.cpu().numpy(), p.cpu().numpy()
+        check(kn.shape == (T, N) and np.isfinite(kn).all(),
+              f"channelizer_at [{tag}]: shape {kn.shape} or non-finite")
+        s_plain = snr_db(pn, kn)
+        err = max(err, float(np.abs(kn - pn).max()))
+        print(f"channelizer_at [{tag}]: SNR {s_plain:.1f} dB vs plain")
+        check(s_plain >= SNR_BAR_DB,
+              f"channelizer_at [{tag}] under {SNR_BAR_DB} dB vs plain")
+        s64 = min(s64, snr_full(f"channelizer_at [{tag}]", pfb64(
+            w2, torch.cat([recording_halo(X, idx * T, AVG - 1, valid),
+                           X[idx * T:(idx + 1) * T]])), k))
+    launches = kernel_counters()["channelizer_at"].launches - launches
+
+    rot, spare = itertools.count(), X[:AVG - 1]
+
+    def block():
+        return X[(next(rot) % R_BLOCKS) * T:][:T]
+    ms, pms, two_ms, at_ms = (time_ms_queued(f, 2 * R_BLOCKS) for f in (
+        lambda: channelizer_at(w2, F1, G, X, next(rot) % R_BLOCKS, 1, T),
+        lambda: channelizer_at_plain(w2, F1, G, X, next(rot) % R_BLOCKS, 1,
+                                     T),
+        two_calls(cfg, w2, T, block),
+        lambda: torch.fft.fft(presum_at(w2, X, next(rot) % R_BLOCKS, 1, T),
+                              dim=-1)))
+    b = bound((2 * T + AVG - 1) * N * 8 + nbytes(w2), pfb_flops(T, N))
+    print(f"channelizer_at {T}x{N}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}), "
+          f"{100 * b['bound_ms'] / ms:.1f}% of it; pre-sum kernel + "
+          f"torch.fft {two_ms:.4f} ms, presum_at + torch.fft {at_ms:.4f} "
+          f"ms; {launches} launches held")
+    del X, spare
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=two_ms,
+                presum_at_fft_ms=at_ms, snr_db=s64, launches=launches, **b)
+
+
 def phase_replay_kernels(dev):
     """The device replay's three kernels against their plain versions and
     a float64 oracle at full width: #4 (channelizer_at) on blocks of a
@@ -1569,6 +1639,7 @@ def phase_replay_kernels(dev):
                                   plain_ms=pms, library_ms=None,
                                   two_call_ms=two_ms, snr_db=s64, **b)
     del X, spare
+    rows["channelizer_at"]["nfft1111"] = held_prime_channelizer(dev, gen)
 
     # #6 at its main path's shape: the pfb_at run's NOISE receiver at nfft
     # 1018, blocks of T frames, over an 8-block recording (~384 MB)

@@ -51,7 +51,7 @@
 //   2. the frames' DFT runs as Stockham passes, natural order out, a
 //      barrier between passes, the butterflies in registers: radix 16
 //      (4 x 4), 10 (2 x 5), 8 (2 x 4), 6 (2 x 3), 5, 4, 3, 7, 2, and any
-//      prime factor left as one direct-DFT pass (the plan from
+//      prime factor left as one pass of paired direct sums (the plan from
 //      ops/channelizer.fft_radices: nfft 1000 is three radix-10
 //      passes).  The first pass is folded into the pre-sum, each
 //      butterfly pre-summing its R samples (neighbouring threads on
@@ -293,35 +293,83 @@ __device__ __forceinline__ void pass_r(const float2* a, float2* b,
     }
 }
 
-// The same pass for any other radix R (a prime factor the radices above
-// leave): one thread an output, a direct DFT over the roots in the table.
-__device__ __forceinline__ void pass_any(const float2* a, float2* b,
-                                         const float2* __restrict__ tw,
-                                         int nf, int n, int ns, int R) {
-    const int nb = n / R;
+// The same pass for any other radix R (an odd prime factor the radices
+// above leave), over R's roots in the table.  The butterflies' inputs are
+// twiddled in place first (a barrier after).  Then a thread takes one
+// group of a butterfly's outputs: group 0 the sum, output 0; group g >= 1
+// the KP outputs k = 1 + (g-1) KP, ... and their mirrors R - k, from the
+// sums and differences of inputs q and R - q (dft_odd's pairing: half a
+// direct DFT's multiplies, no complex product in the loop), each pair of
+// inputs loaded once for the group.  At nfft 1111 (11 x 101) this pass
+// is most of the kernel's work.  Not inlined: inlined, it raised the
+// registers of the kernel that every nfft runs (110 to 128 on one
+// instance) and slowed nfft 1000's register passes by 2%.
+constexpr int KP = 2;                // output pairs a thread of pass_any
+
+__device__ __noinline__ void pass_any(float2* a, float2* b,
+                                      const float2* __restrict__ tw, int nf,
+                                      int n, int ns, int R) {
+    const int nb = n / R, H = R / 2;
     const float2* roots = tw + ns * (R - 1);
-    for (int e = threadIdx.x; e < nf * n; e += NTHREADS) {
-        const int f = e / n;
-        const int k = (e - f * n) / nb;           // output k of butterfly j
-        const int j = e - f * n - k * nb;
+    if (ns > 1) {
+        for (int e = threadIdx.x; e < nf * n; e += NTHREADS) {
+            const int i = e % n, q = i / nb, m = (i - q * nb) % ns;
+            if (q && m) a[e] = cmul(a[e], __ldg(tw + (q - 1) * ns + m));
+        }
+        __syncthreads();
+    }
+    const int groups = 1 + (H + KP - 1) / KP;
+    for (int e = threadIdx.x; e < nf * groups * nb; e += NTHREADS) {
+        const int j = e % nb, fg = e / nb;
+        const int f = fg / groups, g = fg - f * groups;
         const int m = j % ns;
         const float2* src = a + f * n + j;
-        float2 acc = src[0];
-        int idx = 0;                              // q k mod R
-        for (int q = 1; q < R; ++q) {
-            float2 v = src[q * nb];
-            if (m) v = cmul(v, __ldg(tw + (q - 1) * ns + m));
-            idx += k;
-            if (idx >= R) idx -= R;
-            acc = cadd(acc, cmul(v, __ldg(roots + idx)));
+        float2* dst = b + f * n + (j - m) * R + m;
+        const float2 x0 = src[0];
+        if (g == 0) {
+            float2 acc = x0;
+            for (int q = 1; q < R; ++q) acc = cadd(acc, src[q * nb]);
+            dst[0] = acc;
+            continue;
         }
-        b[f * n + (j - m) * R + m + k * ns] = acc;
+        const int k0 = 1 + (g - 1) * KP;
+        float2 c[KP], s[KP];        // sums by cos, differences by -sin
+        int idx[KP];                // q k mod R
+#pragma unroll
+        for (int p = 0; p < KP; ++p) {
+            c[p] = x0;
+            s[p] = make_float2(0.f, 0.f);
+            idx[p] = 0;
+        }
+        for (int q = 1; q <= H; ++q) {
+            const float2 u = src[q * nb], v = src[(R - q) * nb];
+            const float2 sum = cadd(u, v), dif = csub(u, v);
+#pragma unroll
+            for (int p = 0; p < KP; ++p) {
+                idx[p] += k0 + p;
+                if (idx[p] >= R) idx[p] -= R;
+                const float2 w = __ldg(roots + idx[p]);   // (cos, -sin)
+                c[p].x = fmaf(w.x, sum.x, c[p].x);
+                c[p].y = fmaf(w.x, sum.y, c[p].y);
+                s[p].x = fmaf(w.y, dif.x, s[p].x);
+                s[p].y = fmaf(w.y, dif.y, s[p].y);
+            }
+        }
+#pragma unroll
+        for (int p = 0; p < KP; ++p) {
+            const int k = k0 + p;
+            if (k > H) break;
+            // y_k = c + i s, y_{R-k} = c - i s
+            dst[k * ns] = make_float2(c[p].x - s[p].y, c[p].y + s[p].x);
+            dst[(R - k) * ns] = make_float2(c[p].x + s[p].y,
+                                            c[p].y - s[p].x);
+        }
     }
 }
 
 __device__ __forceinline__ void fft_pass(const Plan& plan, int p,
                                          const float2* __restrict__ table,
-                                         const float2* a, float2* b, int nf) {
+                                         float2* a, float2* b, int nf) {
     const int n = plan.n, ns = plan.ns[p];
     const float2* tw = table + plan.off[p];
     switch (plan.radix[p]) {

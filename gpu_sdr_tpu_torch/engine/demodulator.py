@@ -25,12 +25,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import spans
 from ..ops import chirp as chirp_ops
 from ..ops import ddc as ddc_ops
 from ..ops import lockin as lockin_ops
 from ..ops import pfb as pfb_ops
 from ..ops.lockin_table import lockin_table
-from ..ops.presum import pfb_frames_fused
+from ..ops.presum import pfb_presum_block
 from ..params import DEFAULT_BUFFER_LEN, AntennaParams, WaveType
 from .planner import BlockPlan, _commensurate, mode_stride, plan_blocks
 
@@ -105,7 +106,8 @@ def _build_pfb(p: AntennaParams, plan: BlockPlan, device) -> Demodulator:
     """TONES (channelizer + tone select) / NOISE (full spectrum)
     (reference process_pfb / process_pfb_spec,
     cpp/USRP_demodulator.cpp:486-649): the pre-sum kernel, then
-    ``torch.fft.fft``, frame averaging and tone selection."""
+    ``torch.fft.fft``, frame averaging and tone selection, each launch
+    under its span (``sdr.pfb.presum``, ``.fft``, ``.select``)."""
     cfg = pfb_config(p)
     full_spectrum = cfg.bins is None
     window = cfg.window(device)
@@ -113,11 +115,18 @@ def _build_pfb(p: AntennaParams, plan: BlockPlan, device) -> Demodulator:
     decim = int(p.decim)
 
     def step(spare, x):
-        spare, frames = pfb_frames_fused(cfg, window, spare, x)
+        tok = spans.begin("sdr.pfb.presum")
+        spare, pre = pfb_presum_block(cfg, window, spare, x)
+        spans.end(tok)
+        tok = spans.begin("sdr.pfb.fft")
+        frames = torch.fft.fft(pre, dim=-1)
+        spans.end(tok)
         if decim > 0:
             frames = pfb_ops.average_frames(frames, decim)
         if bins_t is not None:
+            tok = spans.begin("sdr.pfb.select")
             frames = pfb_ops.select_tones(frames, bins_t)
+            spans.end(tok)
         return spare, frames
 
     return Demodulator(

@@ -160,7 +160,8 @@ class _ChannelizerAt:
     """TONES / NOISE through the channelizer kernel reading block `idx`
     of the recording's frames in place.  State: (block index, started
     flag); the halo of the stream's first block is zero, of every later
-    one the frames before it (the loop seam included)."""
+    one the frames before it (the loop seam included).  Spans:
+    ``sdr.pfb.channelize``, ``sdr.pfb.select``."""
 
     path_name = "channelizer_at"
 
@@ -177,9 +178,13 @@ class _ChannelizerAt:
 
     def step(self, state):
         idx, started = state
+        tok = spans.begin("sdr.pfb.channelize")
         y = channelizer_at(*self.consts, self.X, idx, started, self.T)
+        spans.end(tok)
         if self.bins is not None:
+            tok = spans.begin("sdr.pfb.select")
             y = pfb_ops.select_tones(y, self.bins)
+            spans.end(tok)
         if self.decim > 0:
             y = pfb_ops.average_frames(y, self.decim)
         return ((idx + 1) % self.nblk, 1), y
@@ -189,7 +194,7 @@ class _PfbAt:
     """TONES / NOISE through the pre-sum kernel reading the recording in
     place, then torch.fft.fft, frame averaging and tone selection in the
     host-fed demodulator's order.  State: (block index, started flag), as
-    _ChannelizerAt's."""
+    _ChannelizerAt's.  Spans: ``sdr.pfb.presum``, ``.fft``, ``.select``."""
 
     path_name = "pfb_at"
 
@@ -206,12 +211,18 @@ class _PfbAt:
 
     def step(self, state):
         idx, started = state
+        tok = spans.begin("sdr.pfb.presum")
         pre = presum_at(self.window2d, self.X, idx, started, self.T)
+        spans.end(tok)
+        tok = spans.begin("sdr.pfb.fft")
         y = torch.fft.fft(pre, dim=-1)
+        spans.end(tok)
         if self.decim > 0:
             y = pfb_ops.average_frames(y, self.decim)
         if self.bins is not None:
+            tok = spans.begin("sdr.pfb.select")
             y = pfb_ops.select_tones(y, self.bins)
+            spans.end(tok)
         return ((idx + 1) % self.nblk, 1), y
 
 

@@ -200,9 +200,10 @@ def presum_at(window2d: torch.Tensor, X: torch.Tensor, idx: int, valid: int,
 presum_at.launches = 0
 
 
-def pfb_frames_fused(cfg: PFBConfig, window: torch.Tensor,
+def pfb_presum_block(cfg: PFBConfig, window: torch.Tensor,
                      spare: torch.Tensor, x: torch.Tensor):
-    """ops/pfb.pfb_frames with the pre-sum kernel: (new_spare, frames).
+    """The pre-sum kernel on a streamed block: (new_spare, pre), pre
+    (L//nfft, nfft) complex64 before its DFT.
 
     spare: ((avg-1)*nfft,) carried samples; x: (L,) block."""
     nfft, avg = cfg.nfft, cfg.avg
@@ -210,6 +211,14 @@ def pfb_frames_fused(cfg: PFBConfig, window: torch.Tensor,
     H = (avg - 1) * nfft
     X = x.reshape(L // nfft, nfft)
     pre = presum(window.reshape(avg, nfft), spare.reshape(avg - 1, nfft), X)
-    frames = torch.fft.fft(pre, dim=-1)
     new_spare = x[L - H:] if H <= L else torch.cat([spare, x])[L:]
-    return new_spare, frames
+    return new_spare, pre
+
+
+def pfb_frames_fused(cfg: PFBConfig, window: torch.Tensor,
+                     spare: torch.Tensor, x: torch.Tensor):
+    """ops/pfb.pfb_frames with the pre-sum kernel: (new_spare, frames).
+
+    spare: ((avg-1)*nfft,) carried samples; x: (L,) block."""
+    new_spare, pre = pfb_presum_block(cfg, window, spare, x)
+    return new_spare, torch.fft.fft(pre, dim=-1)

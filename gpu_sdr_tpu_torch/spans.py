@@ -228,18 +228,25 @@ class Recorder:
 
     @staticmethod
     def _snapshot(device) -> dict:
-        """The kernels' launches and the caching allocators' counts now:
-        the card's segments (cudaMalloc calls) and new pinned host
-        blocks, 0 off a card (none is made there)."""
+        """The kernels' launches and the caches' counts now: the
+        caching allocators' segments on the card (cudaMalloc calls) and
+        new pinned host blocks, and the cuFFT plans in torch's plan
+        cache for the card; 0 off a card (none is made there)."""
         from . import kernels
         cuda = device is not None and torch.device(device).type == "cuda"
         dev = torch.cuda.memory_stats(device) if cuda else {}
         host = torch.cuda.host_memory_stats() if cuda else {}
+        plans = 0
+        if cuda:
+            index = torch.device(device).index
+            plans = torch.backends.cuda.cufft_plan_cache[
+                torch.cuda.current_device() if index is None else index].size
         return {"launches": kernels.launch_counts(),
                 "device_segments": dev.get("segment.all.allocated", 0),
                 "pinned_allocs": host.get("num_host_alloc",
                                           host.get("allocations.allocated",
-                                                   0))}
+                                                   0)),
+                "fft_plans": plans}
 
     def stream_start(self, device) -> None:
         """The sinks start: sdr.stream opens; counters read."""
