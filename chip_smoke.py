@@ -4118,11 +4118,11 @@ def held_on_path(dev, fn: str, tag: str, block: int = SCI_BUFFER,
     from gpu_sdr_tpu_torch.client import files
     from gpu_sdr_tpu_torch.engine import demodulator as dm
     from gpu_sdr_tpu_torch.engine.fused import FusedLoopback
+    from gpu_sdr_tpu_torch.engine.planner import _pair_tx
     from gpu_sdr_tpu_torch.ops import chirp, ddc, lockin
     from gpu_sdr_tpu_torch.ops import lockin_table as lt
     from gpu_sdr_tpu_torch.ops.channelizer import (channelizer,
                                                    channelizer_plain)
-    from gpu_sdr_tpu_torch.measure import _pair_tx
     from gpu_sdr_tpu_torch.ops.fold import fold, fold_plain
     from gpu_sdr_tpu_torch.params import AntMode, WaveType
     params = files.retrieve_params_from_file(fn)

@@ -4,8 +4,10 @@ gpu_sdr_tpu/engine/dispatch.py).
 ``plan_dispatch(params, ...)`` returns one :class:`Decision` per active
 RX antenna naming the top-level path ``run_measurement`` takes, the
 chain or kernel sub-path inside it and the deciding predicate, without
-running anything.  Every sub-path comes from the builders' own plan
-helpers, the functions their constructors call:
+running anything; run_measurement calls it once and carries its
+decisions out, so this is the only place a path is chosen.  Every
+sub-path comes from the builders' own plan helpers, the functions their
+constructors call:
 engine/fused.plan_fused_path (FusedLoopback), engine/replay.replay_path
 (DeviceReplay), parallel/fused_sharded.plan_sharded_channelizer_loopback,
 plan_sharded_chirp_table and plan_sharded_fold (the sharded chains) and
@@ -27,12 +29,11 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
-from ..measure import _is_mixed, _pair_tx, _replays_whole_blocks
 from ..params import AntMode, UsrpParams, WaveType
 from .demodulator import _mesh_plan
 from .dual import plan_dual
 from .fused import can_fuse, plan_fused_path
-from .planner import plan_blocks
+from .planner import _is_mixed, _pair_tx, plan_blocks
 from .replay import can_device_replay, can_segmented_replay, replay_path
 
 # top-level paths
@@ -172,6 +173,20 @@ def _plan_dual(params, mesh, warn) -> List[Decision]:
             for (name, _tx, _rx), sub in zip(pairs, subs)]
 
 
+def _replays_whole_blocks(source, rx, mesh=None) -> bool:
+    """A recording that one of the replays takes: within the device
+    budget or over it, and, when looped, a whole number of blocks (the
+    host-fed source's loop semantics need it) of the plan, or of the
+    mesh's plan."""
+    if not (can_device_replay(source) or can_segmented_replay(source)):
+        return False
+    plan = plan_blocks(rx)
+    if mesh is not None:
+        plan = _mesh_plan(plan, mesh)
+    loop = bool(getattr(source, "loop", False))
+    return not (loop and len(source.data) % plan.block_len)
+
+
 def _plan_source(rx_name, rx, source, mesh) -> Optional[Decision]:
     """A recording replayed from device memory, or None."""
     if not _replays_whole_blocks(source, rx, mesh):
@@ -196,9 +211,10 @@ def _plan_source(rx_name, rx, source, mesh) -> Optional[Decision]:
 
 def plan_dispatch(params: UsrpParams, source=None, channel=None,
                   mesh=None, warn: bool = True) -> List[Decision]:
-    """Predict run_measurement's routing without running anything, in
-    its decision order; with `warn` False, without plan_dual's warning
-    of front ends streamed in turn."""
+    """run_measurement's routing, without running anything, in its
+    order: every RX in lock-step, else each RX's own path; with `warn`
+    False, without plan_dual's warning of front ends streamed in
+    turn."""
     if source is None and channel is None:
         decisions = _plan_dual(params, mesh, warn)
         if decisions:

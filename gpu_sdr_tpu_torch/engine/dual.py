@@ -22,80 +22,49 @@ reference's lock-step timing semantics are degraded.
 from __future__ import annotations
 
 import logging
-import time
 from typing import List, Optional, Sequence, Tuple
 
 from ..config import resolve_device
 from ..params import AntennaParams, AntMode
 from .fused import FusedLoopback, can_fuse
-from .pipeline import PipelineResult, _finish, _HostFetch, _start
-from .planner import plan_blocks
-from .sinks import PacketMeta, Sink
+from .pipeline import PipelineResult, _loop
+from .planner import _is_mixed, _pair_tx, plan_blocks
+from .sinks import Sink
 
 log = logging.getLogger("gpu_sdr_tpu_torch.dual")
 
 
-def _run_lockstep(step_all, init_states, n_blocks: int, block_len: int,
-                  channels_per_fe: Sequence[int],
-                  rows_total_per_fe: Sequence[int],
-                  front_ends: Sequence[str],
-                  sinks_per_fe: Sequence[Sequence[Sink]],
-                  usrp_number: int, device) -> List[PipelineResult]:
-    """Shared lock-step acquisition loop: each step advances ALL
-    frontends by one block, then the previous step's outputs drain to
-    the sinks (the one-in-flight overlap of pipeline.run_chunked, through
-    the same _HostFetch).  The states are built before the sinks start:
-    they are set-up."""
-    n_fe = len(front_ends)
-    states = _start(init_states, device, sinks_per_fe,
-                    list(zip(channels_per_fe, rows_total_per_fe)))
-    fetch = _HostFetch(device)
-    pkts = [0] * n_fe
-    rows = [0] * n_fe
-    t0 = time.perf_counter()
+class _LockStep:
+    """Chains advanced in lock-step, one block each per step, through
+    the pipeline's one loop (pipeline._loop at depth 1, one output a
+    front end, coded with its full antenna name).  The states are built
+    before the sinks start: they are set-up."""
 
-    def drain(pending):
-        for i, p in enumerate(pending):
-            d = fetch.result(p)
-            meta = PacketMeta(usrp_number=usrp_number,
-                              front_end_code=front_ends[i],
-                              packet_number=pkts[i], length=int(d.size),
-                              errors=0, channels=int(d.shape[1]))
-            for s in sinks_per_fe[i]:
-                s.on_packet(meta, d)
-            rows[i] += d.shape[0]
-            pkts[i] += 1
+    def init_state(self) -> list:
+        """One state per chain (engine/checkpoint saves it as it is)."""
+        return [ch.init_state() for ch in self.chains]
 
-    pending = None
-    for _ in range(n_blocks):
-        states, outs = step_all(states)
-        nxt = [fetch.start(y) for y in outs]
-        if pending is not None:
-            drain(pending)
-        pending = nxt
-    if pending is not None:
-        drain(pending)
-    elapsed = time.perf_counter() - t0
-    _finish(sinks_per_fe, device)
-    return [PipelineResult(n_blocks=pkts[i], rows=rows[i],
-                           channels=channels_per_fe[i], elapsed_s=elapsed,
-                           samples_in=pkts[i] * block_len)
-            for i in range(n_fe)]
-
-
-def _step_all(chains):
-    """(states) -> (states', outputs): every chain one block, in order."""
-    def step_all(states):
+    def step(self, states):
+        """(states) -> (states', outputs): every chain one block, in
+        order."""
         new_states, outs = [], []
-        for ch, st in zip(chains, states):
+        for ch, st in zip(self.chains, states):
             st, y = ch.step(st)
             new_states.append(st)
             outs.append(y)
         return new_states, outs
-    return step_all
+
+    def run(self, sinks_per_fe: Sequence[Sequence[Sink]],
+            usrp_number: int = 0) -> List[PipelineResult]:
+        """Stream every acquisition; sinks_per_fe[i] receives front end
+        i's packets."""
+        return _loop(lambda states, _x: self.step(states), self.init_state,
+                     self.device,
+                     list(zip(sinks_per_fe, self.front_ends, self.starts)),
+                     self.n_blocks, self.block_len, usrp_number)
 
 
-class DualFused:
+class DualFused(_LockStep):
     """Two (or more) fused loopback chains advanced in lock-step, one
     block each per step, on one device."""
 
@@ -117,36 +86,25 @@ class DualFused:
             assert (p.block_len == p0.block_len and
                     p.n_blocks == p0.n_blocks), \
                 "lock-step chains need a common block plan"
-        self.step = _step_all(self.chains)
-
-    def init_state(self) -> list:
-        """One state per chain (engine/checkpoint saves it as it is)."""
-        return [ch.init_state() for ch in self.chains]
-
-    def run(self, sinks_per_fe: Sequence[Sequence[Sink]],
-            usrp_number: int = 0) -> List[PipelineResult]:
-        """Stream every acquisition; sinks_per_fe[i] receives frontend
-        i's packets."""
-        plan = self.chains[0].demod.plan
-        return _run_lockstep(
-            self.step, self.init_state, plan.n_blocks, plan.block_len,
-            [ch.demod.n_channels for ch in self.chains],
-            [ch.demod.plan.total_out_rows for ch in self.chains],
-            self.front_ends, sinks_per_fe, usrp_number, self.device)
+        self.block_len, self.n_blocks = p0.block_len, p0.n_blocks
+        self.starts = [(ch.demod.n_channels, ch.demod.plan.total_out_rows)
+                       for ch in self.chains]
 
 
-class DualShardedFused:
+class DualShardedFused(_LockStep):
     """Two (or more) SHARDED fused chains advanced in lock-step over the
-    mesh, one block each per step — the multi-device form of DualFused.
-    ``.ok`` is False when the frontends cannot share a mesh block plan,
-    or a chain does not tile: the caller streams sequentially."""
+    mesh, one block each per step — the multi-device form of DualFused;
+    each step's Sharded outputs are gathered onto the mesh's first
+    device by the fetch.  ``.ok`` is False when the frontends cannot
+    share a mesh block plan, or a chain does not tile: the caller
+    streams sequentially."""
 
     def __init__(self, pairs: Sequence[Tuple[str, AntennaParams,
                                              AntennaParams]], mesh):
         from ..parallel.fused_sharded import (make_sharded_fused,
                                               plan_sharded_block)
         assert len(pairs) >= 2
-        self.mesh = mesh
+        self.mesh, self.device = mesh, mesh.first
         self.rx_names = [name for name, _tx, _rx in pairs]
         self.front_ends = list(self.rx_names)
         plans = [plan_sharded_block(rx, mesh) for _n, _tx, rx in pairs]
@@ -161,21 +119,8 @@ class DualShardedFused:
                 self.ok = False
                 return
             self.chains.append(ch)
-        self.step = _step_all(self.chains)
-
-    def init_state(self) -> list:
-        return [ch.init_state() for ch in self.chains]
-
-    def run(self, sinks_per_fe: Sequence[Sequence[Sink]],
-            usrp_number: int = 0) -> List[PipelineResult]:
-        """As DualFused.run; each step's Sharded outputs are gathered
-        onto the mesh's first device by the fetch."""
-        nb = self.n_blocks
-        return _run_lockstep(
-            self.step, self.init_state, nb, self.block_len,
-            [ch.n_tones for ch in self.chains],
-            [ch.T * ch.ft * nb for ch in self.chains],
-            self.front_ends, sinks_per_fe, usrp_number, self.mesh.first)
+        self.starts = [(ch.n_tones, ch.T * ch.ft * self.n_blocks)
+                       for ch in self.chains]
 
 
 def _sequential(reason: str, warn: bool = True):
@@ -198,7 +143,6 @@ def plan_dual(params, mesh=None, warn: bool = True
     warning unless `warn` is False).  With a mesh, fusability is judged
     against the sharded chains (can_fuse_sharded) and the mesh block
     planner."""
-    from ..measure import _pair_tx
     rxs = list(params.active_antennas(AntMode.RX))
     if len(rxs) < 2:
         return None
@@ -208,8 +152,7 @@ def plan_dual(params, mesh=None, warn: bool = True
     pairs = []
     plan0 = None
     for rx_name, rx in rxs:
-        if rx.wave_type and any(w != rx.wave_type[0]
-                                for w in rx.wave_type):
+        if _is_mixed(rx):
             return _sequential(f"{rx_name} is mixed-mode", warn)
         tx_name = _pair_tx(params, rx_name)
         tx = params.antenna(tx_name) if tx_name else None

@@ -1,6 +1,8 @@
 """Commensurate block planning (a copy of gpu_sdr_tpu/engine/planner.py,
 which has no JAX in it but is reachable only through the JAX engine
-package).
+package), and the two facts of an antenna every path's choice starts
+from: whether it mixes wave types (_is_mixed) and which TX drives it
+(_pair_tx).
 
 The reference streams fixed 1 Msample blocks and absorbs the incommensurate
 remainders (FFT windows, ppt segments, decimation groups straddling block
@@ -21,9 +23,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
-from ..params import (AntennaParams, DEFAULT_BUFFER_LEN, MAX_USEFULL_BUFFER,
-                      MIN_USEFULL_BUFFER, WaveType, chirp_steps_and_length)
+from ..params import (AntennaParams, AntMode, DEFAULT_BUFFER_LEN,
+                      MAX_USEFULL_BUFFER, MIN_USEFULL_BUFFER, UsrpParams,
+                      WaveType, chirp_steps_and_length)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,3 +93,21 @@ def plan_blocks(p: AntennaParams, samples: int | None = None) -> BlockPlan:
         n_blocks=n_blocks,
         total_samples=n_blocks * block_len,
     )
+
+
+def _is_mixed(rx: AntennaParams) -> bool:
+    """Antenna with more than one wave type."""
+    return bool(rx.wave_type) and any(w != rx.wave_type[0]
+                                      for w in rx.wave_type)
+
+
+def _pair_tx(params: UsrpParams, rx_name: str) -> Optional[str]:
+    """The TX antenna driving a given RX: same front end letter first
+    (the reference's A_TXRX -> A_RX2 pairing), else any TX."""
+    letter = rx_name[0]
+    for name, p in params.active_antennas(AntMode.TX):
+        if name.startswith(letter):
+            return name
+    for name, p in params.active_antennas(AntMode.TX):
+        return name
+    return None

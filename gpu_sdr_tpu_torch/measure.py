@@ -1,9 +1,11 @@
 """In-process measurement execution (port of gpu_sdr_tpu/measure.py).
 
 Given a validated UsrpParams, build TX generators and RX demodulators
-and route TX -> channel -> RX on one device.  First, with no source and
-no channel model, two or more RX front ends whose loopbacks fuse with
-one block plan run in lock-step (``dual_fused``, engine/dual.DualFused;
+and route TX -> channel -> RX on one device.  engine/dispatch.
+plan_dispatch chooses every path, once a call; this module carries its
+decisions out, a runner a path.  First, with no source and no channel
+model, two or more RX front ends whose loopbacks fuse with one block
+plan run in lock-step (``dual_fused``, engine/dual.DualFused;
 ``dual_sharded_fused`` under a mesh).  Otherwise each RX takes its own
 branch in turn, in the JAX package's order:
 
@@ -44,15 +46,18 @@ import numpy as np
 
 from . import spans
 from .config import maybe_profile, resolve_device
-from .engine import (FusedLoopback, can_fuse, make_demodulator,
-                     make_generator, run_pipeline)
+from .engine import (FusedLoopback, make_demodulator, make_generator,
+                     run_pipeline)
 from .engine.channel import Channel, IdealChannel
-from .engine.demodulator import _mesh_plan
-from .engine.dual import DualFused, DualShardedFused, plan_dual
+from .engine.dispatch import (DEVICE_REPLAY, DUAL_FUSED, DUAL_SHARDED,
+                              FUSED_LOOPBACK, HOST_MIXED, HOST_PIPELINE,
+                              SEGMENTED_REPLAY, SHARDED_FUSED,
+                              SHARDED_REPLAY, SHARDED_SEGMENTED,
+                              plan_dispatch)
+from .engine.dual import DualFused, DualShardedFused
 from .engine.pipeline import run_pipeline_mixed
-from .engine.planner import plan_blocks
-from .engine.replay import (DeviceReplay, SegmentedDeviceReplay,
-                            can_device_replay, can_segmented_replay)
+from .engine.planner import _pair_tx, plan_blocks
+from .engine.replay import DeviceReplay, SegmentedDeviceReplay
 from .engine.sinks import Sink
 from .engine.sources import Source, WhiteNoiseSource
 from .params import AntMode, UsrpParams
@@ -131,38 +136,6 @@ class ChannelSource(Source):
             emitted += 1
 
 
-def _is_mixed(rx) -> bool:
-    """Antenna with more than one wave type."""
-    return bool(rx.wave_type) and any(w != rx.wave_type[0]
-                                      for w in rx.wave_type)
-
-
-def _pair_tx(params: UsrpParams, rx_name: str) -> Optional[str]:
-    """The TX antenna driving a given RX: same front end letter first
-    (the reference's A_TXRX -> A_RX2 pairing), else any TX."""
-    letter = rx_name[0]
-    for name, p in params.active_antennas(AntMode.TX):
-        if name.startswith(letter):
-            return name
-    for name, p in params.active_antennas(AntMode.TX):
-        return name
-    return None
-
-
-def _replays_whole_blocks(source, rx, mesh=None) -> bool:
-    """A recording that one of the replays takes: within the device
-    budget or over it, and, when looped, a whole number of blocks (the
-    host-fed source's loop semantics need it) of the plan, or of the
-    mesh's plan."""
-    if not (can_device_replay(source) or can_segmented_replay(source)):
-        return False
-    plan = plan_blocks(rx)
-    if mesh is not None:
-        plan = _mesh_plan(plan, mesh)
-    loop = bool(getattr(source, "loop", False))
-    return not (loop and len(source.data) % plan.block_len)
-
-
 def run_measurement(params: UsrpParams, filename: Optional[str] = None,
                     channel: Optional[Channel] = None,
                     source: Optional[Source] = None,
@@ -190,24 +163,24 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
     antenna's group `aborted`.  With GPU_SDR_TPU_PROFILE set, the run
     is traced into that directory (config.maybe_profile).  Each call
     appends its record to RUNS."""
-    from .engine.dispatch import plan_dispatch
     dev = mesh.first if mesh is not None else resolve_device(device)
     profile = maybe_profile("measurement", dev)
     with spans.call(trace=bool(profile.dir)) as rec:
         with spans.once("sdr.setup.plan"):
             params.validate()
-            plan = [list(d.key()) for d in plan_dispatch(
-                params, source=source, channel=channel, mesh=mesh,
-                warn=False)]
+            decisions = plan_dispatch(params, source=source,
+                                      channel=channel, mesh=mesh)
             plans = [plan_blocks(rx)
                      for _, rx in params.active_antennas(AntMode.RX)]
         t0 = time.perf_counter()
         with profile:
-            out = _measure(params, filename, channel, source, extra_sinks,
-                           trigger, mesh, dev, tags)
+            run = _Run(params, filename, trigger, tags, extra_sinks,
+                       source, channel, mesh, dev)
+            out = _measure(run, decisions)
         seconds = time.perf_counter() - t0
     RUNS.append(dict(
-        plan=plan, dispatch=[list(k) for k in LAST_DISPATCH],
+        plan=[list(d.key()) for d in decisions],
+        dispatch=[list(k) for k in LAST_DISPATCH],
         blocks=sum(p.n_blocks for p in plans),
         samples=sum(p.total_samples for p in plans),
         seconds=seconds, stream_seconds=rec.stream_seconds(),
@@ -215,83 +188,43 @@ def run_measurement(params: UsrpParams, filename: Optional[str] = None,
     return out
 
 
-def _measure(params, filename, channel, source, extra_sinks, trigger, mesh,
-             dev, tags) -> Optional[str]:
+def _measure(run, decisions) -> Optional[str]:
+    """Carry out plan_dispatch's decisions: the front ends in lock-step
+    as one group, else each RX's own path in turn."""
     LAST_DISPATCH.clear()
-    run = _Run(params, filename, trigger, tags, extra_sinks)
-    # concurrent A/B front ends: >= 2 fusable RX chains advance in
-    # lock-step on a shared sample timebase (engine/dual.py)
-    if source is None and channel is None and _run_dual(run, mesh, dev):
-        return run.out_name
-    for rx_name, rx in params.active_antennas(AntMode.RX):
-        tx_name = _pair_tx(params, rx_name)
-        tx = params.antenna(tx_name) if tx_name else None
-        mixed = _is_mixed(rx)
-        run_kw = dict(usrp_number=params.usrp_number, front_end=rx_name[0])
-        if mesh is None and source is None and channel is None and \
-                not mixed and tx is not None and can_fuse(tx, rx) and \
-                rx.delay <= tx.delay:
-            with spans.once("sdr.setup.build"):
-                fused = FusedLoopback(tx, rx, device=dev)
-            _record_dispatch(rx_name, "fused_loopback", fused.path)
-            fused.run(run.sinks(rx_name), **run_kw)
-            continue
-        if mesh is not None and not mixed and \
-                _run_on_mesh(run, rx_name, tx, rx, mesh, source, channel,
-                             run_kw):
-            continue
-        if mesh is None and source is not None and channel is None and \
-                not mixed and _replays_whole_blocks(source, rx):
-            loop = bool(getattr(source, "loop", False))
-            with spans.once("sdr.setup.build"):
-                if can_device_replay(source):
-                    replay = DeviceReplay(rx, source.data, loop=loop,
-                                          device=dev)
-                    _record_dispatch(rx_name, "device_replay", replay.path)
-                else:
-                    replay = SegmentedDeviceReplay(rx, source.data,
-                                                   loop=loop, device=dev)
-                    _record_dispatch(rx_name, "segmented_replay")
-            replay.run(run.sinks(rx_name), **run_kw)
-            continue
-        with spans.once("sdr.setup.build"):
-            demod = make_demodulator(rx, dev, mesh=mesh)
-        if source is not None:
-            src = source
-        elif tx is not None:
-            with spans.once("sdr.setup.build"):
-                gen = make_generator(tx, demod.plan.block_len, dev)
-            # timed RX start: honor the delay parameter difference
-            skip = int(round(max(rx.delay - tx.delay, 0.0) * rx.rate))
-            src = ChannelSource(gen, channel or IdealChannel(),
-                                skip_samples=skip)
-        else:
-            src = WhiteNoiseSource()
-        if mixed:
-            # one demodulator a wave type over the same stream; group 0
-            # fills `data` and takes the trigger, group k a `mixed_<k>`
-            _record_dispatch(rx_name, "host_pipeline_mixed")
-            run_pipeline_mixed(demod, src, [
-                run.sinks(rx_name, k, g) for k, g in enumerate(demod.groups)],
-                **run_kw)
-        else:
-            _record_dispatch(rx_name, "host_pipeline")
-            run_pipeline(demod, src, run.sinks(rx_name), **run_kw)
-        if run.out_name is not None and getattr(src, "aborted", False):
-            _flag_aborted(run.out_name, params.usrp_number, rx_name, src)
+    if decisions and decisions[0].path in (DUAL_FUSED, DUAL_SHARDED):
+        _lockstep(run, decisions)
+    else:
+        for d in decisions:
+            _RUNNERS[d.path](run, d)
     return run.out_name
 
 
 class _Run:
-    """The sinks of one run_measurement call: `extra_sinks`, and with a
-    file name an H5Sink an antenna (or a mixed antenna's group) into the
-    one file, in the JAX package's arguments."""
+    """One run_measurement call: its inputs, and its sinks:
+    `extra_sinks`, and with a file name an H5Sink an antenna (or a mixed
+    antenna's group) into the one file, in the JAX package's
+    arguments."""
 
-    def __init__(self, params, filename, trigger, tags, extra_sinks):
+    def __init__(self, params, filename, trigger, tags, extra_sinks,
+                 source, channel, mesh, dev):
         self.params, self.filename = params, filename
         self.trigger, self.tags = trigger, tags
         self.extra = list(extra_sinks)
+        self.source, self.channel = source, channel
+        self.mesh, self.dev = mesh, dev
         self.out_name = None
+
+    def antennas(self, rx_name: str) -> tuple:
+        """(tx, rx): antenna `rx_name` and the TX driving it, or None."""
+        tx_name = _pair_tx(self.params, rx_name)
+        tx = self.params.antenna(tx_name) if tx_name else None
+        return tx, self.params.antenna(rx_name)
+
+    def kw(self, rx_name: str) -> dict:
+        """A single front end's packet stamps: coded with its letter."""
+        return dict(usrp_number=self.params.usrp_number,
+                    front_end=rx_name[0])
 
     def sinks(self, rx_name: str, k: int = 0, group=None) -> list:
         """The sinks of antenna `rx_name`, or of group `k` (a
@@ -311,6 +244,108 @@ class _Run:
         return sinks + [sink]
 
 
+def _lockstep(run, decisions) -> None:
+    """``dual_fused``, or ``dual_sharded_fused`` under a mesh: every RX
+    in lock-step, each front end with its own sinks (one H5Sink each,
+    into the one file)."""
+    pairs = [(d.rx_name, *run.antennas(d.rx_name)) for d in decisions]
+    with spans.once("sdr.setup.build"):
+        dual = (DualFused(pairs, device=run.dev) if run.mesh is None
+                else DualShardedFused(pairs, run.mesh))
+    for d, ch in zip(decisions, dual.chains):
+        _record_dispatch(d.rx_name, d.path, ch.path)
+    dual.run([run.sinks(d.rx_name) for d in decisions],
+             usrp_number=run.params.usrp_number)
+
+
+def _fused_loopback(run, d) -> None:
+    """The ideal loopback's whole chain on the device (engine/fused.py)."""
+    tx, rx = run.antennas(d.rx_name)
+    with spans.once("sdr.setup.build"):
+        fused = FusedLoopback(tx, rx, device=run.dev)
+    _record_dispatch(d.rx_name, d.path, fused.path)
+    fused.run(run.sinks(d.rx_name), **run.kw(d.rx_name))
+
+
+def _sharded_fused(run, d) -> None:
+    """The ideal loopback's chain sharded over the mesh
+    (parallel/fused_sharded.py), on the mesh's block plan."""
+    from .parallel.fused_sharded import (make_sharded_fused,
+                                         plan_sharded_block)
+    tx, rx = run.antennas(d.rx_name)
+    L, nb = plan_sharded_block(rx, run.mesh)
+    with spans.once("sdr.setup.build"):
+        sf = make_sharded_fused(tx, rx, run.mesh, block_len=L)
+    _record_dispatch(d.rx_name, d.path, sf.path)
+    sf.run(run.sinks(d.rx_name), n_blocks=nb, **run.kw(d.rx_name))
+
+
+def _replay(run, d) -> None:
+    """A recording demodulated from device memory: resident
+    (DeviceReplay, ShardedDeviceReplay) or staged segment by segment
+    (SegmentedDeviceReplay, ShardedSegmentedReplay)."""
+    rx = run.params.antenna(d.rx_name)
+    data, loop = run.source.data, bool(getattr(run.source, "loop", False))
+    with spans.once("sdr.setup.build"):
+        if d.path == DEVICE_REPLAY:
+            replay = DeviceReplay(rx, data, loop=loop, device=run.dev)
+        elif d.path == SEGMENTED_REPLAY:
+            replay = SegmentedDeviceReplay(rx, data, loop=loop,
+                                           device=run.dev)
+        else:
+            from .parallel.sharded_replay import (ShardedDeviceReplay,
+                                                  ShardedSegmentedReplay)
+            cls = (ShardedDeviceReplay if d.path == SHARDED_REPLAY
+                   else ShardedSegmentedReplay)
+            replay = cls(rx, data, run.mesh, loop=loop)
+    _record_dispatch(d.rx_name, d.path, getattr(replay, "path", None))
+    replay.run(run.sinks(d.rx_name), **run.kw(d.rx_name))
+
+
+def _host(run, d) -> None:
+    """The host-fed demodulator (sharded under a mesh), fed by the given
+    source, else by the paired TX's generator through the channel model,
+    else by white noise; a mixed antenna's one demodulator a wave type
+    over the same stream, group 0 filling `data` and taking the trigger,
+    group k a `mixed_<k>`."""
+    tx, rx = run.antennas(d.rx_name)
+    with spans.once("sdr.setup.build"):
+        demod = make_demodulator(rx, run.dev, mesh=run.mesh)
+    if run.source is not None:
+        src = run.source
+    elif tx is not None:
+        with spans.once("sdr.setup.build"):
+            gen = make_generator(tx, demod.plan.block_len, run.dev)
+        # timed RX start: honor the delay parameter difference
+        skip = int(round(max(rx.delay - tx.delay, 0.0) * rx.rate))
+        src = ChannelSource(gen, run.channel or IdealChannel(),
+                            skip_samples=skip)
+    else:
+        src = WhiteNoiseSource()
+    _record_dispatch(d.rx_name, d.path)
+    if d.path == HOST_MIXED:
+        run_pipeline_mixed(demod, src, [
+            run.sinks(d.rx_name, k, g) for k, g in enumerate(demod.groups)],
+            **run.kw(d.rx_name))
+    else:
+        run_pipeline(demod, src, run.sinks(d.rx_name), **run.kw(d.rx_name))
+    if run.out_name is not None and getattr(src, "aborted", False):
+        _flag_aborted(run.out_name, run.params.usrp_number, d.rx_name, src)
+
+
+# the runner of each path but the lock-step ones
+_RUNNERS = {
+    FUSED_LOOPBACK: _fused_loopback,
+    SHARDED_FUSED: _sharded_fused,
+    DEVICE_REPLAY: _replay,
+    SEGMENTED_REPLAY: _replay,
+    SHARDED_REPLAY: _replay,
+    SHARDED_SEGMENTED: _replay,
+    HOST_PIPELINE: _host,
+    HOST_MIXED: _host,
+}
+
+
 def _flag_aborted(filename, usrp_number, rx_name, src) -> None:
     """Stamp an aborted (under-delivered) acquisition on its H5 group so
     analysis can tell a short file from a complete one: the reference
@@ -322,68 +357,3 @@ def _flag_aborted(filename, usrp_number, rx_name, src) -> None:
         g.attrs["aborted"] = True
         g.attrs["shortfall_blocks"] = int(
             getattr(src, "shortfall_blocks", 0))
-
-
-def _run_dual(run, mesh, dev) -> bool:
-    """The lock-step branch, first in the JAX package's order
-    (gpu_sdr_tpu/measure.py:154-185): DualFused, or DualShardedFused
-    under a mesh, when plan_dual gives the pairs and the sharded chains
-    share a plan; each front end has its own sinks (one H5Sink each,
-    into the one file).  Whether it ran; if not, the caller streams each
-    RX in turn."""
-    pairs = plan_dual(run.params, mesh=mesh)
-    if pairs is None:
-        return False
-    with spans.once("sdr.setup.build"):
-        dual = (DualFused(pairs, device=dev) if mesh is None
-                else DualShardedFused(pairs, mesh))
-    if not getattr(dual, "ok", True):
-        return False                   # untileable: the sequential path
-    path = "dual_fused" if mesh is None else "dual_sharded_fused"
-    for (rx_name, _tx, _rx), ch in zip(pairs, dual.chains):
-        _record_dispatch(rx_name, path, ch.path)
-    dual.run([run.sinks(rx_name) for rx_name, _tx, _rx in pairs],
-             usrp_number=run.params.usrp_number)
-    return True
-
-
-def _run_on_mesh(run, rx_name, tx, rx, mesh, source, channel,
-                 run_kw) -> bool:
-    """The mesh branches, in the JAX package's order: the sharded fused
-    chain (an ideal loopback, no channel model), then a recording
-    replayed from the mesh's devices (within the device budget:
-    ShardedDeviceReplay; over it: ShardedSegmentedReplay), when looped
-    in whole blocks of the sharded plan.  Whether a branch ran; if none
-    did, the caller takes the host pipeline with the sharded
-    demodulator."""
-    from .parallel.fused_sharded import (can_fuse_sharded,
-                                         make_sharded_fused,
-                                         plan_sharded_block)
-    from .parallel.sharded_replay import (ShardedDeviceReplay,
-                                          ShardedSegmentedReplay)
-    if source is None and channel is None:
-        if tx is None or not can_fuse_sharded(tx, rx, mesh) or \
-                rx.delay > tx.delay:
-            return False
-        L, nb = plan_sharded_block(rx, mesh)
-        with spans.once("sdr.setup.build"):
-            sf = make_sharded_fused(tx, rx, mesh, block_len=L)
-        if sf is None:                 # untileable: the host pipeline
-            return False
-        _record_dispatch(rx_name, "sharded_fused", sf.path)
-        sf.run(run.sinks(rx_name), n_blocks=nb, **run_kw)
-        return True
-    if source is None or channel is not None or \
-            not _replays_whole_blocks(source, rx, mesh):
-        return False
-    loop = bool(getattr(source, "loop", False))
-    with spans.once("sdr.setup.build"):
-        if can_device_replay(source):
-            replay = ShardedDeviceReplay(rx, source.data, mesh, loop=loop)
-            _record_dispatch(rx_name, "sharded_replay", replay.path)
-        else:
-            replay = ShardedSegmentedReplay(rx, source.data, mesh,
-                                            loop=loop)
-            _record_dispatch(rx_name, "sharded_segmented_replay")
-    replay.run(run.sinks(rx_name), **run_kw)
-    return True

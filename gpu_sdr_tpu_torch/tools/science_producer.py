@@ -48,8 +48,8 @@ def main():
 
     from gpu_sdr_tpu_torch.engine.channel import make_resonator_channel
     from gpu_sdr_tpu_torch.engine.generator import make_generator
-    from gpu_sdr_tpu_torch.engine.planner import plan_blocks
-    from gpu_sdr_tpu_torch.measure import ChannelSource, _pair_tx
+    from gpu_sdr_tpu_torch.engine.planner import _pair_tx, plan_blocks
+    from gpu_sdr_tpu_torch.measure import ChannelSource
     from gpu_sdr_tpu_torch.params import AntMode, UsrpParams
 
     with open(args.params) as f:

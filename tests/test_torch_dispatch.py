@@ -4,10 +4,14 @@ the module declares, exactly the path run_measurement(device="cpu")
 takes (measure.LAST_DISPATCH), modelled on tests/test_dispatch_table.py.
 The JAX package's plan_dispatch (Pallas on) on the same battery differs
 from the port's exactly on a pinned list of cases, each tagged with the
-ROADMAP Queue 3 entry it comes from, so a new drift fails.
+ROADMAP Queue 3 entry it comes from, so a new drift fails.  No module
+of engine/ or parallel/ imports measure, which carries the plan out
+from above them.
 """
 
+import ast
 import collections
+import pathlib
 
 import numpy as np
 import pytest
@@ -376,3 +380,45 @@ def test_jax_plan_differs_only_where_pinned(monkeypatch, name):
         assert jplan == JAX_DIFFERS[name][1]
     else:
         assert jplan == c.expect
+
+
+# ---------------------------------------------------------------------
+# the arrows: measure sits above engine/ and parallel/
+
+PKG = pathlib.Path(measure.__file__).parent
+# entry points run with ``python -m`` that drive run_measurement from
+# above it; no module of the package imports them
+ENTRY_POINTS = {"gpu_sdr_tpu_torch.parallel.rehearsal"}
+
+
+def _module(path):
+    return ".".join(path.relative_to(PKG.parent).with_suffix("").parts)
+
+
+def _imported(path) -> set:
+    """Every module `path` imports, at its top or inside a function,
+    relative imports resolved, ``from a import b`` counted as a and
+    a.b."""
+    parts = _module(path).split(".")[:-1]
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = parts[:len(parts) - node.level + 1] if node.level else []
+            src = ".".join(base + ([node.module] if node.module else []))
+            out |= {src} | {f"{src}.{a.name}" for a in node.names}
+    return out
+
+
+def test_engine_and_parallel_import_nothing_of_measure():
+    every = sorted(PKG.rglob("*.py"))
+    below = [p for p in every if p.parent.name in ("engine", "parallel")]
+    assert len(below) > 20
+    up = {_module(p) for p in below
+          if "gpu_sdr_tpu_torch.measure" in _imported(p)}
+    assert up <= ENTRY_POINTS, up
+    for entry in ENTRY_POINTS:
+        path = PKG.parent.joinpath(*entry.split(".")).with_suffix(".py")
+        assert 'if __name__ == "__main__":' in path.read_text()
+        assert not [p for p in every if entry in _imported(p)]

@@ -26,7 +26,7 @@ from gpu_sdr_tpu.engine.channel import IdealChannel as JIdealChannel
 from gpu_sdr_tpu.engine.sinks import MemorySink as JMemorySink
 from gpu_sdr_tpu.ops import cplx as jcplx
 from gpu_sdr_tpu.parallel import make_mesh as jmake_mesh
-from gpu_sdr_tpu_torch import convert, measure
+from gpu_sdr_tpu_torch import convert, measure, spans
 from gpu_sdr_tpu_torch import params as tparams
 from gpu_sdr_tpu_torch.engine import dual
 from gpu_sdr_tpu_torch.engine.channel import IdealChannel
@@ -251,6 +251,33 @@ def test_dual_chirp_matches_single_chains_and_jax():
         np.testing.assert_array_equal(ref.data, sink.data)
         assert golden.snr_db(jd, sink.data) > 90.0
         np.testing.assert_allclose(np.abs(sink.data), tx.ampl[0], rtol=1e-5)
+
+
+def test_dual_runs_the_pipelines_loop_with_its_spans():
+    """DualFused streams through the pipeline's one loop: sdr.loop.block
+    and sdr.loop.step once a block, sdr.drain.wait and sdr.drain.sinks
+    once a block a front end (an output each, as a mixed antenna's
+    groups), one block in flight behind the next, and the packets those
+    of a run with the recorder off."""
+    pairs = dual.plan_dual(direct_dual(tparams))
+    off = [MemorySink(), MemorySink()]
+    dual.DualFused(pairs, device="cpu").run([[s] for s in off])
+    on = [MemorySink(), MemorySink()]
+    with spans.recording() as rec:
+        res = dual.DualFused(pairs, device="cpu").run([[s] for s in on])
+    n = res[0].n_blocks
+    assert n == 4
+    t = rec.table()
+    for name, per_block in (("sdr.loop.block", 1), ("sdr.loop.step", 1),
+                            ("sdr.fetch.start", 1), ("sdr.inflight", 1),
+                            ("sdr.drain.wait", 2), ("sdr.drain.sinks", 2)):
+        blocks = sorted(t[t["name"] == rec.name_id(name)]["block"])
+        assert blocks == sorted(list(range(n)) * per_block), name
+    assert rec.record()["counters"]["inflight_max"] == 2
+    for a, b in zip(on, off):
+        assert a.metas == b.metas
+        for x, y in zip(a.packets, b.packets):
+            np.testing.assert_array_equal(x, y)
 
 
 def test_dual_shared_timebase_phase_alignment():
