@@ -110,7 +110,12 @@ and exits non-zero at the first phase that fails:
    (``scan``); then ``SegmentedDeviceReplay`` in 2-block segments over
    16 blocks of a 6-block recording and of a looped 3-block one, with
    its staging time per segment.  Each is held against the host-fed
-   pipeline over the same recording at >= 90 dB SNR.
+   pipeline over the same recording at >= 90 dB SNR.  Then ("replay
+   graphs") the replay's CUDA graphs of 8 blocks at the direct100 and
+   tones1000 cells' configurations on a 24-block recording: 53 packets
+   bit for bit the eager loop's, one #8 / #4 launch a block in the
+   profiler's trace, ``graph_blocks`` the packets less the eager first
+   and tail groups.
 
 12. the sharded layer's kernels against their plain versions and a
    float64 oracle at full width, on the shards of a (time=2) mesh: the
@@ -435,6 +440,8 @@ R_CHIRP6M = (8, 20)                 # config 2 at 6,000,000: chirp_at
 R_SCAN = (5.5, 8)                   # config 3, not looped: scan
 R_SEGMENTED = ((6, False), (3, True))   # recordings over 16 blocks
 R_SEG_BLOCKS, R_SEG_ACQ = 2, 16
+R_GRAPHS = (24, 53)     # the replay cells' configurations: 3 graphs of 8
+                        # blocks; an eager first 8, 5 replays, an eager 5
 S_BLOCKS, S_HOST = 10, 4            # blocks of the sharded main path's runs
 
 # the deep FIR: decimation 10 keeps the oracle and the plain versions
@@ -2163,7 +2170,10 @@ def host_fed_replay(dev, params, path, loop, pkt):
 def replay_run(dev, name, params, path, loop, make_pkt, n, block, channels,
                sub, kernel):
     """run_measurement(source=ReplaySource(path)) after a warm-up, its
-    launches counted: (pkt, launches of `kernel`)."""
+    launches counted: (pkt, launches of `kernel`).  A chain that runs
+    K blocks a CUDA graph (DeviceReplay.graph_group() above 1) launches
+    its kernel K times more, in the set-up's warm-up."""
+    from gpu_sdr_tpu_torch.engine.replay import DeviceReplay
     from gpu_sdr_tpu_torch.engine.sources import ReplaySource
 
     def run(n_blocks, pkt):
@@ -2172,12 +2182,16 @@ def replay_run(dev, name, params, path, loop, make_pkt, n, block, channels,
                         source=ReplaySource(path, loop=loop))
     run(2, make_pkt())                                      # warm-up
     (pkt, disp, msps, wall), counts = counted(lambda: run(n, make_pkt()))
+    K = DeviceReplay(receiver_only(params(n)).A_RX2, np.load(path),
+                     loop=loop, device=dev).graph_group()
+    warm = K if K > 1 else 0
     print(f"replay {name}: {disp}, {n} blocks of {block} samples, "
-          f"{counts[kernel]} {kernel} launches; {msps:.1f} Msps "
+          f"{counts[kernel]} {kernel} launches ({warm} of them the "
+          f"warm-up of graphs of {K} blocks); {msps:.1f} Msps "
           f"streaming, {wall:.3f} s with set-up (the upload)")
     check(disp == (("A_RX2", "device_replay", sub),),
           f"replay {name} dispatch {disp}")
-    check(counts[kernel] == n and
+    check(counts[kernel] == n + warm and
           all(v == 0 for k, v in counts.items() if k != kernel),
           f"replay {name} launches {counts}")
     return pkt, counts[kernel]
@@ -2335,6 +2349,80 @@ def phase_replay_main_path(dev, tones_fused):
                   f"segment [{stage}]")
             held_against(name, host.kept, pkt.kept)
     return launches
+
+
+def phase_replay_graphs(dev):
+    """The device replay's CUDA graphs of K blocks (engine/replay.
+    _GraphGroups) at both replay cells' configurations (benchmark/
+    configs/direct100.json: #8; tones1000.json: #4) on a resident
+    recording of R_GRAPHS' blocks: every packet of the graph run bit for
+    bit the eager run's (one block a step, graph_group() held at 1), one
+    #8 or #4 launch a block in the device trace beside the K of the
+    set-up's warm-up, the launch counters equal to the trace's, and
+    ``graph_blocks`` the packets less the eager first and tail groups."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gpu_sdr_tpu_torch import spans
+    from gpu_sdr_tpu_torch.engine.replay import DeviceReplay, group_blocks
+    from gpu_sdr_tpu_torch.engine.sinks import CallbackSink
+    from gpu_sdr_tpu_torch.params import AntMode, AntennaParams, WaveType
+
+    rec_blocks, n = R_GRAPHS
+    K = group_blocks(rec_blocks)
+    for cell, sub, counter, kname in (
+            ("direct100", "replay_kernel", "replay_ddc", "ddc_"),
+            ("tones1000", "channelizer_at", "channelizer_at",
+             "channelizer_kernel")):
+        with open(os.path.join(HERE, "benchmark", "configs",
+                               cell + ".json")) as fh:
+            rx = dict(json.load(fh)["rx"])
+        wave = WaveType[rx.pop("wave_type")]
+        L = int(rx["buffer_len"])
+        rx = AntennaParams(mode=AntMode.RX, samples=n * L,
+                           wave_type=[wave] * len(rx["freq"]), **rx)
+        gen = torch.Generator(device=dev).manual_seed(2828)
+        data = torch.randn(rec_blocks * L, dtype=torch.complex64,
+                           device=dev, generator=gen).cpu().numpy()
+        replay = DeviceReplay(rx, data, loop=True, device=dev)
+        check(replay.path == sub, f"graphs {cell}: sub-path {replay.path}")
+        check(replay.graph_group() == K, f"graphs {cell}: K "
+              f"{replay.graph_group()}")
+        eager = DeviceReplay(rx, data, loop=True, device=dev)
+        eager.graph_group = lambda: 1
+        runs = {}
+        for mode, rp in (("eager", eager), ("graphs", replay)):
+            got = []
+            sink = CallbackSink(lambda m, d: got.append((m.packet_number, d)))
+            with spans.recording() as recorder, profile(
+                    activities=[ProfilerActivity.CUDA]) as prof:
+                (res, counts) = counted(lambda: rp.run([sink]))
+            torch.cuda.synchronize(dev)
+            traced = sum(e.count for e in prof.key_averages()
+                         if kname in e.key)
+            blocks = recorder.record()["counters"]["graph_blocks"]
+            runs[mode] = got
+            print(f"graphs {cell} {mode}: {len(got)} packets, "
+                  f"{res.msps:.1f} Msps streaming, launches "
+                  f"{counts[counter]}, traced {kname} {traced}, "
+                  f"graph_blocks {blocks}")
+            check([k for k, _ in got] == list(range(n)),
+                  f"graphs {cell} {mode}: packet numbers")
+            warm = K if mode == "graphs" else 0
+            check(traced == n + warm,
+                  f"graphs {cell} {mode}: {traced} {kname} kernels traced, "
+                  f"{n} blocks and {warm} warm-up")
+            check(counts[counter] == traced and all(
+                v == 0 for k, v in counts.items() if k != counter),
+                f"graphs {cell} {mode}: launches {counts}, traced {traced}")
+            want = n - K - n % K if mode == "graphs" else 0
+            check(blocks == want,
+                  f"graphs {cell} {mode}: graph_blocks {blocks}, want "
+                  f"{want}")
+        same = all(a[1].shape == b[1].shape and np.array_equal(a[1], b[1])
+                   for a, b in zip(runs["eager"], runs["graphs"]))
+        check(same, f"graphs {cell}: graph packets differ from eager")
+        print(f"graphs {cell}: {n} packets bit for bit the eager run's, "
+              f"K {K}, shape {runs['graphs'][0][1].shape}")
 
 
 def phase_sharded_main_path(dev, meshes=None):
@@ -5515,6 +5603,7 @@ def main() -> int:
                               dev))
         launches.update(timed("replay main path", phase_replay_main_path,
                               dev, tones_fused))
+        timed("replay graphs", phase_replay_graphs, dev)
         rows.update(timed("sharded kernels", phase_sharded_kernels, dev))
         launches.update(timed("sharded main path", phase_sharded_main_path,
                               dev))

@@ -95,13 +95,17 @@ class _HostFetch:
 
 def _loop(step, init_state, device, outputs, n_blocks: int,
           block_len: int, usrp_number: int = 0, feed=None,
-          depth: int = 1) -> List[PipelineResult]:
+          depth: int = 1, group: int = 1) -> List[PipelineResult]:
     """The host loop of every path: `step(state, x) -> (state, outputs)`,
     output k drained to the sinks of outputs[k], a (sinks, front_end,
     (channels, rows)) triple, whose sinks start with (channels, rows).
     With a HostFeed `feed`, x is each of its device blocks (n_blocks at
     most) and its error count stamps the block's packets; without one
-    (the device chains), x is None n_blocks times.
+    (the device chains), x is the block count of each step: `group`,
+    n_blocks // group times, then the rest.  A step of nb blocks gives
+    each output as the nb blocks' outputs stacked, one copy to the host
+    a step; each block is drained as its own packet, from its rows of
+    that copy.
 
     After each launch the oldest block in flight is drained while more
     than `depth` are in flight, or while the feed has no staged block
@@ -116,8 +120,10 @@ def _loop(step, init_state, device, outputs, n_blocks: int,
     not depend on which rule drained them; the drains the starved feed
     forced are counted as ``drains_starved``.  The state is built
     (``sdr.setup.state``) and the card synchronised (``sdr.setup.sync``)
-    before ``sdr.stream`` opens and the sinks start: it is set-up.  One
-    PipelineResult an output."""
+    before ``sdr.stream`` opens and the sinks start: it is set-up.  The
+    deque holds a block an entry, and a step of nb blocks drains down to
+    depth * nb, so a device chain of K-block steps keeps one step in
+    flight.  One PipelineResult an output."""
     with spans.once("sdr.setup.state"):
         state = init_state()
     with spans.once("sdr.setup.sync"):
@@ -130,8 +136,12 @@ def _loop(step, init_state, device, outputs, n_blocks: int,
     for sinks, _fe, (channels, total_rows) in outputs:
         for s in sinks:
             s.on_start(channels, total_rows)
-    stream = (feed.device_blocks(block_len, n_blocks) if feed is not None
-              else itertools.repeat((None, 0), n_blocks))
+    if feed is not None:
+        stream = feed.device_blocks(block_len, n_blocks)
+    else:
+        q, r = divmod(n_blocks, group)
+        stream = itertools.chain(itertools.repeat((group, 0), q),
+                                 [(r, 0)] if r else [])
     fetch = _HostFetch(device)
     inflight = collections.deque()
     rows = [0] * len(outputs)
@@ -140,7 +150,7 @@ def _loop(step, init_state, device, outputs, n_blocks: int,
 
     def drain_one():
         nonlocal pkt
-        pendings, errs, t_in = inflight.popleft()
+        pendings, errs, t_in, j, nb = inflight.popleft()
         n, pkt = pkt, pkt + 1      # a block keeps its number if a sink raises
         spans.interval("sdr.inflight", n, t_in)
         for i, (pending, (sinks, front_end, _)) in enumerate(
@@ -148,6 +158,9 @@ def _loop(step, init_state, device, outputs, n_blocks: int,
             tok = spans.begin("sdr.drain.wait", n)
             data = fetch.result(pending)
             spans.end(tok)
+            if nb > 1:             # block j's rows of its step's copy
+                m = data.shape[0] // nb
+                data = data[j * m:(j + 1) * m]
             meta = PacketMeta(
                 usrp_number=usrp_number, front_end_code=front_end,
                 packet_number=n, length=int(data.size), errors=errs,
@@ -159,21 +172,29 @@ def _loop(step, init_state, device, outputs, n_blocks: int,
             rows[i] += data.shape[0]
 
     try:
-        for k, (x, errs) in enumerate(stream):
+        k = 0                      # the step's first block
+        for x, errs in stream:
+            nb = 1 if feed is not None else x
             blk = spans.begin("sdr.loop.block", k)
             tok = spans.begin("sdr.loop.step")
             state, ys = step(state, x)
             spans.end(tok)
             tok = spans.begin("sdr.fetch.start")
             outs = tuple(map(fetch.start, ys))
-            inflight.append((outs, errs, spans.end(tok)))
+            t_in = spans.end(tok)
+            if nb == 1:
+                inflight.append((outs, errs, t_in, 0, 1))
+            else:
+                inflight.extend((outs, errs, t_in, j, nb) for j in range(nb))
             spans.high("inflight_max", len(inflight))
-            while len(inflight) > depth or (
+            held = depth * nb
+            while len(inflight) > held or (
                     feed is not None and inflight and feed.starved()):
-                if len(inflight) <= depth:
+                if len(inflight) <= held:
                     spans.add("drains_starved", 1)
                 drain_one()
             spans.end(blk)
+            k += nb
         while inflight:
             drain_one()
     finally:
@@ -199,20 +220,21 @@ def _loop(step, init_state, device, outputs, n_blocks: int,
 def run_chunked(step, init_state, n_blocks: int, block_len: int,
                 channels: int, total_rows: int, device,
                 sinks: Sequence[Sink] = (), usrp_number: int = 0,
-                front_end: str = "A") -> PipelineResult:
+                front_end: str = "A", group: int = 1) -> PipelineResult:
     """Acquisition loop of the on-device chains (engine/fused.py): no
     host input; `step(state) -> (state, y)` produces one block's
     (rows, channels) output, `n_blocks` times, with one block in flight
-    while the previous drains to the sinks (_loop at depth 1).  The
-    state is built before the sinks start: it is set-up.  (The JAX
-    package scans K blocks per launch to amortize dispatch; PyTorch runs
-    eagerly, so a step here is one block.)"""
-    def step_one(state, _x):
-        state, y = step(state)
+    while the previous drains to the sinks (_loop at depth 1).  With
+    `group` K above 1, `step(state, nb) -> (state, y)` produces nb <= K
+    blocks' outputs stacked, (nb * rows, channels), and one step of
+    blocks is in flight (engine/replay.DeviceReplay's CUDA graphs of K
+    blocks).  The state is built before the sinks start: it is set-up."""
+    def step_one(state, nb):
+        state, y = step(state, nb) if group > 1 else step(state)
         return state, (y,)
     return _loop(step_one, init_state, device,
                  [(sinks, front_end, (channels, total_rows))], n_blocks,
-                 block_len, usrp_number)[0]
+                 block_len, usrp_number, group=group)[0]
 
 
 def run_pipeline(demod: Demodulator, source: Source,

@@ -25,26 +25,32 @@ The kernel sub-paths need a looped recording of whole blocks.  Each
 sub-path is a chain (``path_name``, ``init_state``, ``step``) driven by
 engine/pipeline.run_chunked, one block per step, as engine/fused.py's
 chains are.  Block indices and stream positions are Python ints, so
-nothing on the card waits for the host.  ``SegmentedDeviceReplay``
-serves a recording over the budget: segments staged through pinned
-memory on a copy stream while the previous one is demodulated.
+nothing on the card waits for the host.  On a card, a chain whose
+launches depend on the block index alone (``graph_groups``:
+``replay_kernel``, ``replay_kernel_t``, ``channelizer_at``) runs K
+blocks a step instead, each step the replay of one CUDA graph of its K
+per-block steps (_GraphGroups).  ``SegmentedDeviceReplay`` serves a
+recording over the budget: segments staged through pinned memory on a
+copy stream while the previous one is demodulated.
 
-Not ported: the JAX package's K blocks per execution (one block per
-launch here; the outputs are the same), its lane padding of the channel
-list (``pad_rx_freqs``: outputs carry ``len(rx.freq)`` channels), its
-Pallas switch and precision gate, and the transposed recording layout
-of its channelizer kernel.
+Not ported: the JAX package's K blocks per kernel launch (a graph here
+replays one launch a block; the outputs are the same), its lane padding
+of the channel list (``pad_rx_freqs``: outputs carry ``len(rx.freq)``
+channels), its Pallas switch and precision gate, and the transposed
+recording layout of its channelizer kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .. import spans
+from .. import kernels, spans
 from ..config import resolve_device
 from ..ops import chirp as chirp_ops
 from ..ops import pfb as pfb_ops
@@ -64,6 +70,7 @@ from .sources import ArraySource, ReplaySource
 # a larger one takes SegmentedDeviceReplay
 DEVICE_REPLAY_MAX_BYTES = 2 << 30
 UPLOAD_CHUNK = 1 << 22              # samples per host->device copy (32 MB)
+GROUP_BLOCKS = 8                    # blocks a CUDA graph replays, at most
 
 
 def _wave(rx: AntennaParams):
@@ -164,6 +171,7 @@ class _ChannelizerAt:
     ``sdr.pfb.channelize``, ``sdr.pfb.select``."""
 
     path_name = "channelizer_at"
+    graph_groups = True
 
     def __init__(self, cfg: pfb_ops.PFBConfig, X: torch.Tensor, L: int,
                  device):
@@ -301,6 +309,133 @@ class _Scan:
         return (st, nxt), y
 
 
+def group_blocks(nblk: int) -> int:
+    """The blocks a step of a recording of nblk blocks: the largest
+    divisor of nblk up to GROUP_BLOCKS, so that the groups start on the
+    same blocks in every pass over the recording."""
+    return max(k for k in range(1, GROUP_BLOCKS + 1) if nblk % k == 0)
+
+
+def _key(state) -> tuple:
+    """A chain state's Python numbers: what a captured graph bakes in."""
+    return tuple(v for v in state if not isinstance(v, torch.Tensor))
+
+
+class _GraphGroups:
+    """K consecutive blocks of a chain a step, ``step(state, nb)``: the
+    nb blocks' outputs stacked, (nb * rows, C).  `step` is the chain's
+    one-block step, over a recording of `nblk` blocks; the chain
+    declares ``graph_groups``: its launches depend on its state's Python
+    numbers (block index, started flag) alone, and its state's tensors
+    (the DDC replay's phase) are its only device state.
+
+    The set-up runs the stream's first K blocks eagerly, so the kernels,
+    the allocator and the libraries are ready, then captures a CUDA
+    graph for each group start the stream reaches from there: nblk / K
+    graphs, one memory pool.  A graph runs the K steps as they are,
+    copies each block's output into one static (K * rows, C) buffer and
+    the last state's tensors back into static tensors, which every graph
+    reads.  A step from a state with a graph replays it and returns a
+    copy of the buffer, made before the next replay can overwrite it;
+    any other step (the stream's first group, its tail) runs the chain
+    eagerly.  The kernels' launch counters count one launch a block
+    run, the warm-up's included, and none for the capture; spans'
+    ``graph_blocks`` counts the blocks replayed."""
+
+    def __init__(self, step, init_state, nblk: int, K: int, device):
+        self._step, self._init = step, init_state
+        self.nblk, self.K, self.device = nblk, K, device
+        self._graphs = {}
+
+    def init_state(self):
+        state = self._init()
+        self._capture(state)
+        return state
+
+    def _capture(self, state) -> None:
+        K = self.K
+        for _ in range(K):          # the warm-up: its outputs are dropped
+            state, y = self._step(state)
+        wrappers = kernels.wrappers()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        rows = y.shape[0]
+        self._out = y.new_empty((K * rows,) + tuple(y.shape[1:]))
+        self._pos = [i for i, v in enumerate(state)
+                     if isinstance(v, torch.Tensor)]
+        self._static = [state[i].clone() for i in self._pos]
+        state = self._with_static(state)
+        with self._capturing() as graph_of:
+            while _key(state) not in self._graphs and \
+                    len(self._graphs) < self.nblk // K:
+                before = kernels.launch_counts()
+                graph, st = graph_of(functools.partial(self._group, state,
+                                                      rows))
+                after = kernels.launch_counts()
+                counted = [(wrappers[k], after[k] - before[k])
+                           for k in after if after[k] != before[k]]
+                st = self._with_static(st)
+                self._graphs[_key(state)] = (graph, st, counted)
+                state = st
+        for k, w in wrappers.items():
+            w.launches = counts[k]
+
+    def _group(self, state, rows: int):
+        """What a graph holds: K steps from `state`, each output into
+        its rows of the static buffer, the last state's tensors into the
+        static ones; the last state."""
+        for j in range(self.K):
+            state, y = self._step(state)
+            self._out[j * rows:(j + 1) * rows].copy_(y)
+        for i, t in zip(self._pos, self._static):
+            t.copy_(state[i])
+        return state
+
+    @contextlib.contextmanager
+    def _capturing(self):
+        """``graph_of(fn) -> (graph, fn())``: a CUDA graph of fn, each
+        captured on one side stream into one memory pool."""
+        pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+
+        def graph_of(fn):
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+            return graph, out
+        with torch.cuda.stream(side):
+            yield graph_of
+        torch.cuda.current_stream(self.device).wait_stream(side)
+
+    def _with_static(self, state) -> tuple:
+        state = list(state)
+        for i, t in zip(self._pos, self._static):
+            state[i] = t
+        return tuple(state)
+
+    def step(self, state, nb: int):
+        hit = self._graphs.get(_key(state)) if nb == self.K else None
+        if hit is None:
+            ys = []
+            for _ in range(nb):
+                state, y = self._step(state)
+                ys.append(y)
+            return state, ys[0] if nb == 1 else torch.cat(ys)
+        graph, state_out, counted = hit
+        for i, t in zip(self._pos, self._static):
+            if state[i] is not t:
+                t.copy_(state[i])
+        graph.replay()
+        for w, n in counted:
+            w.launches += n
+        spans.add("graph_blocks", nb)
+        return state_out, self._out.clone()
+
+
 @dataclasses.dataclass
 class DeviceReplay:
     """Demodulation of a recording uploaded once to `device`.  ``path``
@@ -352,12 +487,29 @@ class DeviceReplay:
     def run(self, sinks=(), usrp_number: int = 0,
             front_end: str = "A") -> PipelineResult:
         """Demodulate the acquisition (rx.samples) into the sinks, one
-        packet per block."""
-        plan = self.demod.plan
-        return run_chunked(self.step, self.init_state, plan.n_blocks,
+        packet per block, graph_group() blocks a step: above 1, each
+        step a CUDA graph's replay (_GraphGroups)."""
+        plan, K = self.demod.plan, self.graph_group()
+        step, init_state = self.step, self.init_state
+        if K > 1:
+            groups = _GraphGroups(self.step, self.init_state,
+                                  self._chain.nblk, K, self.device)
+            step, init_state = groups.step, groups.init_state
+        return run_chunked(step, init_state, plan.n_blocks,
                            plan.block_len, self.demod.n_channels,
                            plan.total_out_rows, self.device, sinks,
-                           usrp_number=usrp_number, front_end=front_end)
+                           usrp_number=usrp_number, front_end=front_end,
+                           group=K)
+
+    def graph_group(self) -> int:
+        """The blocks a step of run(): on a card, group_blocks(nblk) for
+        a chain that declares ``graph_groups``; else 1 (no CUDA graph to
+        capture)."""
+        chain = self._chain
+        if self.device.type != "cuda" or \
+                not getattr(chain, "graph_groups", False):
+            return 1
+        return group_blocks(chain.nblk)
 
 
 def _recording_bytes(source) -> int:

@@ -43,6 +43,7 @@ class ReplayDDC:
 
     path_name = "replay_kernel"
     row_mode = False
+    graph_groups = True     # engine/replay._GraphGroups may replay K steps
     launches = 0
 
     @classmethod

@@ -249,12 +249,15 @@ class Recorder:
                 "fft_plans": plans}
 
     def stream_start(self, device) -> None:
-        """The sinks start: sdr.stream opens; counters read."""
+        """The sinks start: sdr.stream opens; counters read, and
+        ``graph_blocks`` (the blocks a CUDA graph replay issued,
+        engine/replay._GraphGroups) starts at 0."""
         self._stream_tok = self.begin("sdr.stream")
         if self.stream_first is None:
             self.stream_first = self._stream_tok[4]
         if self.blocks:
             self._at_start = self._snapshot(device)
+            self._counts.setdefault("graph_blocks", 0)
 
     def stream_end(self, device) -> None:
         """The sinks have ended: sdr.stream closes; counters read."""
